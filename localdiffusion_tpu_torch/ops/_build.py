@@ -1,0 +1,78 @@
+"""Builds the port's CUDA sources with plain nvcc and loads them with ctypes.
+
+Each `csrc/<name>.cu` exposes a plain C interface (no PyTorch headers), so
+one nvcc call builds it in seconds.  The shared library goes to `build/`
+beside the package (ignored by git), named by the source's hash, so an
+edited source is rebuilt at its next first use and an unchanged one is not.
+A failed build raises with nvcc's stderr.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_loaded: dict = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME")
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu unless a library of the same hash exists."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed building {name}.cu (exit {proc.returncode}):\n"
+            f"{' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library for csrc/<name>.cu, built at first use."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name)))
+            _loaded[name] = lib
+        return lib
