@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -7,44 +7,64 @@ Phases, each printed on its own line with the elapsed seconds:
 
 1. device: requires CUDA, prints the card's name and power limit, and turns
    TF32 off for convolutions and matrix products (exact float32 checks);
-2. build: builds the CUDA kernels from `localdiffusion_tpu_torch/csrc` with
-   nvcc and prints how long it took;
-3. kernel: the GroupNorm+FiLM+SiLU kernel against its plain PyTorch version
-   at each shape the flagship UNet gives it (batch 64, branched pair of
-   128), with and without FiLM, in float32 and bfloat16; prints the error
-   against the tolerance and CUDA-event times (replayed from a CUDA graph,
-   so host overhead is left out) of the kernel, the plain version,
-   `F.group_norm` alone and the memory bound;
-4. main path: with every launch count at 0, `LocalDiffusionPipeline.translate`
-   on the 28px flagship (seeded random weights, T=50) at batch 64 with the
-   manual mask, then an `InferenceServer` (batch 8) answering three requests;
-   checks that the kernel ran 32 times per UNet call;
-5. check: the same chain with the plain GroupNorm on the card, and a small
-   batch on the CPU, each against the kernel chain's images;
-6. profile: one chain under torch.profiler: the card's busy share and the
-   operations that take its time.
+2. build: builds every CUDA source in `localdiffusion_tpu_torch/csrc` with
+   nvcc, one process per source, all at once, and prints the times;
+3. flagship kernel: the GroupNorm+FiLM+SiLU kernel against its plain version
+   at each shape the 28px flagship UNet gives it (batch 64, branched pair
+   of 128), float32 and bfloat16, with CUDA-event times (replayed from a
+   CUDA graph, so host overhead is left out) of the kernel, the plain
+   version, `F.group_norm` alone and the memory bound;
+4. flagship main path: with every launch count at 0, `translate` on the
+   flagship (seeded random weights, T=50, f32) at batch 64 with the manual
+   mask, then an `InferenceServer` answering three requests; the counts
+   are read right after;
+5. flagship check: the same chain with every kernel's plain version on the
+   card, and a small batch on the CPU, against the kernel chain;
+6. flagship profile: one chain under torch.profiler;
+7. 256px kernels: each kernel of the 256px MRI chain against its plain
+   version at the shapes that chain gives it (one UNet call at batch 8 is
+   recorded by hooks): full attention [8,1024,4,32] in bf16 and f32 (and
+   `scaled_dot_product_attention` timed beside it), the linear-attention
+   kv and q kernels at the six linear-attention sites, the GroupNorm kernel
+   at the 40 Block shapes, all in bf16; errors against tolerances, times
+   and bounds, summed per UNet call;
+8. 256px main path: with every count at 0, `translate` on the 256px chain
+   (full width, seeded random weights, T=250, bf16, branched) at batch 4
+   with a given disc mask, then an `InferenceServer` answering three 256px
+   requests; checks each kernel's launches per UNet call;
+9. 256px check: the chain against the same chain with every kernel's plain
+   version on the card (same noise), and one UNet call against the CPU;
+10. 256px profile: one chain under torch.profiler.
 
-The line before the last is one JSON object with the kernel's numbers; the
+The line before the last is one JSON object with the kernels' numbers; the
 last line is the device record.  Any failed check raises, so the exit code
 is not 0.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from localdiffusion_tpu_torch.config import flagship_config
-from localdiffusion_tpu_torch.diffusion.gaussian import GaussianDiffusion
+from localdiffusion_tpu_torch.config import flagship_config, mri256_config
+from localdiffusion_tpu_torch.diffusion.gaussian import GaussianDiffusion, build_gd
 from localdiffusion_tpu_torch.diffusion.sampler import ArrayNoise
-from localdiffusion_tpu_torch.models.blocks import GroupNormFilmSiLU
+from localdiffusion_tpu_torch.models.blocks import (
+    Attention,
+    GroupNormFilmSiLU,
+    LinearAttention,
+)
 from localdiffusion_tpu_torch.ood.manual import manual_mask
 from localdiffusion_tpu_torch.ops import _build
+from localdiffusion_tpu_torch.ops import linear_attention as LA
+from localdiffusion_tpu_torch.ops.attention import flash_attention, xla_attention
 from localdiffusion_tpu_torch.ops.groupnorm import (
     groupnorm_film_silu,
     groupnorm_film_silu_reference,
@@ -52,26 +72,69 @@ from localdiffusion_tpu_torch.ops.groupnorm import (
 from localdiffusion_tpu_torch.pipeline import LocalDiffusionPipeline
 from localdiffusion_tpu_torch.serving import InferenceServer
 
-BATCH = 64
+KERNELS = ("groupnorm_film_silu", "flash_attention", "linear_attention")
+COUNTERS = {
+    "groupnorm_film_silu": groupnorm_film_silu,
+    "flash_attention": flash_attention,
+    "linear_attention_kv": LA.linear_attention_kv,
+    "linear_attention_q": LA.linear_attention_q,
+}
+
+BATCH = 64  # flagship chain
 SERVE_BATCH = 8
-GN_LAUNCHES_PER_UNET_CALL = 32  # two Blocks in each of the 16 ResnetBlocks
-# H100 SXM data-sheet peaks: device memory, and float32 outside tensor cores
+MRI_BATCH = 4  # 256px chain: an [8] UNet batch in the branched phase
+MRI_SERVE_BATCH = 4
+FLAGSHIP_PER_CALL = {"groupnorm_film_silu": 32}  # 2 Blocks x 16 ResnetBlocks
+# per 256px UNet call: 3 full-attention sites, 6 linear-attention sites,
+# 2 Blocks x 20 ResnetBlocks
+MRI_PER_CALL = {"groupnorm_film_silu": 40, "flash_attention": 3,
+                "linear_attention_kv": 6, "linear_attention_q": 6}
+# H100 SXM data-sheet peaks: device memory, float32 outside the tensor cores,
+# bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 GN_OPS_PER_ELEMENT = 14  # stats 4, normalize+affine 3, FiLM 2, SiLU 5
-# kernel vs plain version: float32 differs only by summation order; bfloat16
-# may differ by one rounding step of the output (2^-8 relative)
+# GN kernel vs plain version: float32 differs only by summation order;
+# bfloat16 may differ by one rounding step of the output (2^-8 relative)
 GN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-# final images of the chain, kernel vs plain GroupNorm (same card, same
-# noise) and card vs CPU: float32 differences of ~1e-6 per call, carried
-# through 50 posterior steps and clipped to [0, 2]
+# attention kernel vs plain version: float32, summation order; bfloat16, one
+# output rounding step (the kernel keeps the probabilities in float32 where
+# the plain version rounds them to bf16)
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+# linear attention, the JAX tests' bar between the Pallas kernels and their
+# reference (bf16 rounding points differ between the streaming and unfused
+# forms): atol 0.04 / rtol 0.05 and correlation > 0.999; the kv partials are
+# compared as G / l (an average of RMS-normalised inputs, O(1)) at 2e-2
+LINATT_TOL = dict(atol=0.04, rtol=0.05)
+KV_TOL = 2e-2
+# flagship final images, kernel vs plain (same card, same noise) and card vs
+# CPU: float32 differences of ~1e-6 per call through 50 posterior steps
 CHAIN_TOL = 1e-3
+# 256px, bf16.  One UNet call, card (kernels) vs CPU (plain versions), same
+# weights and inputs: relative L2 <= 5e-2 and correlation >= 0.999, the bar
+# the CPU tests hold the port's bf16 UNet to against JAX (independent bf16
+# rounding through ~60 layers gives 2e-2); float32: 1e-3.  The 250-step
+# chain, kernels vs plain versions: each call carries such bf16 differences
+# and the posterior steps add them up, so relative L2 <= 0.1 and correlation
+# >= 0.99 on images in [0, 14.6].
+MRI_UNET_REL, MRI_UNET_CORR, MRI_UNET_F32_TOL = 5e-2, 0.999, 1e-3
+MRI_CHAIN_REL, MRI_CHAIN_CORR = 0.1, 0.99
 
 _T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
     print(f"[{time.perf_counter() - _T0:8.2f}s] {msg}", flush=True)
+
+
+def reset_counts() -> None:
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTERS.items()}
 
 
 def cuda_ms(fn, iters: int = 20, reps: int = 10) -> tuple:
@@ -108,6 +171,13 @@ def cuda_ms(fn, iters: int = 20, reps: int = 10) -> tuple:
     return eager, start.elapsed_time(end) / (iters * reps)
 
 
+def bound(bytes_moved: float, ops: float, ops_per_s: float) -> tuple:
+    """(bound ms, 'bytes' or 'operations')."""
+    b_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S
+    o_ms = 1e3 * ops / ops_per_s
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; torch.cuda.is_available() is False")
@@ -125,30 +195,49 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> float:
+def phase_build() -> None:
+    """One nvcc per source, all started together."""
+    def one(name):
+        t0 = time.perf_counter()
+        _build.build(name)
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    _build.load("groupnorm_film_silu")
-    dt = time.perf_counter() - t0
-    log(f"build: groupnorm_film_silu.cu with nvcc in {dt:.2f}s "
-        f"-> {_build.library_path('groupnorm_film_silu').name}")
-    return dt
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        times = dict(zip(KERNELS, pool.map(one, KERNELS)))
+    for name in KERNELS:
+        _build.load(name)
+    total = time.perf_counter() - t0
+    log(f"build: {', '.join(f'{n}.cu {t:.2f}s' for n, t in times.items())} "
+        f"(in parallel, {total:.2f}s wall)")
 
 
-def gn_launch_shapes(gd, batch: int):
-    """(NHWC shape, FiLM?) of each GroupNorm launch in one UNet call at
-    `batch` rows, recorded by hooks on the model's GroupNorm modules."""
-    seen = []
+def record_calls(gd, batch: int, cond_max: float) -> dict:
+    """The inputs each kernel-bearing module sees in one UNet call at
+    `batch` rows (condition drawn in [0, cond_max]), recorded by forward
+    pre-hooks: GroupNorm (NHWC shape, FiLM?), linear attention (module, NHWC
+    shape, channels_last?), full attention (module, NCHW shape)."""
+    seen = {"gn": [], "linatt": [], "attn": []}
 
-    def hook(_mod, args):
-        seen.append((tuple(args[0].permute(0, 2, 3, 1).shape),
-                     len(args) > 1 and args[1] is not None))
+    def gn_hook(_mod, args):
+        seen["gn"].append((tuple(args[0].permute(0, 2, 3, 1).shape),
+                           len(args) > 1 and args[1] is not None))
 
-    norms = [m for m in gd.model.modules() if isinstance(m, GroupNormFilmSiLU)]
-    handles = [m.register_forward_pre_hook(hook) for m in norms]
+    def la_hook(mod, args):
+        x = args[0]
+        seen["linatt"].append((mod, tuple(x.permute(0, 2, 3, 1).shape),
+                               x.is_contiguous(memory_format=torch.channels_last)))
+
+    def at_hook(mod, args):
+        seen["attn"].append((mod, tuple(args[0].shape)))
+
+    hooks = {GroupNormFilmSiLU: gn_hook, LinearAttention: la_hook, Attention: at_hook}
+    handles = [m.register_forward_pre_hook(hooks[type(m)])
+               for m in gd.model.modules() if type(m) in hooks]
     try:
         s = gd.image_size
         x = torch.randn(batch, s, s, 1, device="cuda")
-        feat = gd.encode_cond(torch.rand(batch, s, s, 1, device="cuda") * 2)
+        feat = gd.encode_cond(torch.rand(batch, s, s, 1, device="cuda") * cond_max)
         gd.apply_model(x, None, torch.full((batch,), 10, device="cuda"), cond_feat=feat)
         torch.cuda.synchronize()
     finally:
@@ -165,22 +254,18 @@ def _gn_inputs(shape, film, dtype, gen):
     return x, r(c), r(c), scale, shift
 
 
-def phase_kernel(gd) -> dict:
-    """The kernel against its plain version at the main path's shapes; the
-    times are summed over the launches of one UNet call (batch 128)."""
-    launches = gn_launch_shapes(gd, 2 * BATCH)
-    if len(launches) != GN_LAUNCHES_PER_UNET_CALL:
-        raise RuntimeError(f"{len(launches)} GroupNorm launches per UNet call, "
-                           f"expected {GN_LAUNCHES_PER_UNET_CALL}")
+def gn_kernel_phase(launches, dtypes, time_dtype, label, iters=(20, 10)) -> dict:
+    """The GN kernel against its plain version at each (shape, FiLM) of one
+    UNet call; times summed over that call's launches, in `time_dtype`."""
     counts = {}
     for key in launches:
         counts[key] = counts.get(key, 0) + 1
     gen = torch.Generator(device="cuda").manual_seed(0)
-    max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    max_err = {dt: 0.0 for dt in dtypes}
     totals = dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, group_norm_ms=0.0,
                   bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
     for (shape, film), n in sorted(counts.items()):
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             x, g, b, s, h = _gn_inputs(shape, film, dtype, gen)
             got = groupnorm_film_silu(x, g, b, s, h, groups=8)
             torch.cuda.synchronize()
@@ -189,85 +274,86 @@ def phase_kernel(gd) -> dict:
             tol = GN_TOL[dtype]
             ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
             max_err[dtype] = max(max_err[dtype], err)
-            log(f"kernel {list(shape)} film={film} {str(dtype)[6:]}: "
+            log(f"{label} GN {list(shape)} film={film} {str(dtype)[6:]}: "
                 f"max_abs_err {err:.3g} (tol {tol:g} abs+rel) {'ok' if ok else 'FAIL'}")
             if not ok:
-                raise RuntimeError(f"kernel disagrees with its plain version at {shape}")
-            if dtype != torch.float32:
-                continue  # the flagship runs float32: time that
-            k_eager, k_ms = cuda_ms(lambda: groupnorm_film_silu(x, g, b, s, h, groups=8))
-            _, p_ms = cuda_ms(lambda: groupnorm_film_silu_reference(x, g, b, s, h, groups=8))
+                raise RuntimeError(f"GN kernel disagrees with its plain version at {shape}")
+            if dtype != time_dtype:
+                continue
+            k_eager, k_ms = cuda_ms(lambda: groupnorm_film_silu(x, g, b, s, h, groups=8), *iters)
+            _, p_ms = cuda_ms(lambda: groupnorm_film_silu_reference(x, g, b, s, h, groups=8),
+                              *iters)
             xc = x.permute(0, 3, 1, 2)  # NCHW view (channels_last)
-            _, l_ms = cuda_ms(lambda: F.group_norm(xc, 8, g, b, eps=1e-5))
+            gc, bc = g.to(dtype), b.to(dtype)
+            _, l_ms = cuda_ms(lambda: F.group_norm(xc, 8, gc, bc, eps=1e-5), *iters)
             bytes_moved = 2 * x.numel() * x.element_size() + 2 * g.numel() * 4
             if film:
                 bytes_moved += 2 * s.numel() * 4
             bytes_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S
             ops_ms = 1e3 * GN_OPS_PER_ELEMENT * x.numel() / FP32_OPS_PER_S
-            bound = max(bytes_ms, ops_ms)
-            log(f"  device times, x{n} per UNet call: kernel {k_ms * 1e3:.2f}us "
-                f"(eager from Python {k_eager * 1e3:.2f}us) plain {p_ms * 1e3:.2f}us "
-                f"F.group_norm {l_ms * 1e3:.2f}us bound {bound * 1e3:.2f}us "
+            log(f"  device us/launch, x{n} per UNet call: kernel {k_ms * 1e3:.2f} "
+                f"(eager from Python {k_eager * 1e3:.2f}) plain {p_ms * 1e3:.2f} "
+                f"F.group_norm {l_ms * 1e3:.2f} bound {max(bytes_ms, ops_ms) * 1e3:.2f} "
                 f"({bytes_moved / 1e6:.2f} MB)")
-            totals["ms"] += n * k_ms
-            totals["eager_ms"] += n * k_eager
-            totals["plain_ms"] += n * p_ms
-            totals["group_norm_ms"] += n * l_ms
-            totals["bound_ms"] += n * bound
-            totals["bytes_ms"] += n * bytes_ms
-            totals["ops_ms"] += n * ops_ms
-    log(f"kernel per UNet call (32 launches, f32, device): kernel {totals['ms']:.4f}ms "
-        f"(eager {totals['eager_ms']:.4f}ms) "
+            for key, v in (("ms", k_ms), ("eager_ms", k_eager), ("plain_ms", p_ms),
+                           ("group_norm_ms", l_ms), ("bound_ms", max(bytes_ms, ops_ms)),
+                           ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+                totals[key] += n * v
+    log(f"{label} GN per UNet call ({len(launches)} launches, {str(time_dtype)[6:]}, device): "
+        f"kernel {totals['ms']:.4f}ms (eager {totals['eager_ms']:.4f}ms) "
         f"plain {totals['plain_ms']:.4f}ms F.group_norm {totals['group_norm_ms']:.4f}ms "
-        f"bound {totals['bound_ms']:.4f}ms; max_abs_err f32 {max_err[torch.float32]:.3g} "
-        f"bf16 {max_err[torch.bfloat16]:.3g}")
-    return dict(totals, max_abs_err=max_err[torch.float32],
-                max_abs_err_bf16=max_err[torch.bfloat16])
+        f"bound {totals['bound_ms']:.4f}ms; max_abs_err "
+        + " ".join(f"{str(dt)[6:]} {e:.3g}" for dt, e in max_err.items()))
+    return dict(totals, max_abs_err=max_err[time_dtype],
+                max_abs_err_by_dtype={str(dt)[6:]: e for dt, e in max_err.items()})
 
 
-def _check_images(name, pred, shape, lo=0.0, hi=2.0):
+def _check_images(name, pred, shape, lo, hi):
     if pred.shape != shape or not np.all(np.isfinite(pred)):
         raise RuntimeError(f"{name}: shape {pred.shape} or non-finite values")
     if pred.min() < lo - 1e-5 or pred.max() > hi + 1e-5:
         raise RuntimeError(f"{name}: values outside [{lo}, {hi}]")
 
 
-def phase_main_path(pipe, lr, hr, mask):
-    """The counted run: translate at batch 64, then three served requests."""
+def run_main_path(pipe, lr, hr, mask, per_call, serve_batch, label):
+    """The counted run: translate with every count at 0, then three served
+    requests (uniform mask: plain; the mask; the mask of row 2 or, for the
+    manual detector, none).  Checks each kernel's launches per UNet call."""
     gd = pipe.gd
     T = gd.num_timesteps
-    pipe.translate(lr, hr=hr, noise=1, mask=mask)  # warm-up (not counted)
-    torch.cuda.synchronize()
-
-    groupnorm_film_silu.launches = 0
+    lo, hi = pipe.min_max_val
+    b = lr.shape[0]
+    reset_counts()
     res = pipe.translate(lr, hr=hr, noise=1, mask=mask)
-    after_chain = groupnorm_film_silu.launches
+    chain_counts = read_counts()
     s = pipe.config.sampler.start_timestep
     dt = float(res["time"])
-    steps = BATCH * (2 * (T - s) + s)  # a branched step counts as two
-    log(f"chain: branched={bool(res['branched'])} {dt * 1e3:.1f}ms for {BATCH} images "
-        f"-> {BATCH / dt:.2f} img/s, {steps / dt:.1f} model-steps/s; "
+    steps = b * (2 * (T - s) + s)  # a branched step counts as two
+    log(f"{label} chain: branched={bool(res['branched'])} {dt * 1e3:.1f}ms for {b} images "
+        f"-> {b / dt:.3f} img/s, {steps / dt:.1f} model-steps/s; "
         f"mse {float(res['mse']):.4f} ssim {float(res['ssim']):.4f} "
-        f"psnr {float(res['psnr']):.2f}; kernel launches {after_chain}")
+        f"psnr {float(res['psnr']):.2f}; launches {chain_counts}")
     if not bool(res["branched"]):
-        raise RuntimeError("the manual mask must take the branched chain")
-    if after_chain != GN_LAUNCHES_PER_UNET_CALL * T:
-        raise RuntimeError(f"{after_chain} kernel launches, expected "
-                           f"{GN_LAUNCHES_PER_UNET_CALL} x {T} UNet calls")
-    _check_images("chain", res["pred"], lr.shape)
+        raise RuntimeError("the mask must take the branched chain")
+    for name, n in per_call.items():
+        if chain_counts[name] != n * T:
+            raise RuntimeError(f"{name}: {chain_counts[name]} launches in the chain, "
+                               f"expected {n} x {T} UNet calls")
+    _check_images(f"{label} chain", res["pred"], lr.shape, lo, hi)
 
     s_ = gd.image_size
     ones = np.ones((s_, s_, 1), np.float32)
-    srv = InferenceServer(pipe, batch_size=SERVE_BATCH, max_wait_ms=200)
-    reqs = [(lr[0], ones), (lr[1], mask[1]), (lr[2], None)]  # None: manual detector
+    third = None if pipe.config.ood.detector == "manual" else mask[2]
+    reqs = [(lr[0], ones), (lr[1], mask[1]), (lr[2], third)]
+    srv = InferenceServer(pipe, batch_size=serve_batch, max_wait_ms=200)
     futs = [srv.submit(x, m) for x, m in reqs]
     t0 = time.perf_counter()
     with srv:
-        outs = [f.result(timeout=300) for f in futs]
+        outs = [f.result(timeout=600) for f in futs]
     served_s = time.perf_counter() - t0
-    launches = groupnorm_film_silu.launches
+    counts = read_counts()
     stats = srv.snapshot_stats()
-    log(f"serving: {stats['requests']} requests in {stats['batches']} batch(es), "
+    log(f"{label} serving: {stats['requests']} requests in {stats['batches']} batch(es), "
         f"merged {stats['merged_dispatches']} plain {stats['plain_dispatches']} "
         f"branched {stats['branched_dispatches']}, padded {stats['padded_slots']}, "
         f"mean latency {stats['latency_mean_s'] * 1e3:.1f}ms ({served_s:.2f}s wall); "
@@ -279,47 +365,17 @@ def phase_main_path(pipe, lr, hr, mask):
     if [o["branched"] for o in outs] != [False, True, True]:
         raise RuntimeError("served branched flags wrong")
     for i, o in enumerate(outs):
-        _check_images(f"served request {i}", o["pred"], (s_, s_, 1))
-    if launches - after_chain != GN_LAUNCHES_PER_UNET_CALL * T * dispatches:
-        raise RuntimeError(f"{launches - after_chain} kernel launches while serving")
-    log(f"main path: kernel launches {launches} "
-        f"(chain {after_chain} + serving {launches - after_chain})")
-    return res, launches
+        _check_images(f"{label} served request {i}", o["pred"], (s_, s_, 1), lo, hi)
+    for name, n in per_call.items():
+        served = counts[name] - chain_counts[name]
+        if served != n * T * dispatches:
+            raise RuntimeError(f"{name}: {served} launches while serving")
+    log(f"{label} main path: launches {counts} (chain {chain_counts})")
+    return res, counts, dict(chain_s=dt, img_per_s=b / dt, model_steps_per_s=steps / dt,
+                             serve_latency_mean_s=stats["latency_mean_s"])
 
 
-def phase_check(pipe, lr, mask, res):
-    """The kernel chain against the plain-GroupNorm chain on the card, and a
-    small batch against the same chain on the CPU."""
-    gd = pipe.gd
-    gd.model.use_plain_groupnorm(True)
-    try:
-        plain = pipe.translate(lr, noise=1, mask=mask)
-    finally:
-        gd.model.use_plain_groupnorm(False)
-    err = float(np.abs(plain["pred"] - res["pred"]).max())
-    log(f"check: kernel chain vs plain-GroupNorm chain max_abs_err {err:.3g} "
-        f"(tol {CHAIN_TOL:g})")
-    if not err <= CHAIN_TOL:
-        raise RuntimeError("the kernel chain disagrees with the plain-GroupNorm chain")
-
-    cfg = pipe.config
-    cpu_gd = GaussianDiffusion(cfg.model, cfg.diffusion, device="cpu")
-    cpu_gd.model.load_state_dict({k: v.cpu() for k, v in gd.model.state_dict().items()})
-    cpu_pipe = LocalDiffusionPipeline(cfg, cpu_gd)
-    rng = np.random.default_rng(2)
-    shape = (2, gd.image_size, gd.image_size, 1)
-    stream = [rng.standard_normal(shape).astype(np.float32)
-              for _ in range(gd.num_timesteps + 1)]
-    on_card = pipe.translate(lr[:2], noise=ArrayNoise(stream, "cuda"), mask=mask[:2])
-    on_cpu = cpu_pipe.translate(lr[:2], noise=ArrayNoise(stream, "cpu"), mask=mask[:2])
-    err_cpu = float(np.abs(on_card["pred"] - on_cpu["pred"]).max())
-    log(f"check: card vs CPU (batch 2, same weights and noise) max_abs_err "
-        f"{err_cpu:.3g} (tol {CHAIN_TOL:g})")
-    if not err_cpu <= CHAIN_TOL:
-        raise RuntimeError("the card's chain disagrees with the CPU's")
-
-
-def phase_profile(pipe, lr, mask) -> None:
+def profile_chain(pipe, lr, mask, label, top=12) -> dict:
     """Where one branched chain's time goes on the card (torch.profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -331,50 +387,338 @@ def phase_profile(pipe, lr, mask) -> None:
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
     wall_us = float(res["time"]) * 1e6
-    log(f"profile: chain {wall_us / 1e3:.1f}ms wall (profiled), card busy "
+    log(f"{label} profile: chain {wall_us / 1e3:.1f}ms wall (profiled), card busy "
         f"{busy_us / 1e3:.1f}ms = {100 * busy_us / wall_us:.1f}%, idle "
         f"{100 - 100 * busy_us / wall_us:.1f}%, {sum(e.count for e in kernels)} kernels")
-    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]:
-        log(f"  {e.self_device_time_total / 1e3:8.2f}ms {e.count:6d}x  {e.key[:100]}")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
+        log(f"  {e.self_device_time_total / 1e3:8.2f}ms {e.count:7d}x  {e.key[:110]}")
+    return dict(busy_share=busy_us / wall_us)
 
 
-def main() -> None:
-    phase_device()
-    phase_build()
+# ---------------------------------------------------------------------------
+# the 28px flagship
+# ---------------------------------------------------------------------------
 
+def flagship() -> dict:
     cfg = flagship_config()
     gd = GaussianDiffusion(cfg.model, cfg.diffusion, device="cuda")
     pipe = LocalDiffusionPipeline(cfg, gd)
-    log(f"model: flagship UNet dim {cfg.model.dim} mults {cfg.model.dim_mults}, "
+    log(f"flagship model: dim {cfg.model.dim} mults {cfg.model.dim_mults}, "
         f"{sum(p.numel() for p in gd.model.parameters())} params (seeded random), "
-        f"T={gd.num_timesteps}, {cfg.diffusion.beta_schedule}, {cfg.diffusion.objective}")
-
-    gn = phase_kernel(gd)
+        f"T={gd.num_timesteps}, {cfg.diffusion.beta_schedule}, {cfg.diffusion.objective}, f32")
+    seen = record_calls(gd, 2 * BATCH, pipe.min_max_val[1])
+    if len(seen["gn"]) != FLAGSHIP_PER_CALL["groupnorm_film_silu"]:
+        raise RuntimeError(f"{len(seen['gn'])} GroupNorm launches per flagship UNet call")
+    gn = gn_kernel_phase(seen["gn"], (torch.float32, torch.bfloat16), torch.float32,
+                         "flagship")
 
     rng = np.random.default_rng(0)
     s = gd.image_size
     lr = rng.uniform(0, 2, (BATCH, s, s, 1)).astype(np.float32)
     hr = rng.uniform(0, 2, (BATCH, s, s, 1)).astype(np.float32)
     mask = manual_mask((BATCH, s, s, 1), cfg.ood.manual_mask_cols)
-    res, launches = phase_main_path(pipe, lr, hr, mask)
-    phase_check(pipe, lr, mask, res)
-    phase_profile(pipe, lr, mask)
+    pipe.translate(lr, hr=hr, noise=1, mask=mask)  # warm-up (not counted)
+    torch.cuda.synchronize()
+    res, counts, perf = run_main_path(pipe, lr, hr, mask, FLAGSHIP_PER_CALL, SERVE_BATCH,
+                                      "flagship")
 
-    print(json.dumps({"kernels": [{
-        "name": "groupnorm_film_silu",
-        "route": "cuda",
-        "source": "localdiffusion_tpu_torch/csrc/groupnorm_film_silu.cu",
-        "replaces": "localdiffusion_tpu/ops/pallas_groupnorm.py:74",
-        "launches": launches,
-        "max_abs_err": gn["max_abs_err"],
-        "ms": gn["ms"],
-        "plain_ms": gn["plain_ms"],
-        "bound_ms": gn["bound_ms"],
-        "bound_by": "bytes" if gn["bytes_ms"] >= gn["ops_ms"] else "operations",
-        "library_ms": None,
-        "group_norm_ms": gn["group_norm_ms"],
-        "max_abs_err_bf16": gn["max_abs_err_bf16"],
-    }]}), flush=True)
+    gd.model.use_plain_kernels(True)
+    try:
+        plain = pipe.translate(lr, noise=1, mask=mask)
+    finally:
+        gd.model.use_plain_kernels(False)
+    err = float(np.abs(plain["pred"] - res["pred"]).max())
+    log(f"flagship check: kernel chain vs plain-version chain max_abs_err {err:.3g} "
+        f"(tol {CHAIN_TOL:g})")
+    if not err <= CHAIN_TOL:
+        raise RuntimeError("the flagship kernel chain disagrees with the plain-version chain")
+    cpu_gd = GaussianDiffusion(cfg.model, cfg.diffusion, device="cpu")
+    cpu_gd.model.load_state_dict({k: v.cpu() for k, v in gd.model.state_dict().items()})
+    cpu_pipe = LocalDiffusionPipeline(cfg, cpu_gd)
+    shape = (2, s, s, 1)
+    stream = [rng.standard_normal(shape).astype(np.float32)
+              for _ in range(gd.num_timesteps + 1)]
+    on_card = pipe.translate(lr[:2], noise=ArrayNoise(stream, "cuda"), mask=mask[:2])
+    on_cpu = cpu_pipe.translate(lr[:2], noise=ArrayNoise(stream, "cpu"), mask=mask[:2])
+    err_cpu = float(np.abs(on_card["pred"] - on_cpu["pred"]).max())
+    log(f"flagship check: card vs CPU (batch 2, same weights and noise) max_abs_err "
+        f"{err_cpu:.3g} (tol {CHAIN_TOL:g})")
+    if not err_cpu <= CHAIN_TOL:
+        raise RuntimeError("the flagship chain on the card disagrees with the CPU's")
+    prof = profile_chain(pipe, lr, mask, "flagship")
+    return dict(gn=gn, counts=counts, perf=perf, **prof)
+
+
+# ---------------------------------------------------------------------------
+# the 256px MRI chain
+# ---------------------------------------------------------------------------
+
+def attention_kernel_phase(seen) -> dict:
+    """The flash kernel against `xla_attention` at the 256px sites' shape,
+    in bf16 and f32, with q/k/v cut from a channels_last qkv projection as
+    `Attention` cuts them.  Times per launch, bf16."""
+    sites = {(s[0], s[2], s[3], m.heads, m.dim_head) for m, s in seen}
+    if len(seen) != MRI_PER_CALL["flash_attention"] or len(sites) != 1:
+        raise RuntimeError(f"full-attention sites: {[s for _, s in seen]}")
+    b, h, w, heads, dh = sites.pop()  # the same [B, N, H, D] at every site
+    n = h * w
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.randn(b, 3 * heads * dh, h, w, generator=gen, device="cuda").to(dtype)
+        qkv = qkv.contiguous(memory_format=torch.channels_last)
+        q, k, v = (t.permute(0, 3, 1, 2) for t in qkv.reshape(b, 3, heads, dh, n).unbind(1))
+        got = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        want = xla_attention(q, k, v)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = ATTN_TOL[dtype]
+        ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+        log(f"256px attention [{b},{n},{heads},{dh}] {str(dtype)[6:]}: max_abs_err {err:.3g} "
+            f"(tol {tol:g} abs+rel) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("attention kernel disagrees with its plain version")
+        k_eager, k_ms = cuda_ms(lambda: flash_attention(q, k, v), 10, 10)
+        _, p_ms = cuda_ms(lambda: xla_attention(q, k, v), 10, 10)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # [B, H, N, D]
+        _, l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), 10, 10)
+        flops = 4 * b * heads * n * n * dh  # QK^T and PV
+        bytes_moved = 4 * b * n * heads * dh * got.element_size()  # q, k, v in; out
+        rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+        bd_ms, bd_by = bound(bytes_moved, flops, rate)
+        log(f"  device us/launch: kernel {k_ms * 1e3:.2f} (eager {k_eager * 1e3:.2f}) "
+            f"plain {p_ms * 1e3:.2f} SDPA {l_ms * 1e3:.2f} bound {bd_ms * 1e3:.2f} ({bd_by}: "
+            f"{flops / 1e9:.2f} GFLOP, {bytes_moved / 1e6:.2f} MB)")
+        out[str(dtype)[6:]] = dict(ms=k_ms, eager_ms=k_eager, plain_ms=p_ms, library_ms=l_ms,
+                                   bound_ms=bd_ms, bound_by=bd_by, max_abs_err=err)
+    return out
+
+
+def linear_attention_kernel_phase(seen) -> dict:
+    """The kv and q kernels against their plain versions, and the whole
+    two-pass function against the unfused plain version, at each
+    linear-attention site of one 256px UNet call (bf16, the site's own
+    random weights).  Times summed over the six sites."""
+    if len(seen) != MRI_PER_CALL["linear_attention_kv"]:
+        raise RuntimeError(f"{len(seen)} linear-attention sites, expected 6")
+    if not all(cl for _, _, cl in seen):
+        raise RuntimeError("a linear-attention input is not channels_last: its NHWC view "
+                           f"would be a copy ({[(s, cl) for _, s, cl in seen]})")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    tot = {k: dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+                   ops_ms=0.0, max_abs_err=0.0) for k in ("kv", "q")}
+    whole = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0)
+    for mod, shape, _ in seen:
+        b, h, w, c = shape
+        n = h * w
+        x = (torch.randn(shape, generator=gen, device="cuda") * 1.5).to(torch.bfloat16)
+        xr = x.reshape(b, n, c)
+        params = (mod.norm.g, mod.to_qkv.weight[:, :, 0, 0].t(),
+                  mod.to_out.weight[:, :, 0, 0].t(), mod.to_out.bias, mod.out_norm.g)
+        g_in, w_qkv, w_out, b_out, g_out = (p.detach() for p in params)
+        wq, wk, wv = LA.split_qkv(w_qkv)
+        per = LA.tokens_per_block(b, n)
+        nb = -(-n // per)
+
+        m, l, gram = LA.linear_attention_kv(xr, g_in, wk, per)
+        torch.cuda.synchronize()
+        pm, pl, pg = LA.kv_partials_reference(xr, g_in, wk, per)
+        ctx = gram / l[:, :, None, :]
+        pctx = pg / pl[:, :, None, :]
+        err_kv = (ctx - pctx).abs().max().item()
+        ok_kv = torch.allclose(ctx, pctx, rtol=KV_TOL, atol=KV_TOL) and torch.allclose(
+            m, pm, rtol=KV_TOL, atol=KV_TOL)
+        wtil = LA.fold(*LA.merge_kv(m, l, gram), wv, w_out)
+        got = LA.linear_attention_q(xr, g_in, wq, wtil, b_out, g_out, per)
+        torch.cuda.synchronize()
+        want = LA.q_pass_reference(xr, g_in, wq, wtil, b_out, g_out)
+        err_q = (got.float() - want.float()).abs().max().item()
+        ok_q = torch.allclose(got.float(), want.float(), **LINATT_TOL)
+        full = LA.linear_attention(x, g_in, w_qkv, w_out, b_out, g_out)
+        ref = LA.linear_attention_reference(x, g_in, w_qkv, w_out, b_out, g_out)
+        err_full = (full.float() - ref.float()).abs().max().item()
+        corr = torch.corrcoef(torch.stack([full.float().ravel(), ref.float().ravel()]))[0, 1]
+        ok_full = torch.allclose(full.float(), ref.float(), **LINATT_TOL) and corr > 0.999
+        log(f"256px linear attention {list(shape)} ({nb} blocks of {per} tokens): kv G/l "
+            f"max_abs_err {err_kv:.3g} (tol {KV_TOL:g}) {'ok' if ok_kv else 'FAIL'}; q "
+            f"{err_q:.3g} (tol {LINATT_TOL}) {'ok' if ok_q else 'FAIL'}; two-pass vs "
+            f"unfused {err_full:.3g}, corr {float(corr):.6f} {'ok' if ok_full else 'FAIL'}")
+        if not (ok_kv and ok_q and ok_full):
+            raise RuntimeError(f"linear-attention kernels disagree at {shape}")
+
+        kv_eager, kv_ms = cuda_ms(lambda: LA.linear_attention_kv(xr, g_in, wk, per), 5, 4)
+        _, kv_plain = cuda_ms(lambda: LA.kv_partials_reference(xr, g_in, wk, per), 5, 4)
+        q_eager, q_ms = cuda_ms(
+            lambda: LA.linear_attention_q(xr, g_in, wq, wtil, b_out, g_out, per), 5, 4)
+        _, q_plain = cuda_ms(
+            lambda: LA.q_pass_reference(xr, g_in, wq, wtil, b_out, g_out), 5, 4)
+        _, f_ms = cuda_ms(lambda: LA.linear_attention(x, g_in, w_qkv, w_out, b_out, g_out),
+                          5, 4)
+        _, f_plain = cuda_ms(
+            lambda: LA.linear_attention_reference(x, g_in, w_qkv, w_out, b_out, g_out), 5, 4)
+        xb = x.numel() * 2
+        bytes_moved = {"kv": xb + 4 * b * nb * (2 * 128 + c * 128) + c * 128 * 2,
+                       "q": 2 * xb + b * 128 * c * 2 + c * 128 * 2}
+        flops = 4 * b * n * c * 128  # two [N, C] x [C, 128] products per pass
+        op_ms = 1e3 * flops / BF16_OPS_PER_S
+        for key, ms, eager, plain, err in (("kv", kv_ms, kv_eager, kv_plain, err_kv),
+                                           ("q", q_ms, q_eager, q_plain, err_q)):
+            bd_ms = 1e3 * bytes_moved[key] / HBM_BYTES_PER_S
+            t = tot[key]
+            t["ms"] += ms
+            t["eager_ms"] += eager
+            t["plain_ms"] += plain
+            t["bytes_ms"] += bd_ms
+            t["ops_ms"] += op_ms
+            t["bound_ms"] += max(bd_ms, op_ms)
+            t["max_abs_err"] = max(t["max_abs_err"], err)
+            log(f"  {key} device us/launch: kernel {ms * 1e3:.1f} (eager {eager * 1e3:.1f}) "
+                f"plain {plain * 1e3:.1f} bound {max(bd_ms, op_ms) * 1e3:.1f}")
+        whole["ms"] += f_ms
+        whole["plain_ms"] += f_plain
+        whole["max_abs_err"] = max(whole["max_abs_err"], err_full)
+        log(f"  whole function device us: two-pass {f_ms * 1e3:.1f}, unfused plain "
+            f"{f_plain * 1e3:.1f}")
+    for key in ("kv", "q"):
+        t = tot[key]
+        t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations"
+        log(f"256px linear attention {key} per UNet call (6 launches): kernel {t['ms']:.4f}ms "
+            f"(eager {t['eager_ms']:.4f}) plain {t['plain_ms']:.4f}ms bound "
+            f"{t['bound_ms']:.4f}ms ({t['bound_by']})")
+    log(f"256px linear attention whole per UNet call: two-pass {whole['ms']:.4f}ms, "
+        f"unfused plain {whole['plain_ms']:.4f}ms")
+    return dict(kv=tot["kv"], q=tot["q"], whole=whole)
+
+
+def mri256() -> dict:
+    cfg = mri256_config()
+    gd = build_gd(cfg, device="cuda")
+    pipe = LocalDiffusionPipeline(cfg, gd)
+    lo, hi = pipe.min_max_val
+    log(f"256px model: dim {cfg.model.dim} mults {cfg.model.dim_mults}, full_attn "
+        f"{cfg.model.full_attn}, {sum(p.numel() for p in gd.model.parameters())} params "
+        f"(seeded random), compute {gd.dtype}, T={gd.num_timesteps}, "
+        f"{cfg.diffusion.beta_schedule}, {cfg.diffusion.objective}, mask_x "
+        f"{cfg.sampler.mask_x_policy}, cond_in_floor {cfg.sampler.cond_in_floor}, "
+        f"min_max_val ({lo}, {hi:.4f})")
+
+    seen = record_calls(gd, 2 * MRI_BATCH, hi)
+    log(f"256px UNet call at batch {2 * MRI_BATCH}: {len(seen['gn'])} GN, "
+        f"{len(seen['linatt'])} linear-attention sites {[s for _, s, _ in seen['linatt']]}, "
+        f"{len(seen['attn'])} full-attention sites")
+    if len(seen["gn"]) != MRI_PER_CALL["groupnorm_film_silu"]:
+        raise RuntimeError(f"{len(seen['gn'])} GroupNorm launches per 256px UNet call")
+    attn = attention_kernel_phase(seen["attn"])
+    linatt = linear_attention_kernel_phase(seen["linatt"])
+    gn = gn_kernel_phase(seen["gn"], (torch.bfloat16,), torch.bfloat16, "256px", (5, 4))
+
+    rng = np.random.default_rng(0)
+    s = gd.image_size
+    lr = rng.uniform(0, hi, (MRI_BATCH, s, s, 1)).astype(np.float32)
+    hr = rng.uniform(0, hi, (MRI_BATCH, s, s, 1)).astype(np.float32)
+    yy, xx = np.mgrid[:s, :s]
+    mask = np.zeros((MRI_BATCH, s, s, 1), np.float32)
+    for i in range(MRI_BATCH):  # a disc of radius 25, the synthetic tumour's
+        cy, cx = 90 + 20 * i, 150 - 15 * i
+        mask[i, (yy - cy) ** 2 + (xx - cx) ** 2 < 25**2] = 1.0
+    res, counts, perf = run_main_path(pipe, lr, hr, mask, MRI_PER_CALL, MRI_SERVE_BATCH,
+                                      "256px")
+
+    gd.model.use_plain_kernels(True)
+    try:
+        plain = pipe.translate(lr, noise=1, mask=mask)
+    finally:
+        gd.model.use_plain_kernels(False)
+    a, p = res["pred"].ravel(), plain["pred"].ravel()
+    rel = float(np.linalg.norm(a - p) / np.linalg.norm(p))
+    corr = float(np.corrcoef(a, p)[0, 1])
+    log(f"256px check: kernel chain vs plain-version chain (same noise): relative L2 "
+        f"{rel:.4g} (tol {MRI_CHAIN_REL:g}), correlation {corr:.6f} (tol {MRI_CHAIN_CORR:g}), "
+        f"max_abs_err {float(np.abs(a - p).max()):.4g}; plain chain {float(plain['time']):.2f}s")
+    if not (rel <= MRI_CHAIN_REL and corr >= MRI_CHAIN_CORR):
+        raise RuntimeError("the 256px kernel chain disagrees with the plain-version chain")
+
+    x = rng.standard_normal((2, s, s, 1)).astype(np.float32)
+    cond = rng.uniform(0, hi, (2, s, s, 1)).astype(np.float32)
+    t = np.array([7, 180])
+    for dtype in ("bfloat16", "float32"):
+        c2 = cfg.replace(train=dataclasses.replace(cfg.train, compute_dtype=dtype))
+        card = build_gd(c2, device="cuda")
+        cpu = build_gd(c2, device="cpu")
+        cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
+        got = card.apply_model(torch.as_tensor(x, device="cuda"),
+                               torch.as_tensor(cond, device="cuda"),
+                               torch.as_tensor(t, device="cuda")).cpu().numpy()
+        t0 = time.perf_counter()
+        want = cpu.apply_model(torch.as_tensor(x), torch.as_tensor(cond),
+                               torch.as_tensor(t)).numpy()
+        cpu_s = time.perf_counter() - t0
+        err = float(np.abs(got - want).max())
+        rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        corr = float(np.corrcoef(got.ravel(), want.ravel())[0, 1])
+        if dtype == "bfloat16":
+            ok = rel <= MRI_UNET_REL and corr >= MRI_UNET_CORR
+            bar = f"relative L2 <= {MRI_UNET_REL:g}, correlation >= {MRI_UNET_CORR:g}"
+        else:
+            ok = bool(np.allclose(got, want, rtol=MRI_UNET_F32_TOL, atol=MRI_UNET_F32_TOL))
+            bar = f"{MRI_UNET_F32_TOL:g} abs+rel"
+        log(f"256px check: one UNet call, card vs CPU (batch 2, {dtype}): max_abs_err "
+            f"{err:.4g}, relative L2 {rel:.4g}, correlation {corr:.6f} ({bar}) "
+            f"{'ok' if ok else 'FAIL'}; CPU call {cpu_s:.1f}s")
+        if not ok:
+            raise RuntimeError(f"the 256px UNet on the card disagrees with the CPU's ({dtype})")
+        del card, cpu
+
+    prof = profile_chain(pipe, lr, mask, "256px", top=16)
+    return dict(attn=attn, linatt=linatt, gn=gn, counts=counts, perf=perf, **prof)
+
+
+def main() -> None:
+    phase_device()
+    phase_build()
+    flag = flagship()
+    mri = mri256()
+
+    attn, lin, gn = mri["attn"]["bfloat16"], mri["linatt"], mri["gn"]
+    counts = mri["counts"]
+    kernels = [
+        dict(name="groupnorm_film_silu", route="cuda",
+             source="localdiffusion_tpu_torch/csrc/groupnorm_film_silu.cu",
+             replaces="localdiffusion_tpu/ops/pallas_groupnorm.py:74",
+             launches=counts["groupnorm_film_silu"] + flag["counts"]["groupnorm_film_silu"],
+             max_abs_err=gn["max_abs_err"], ms=gn["ms"], plain_ms=gn["plain_ms"],
+             bound_ms=gn["bound_ms"],
+             bound_by="bytes" if gn["bytes_ms"] >= gn["ops_ms"] else "operations",
+             library_ms=None, per="256px UNet call, 40 launches, bf16",
+             launches_256px=counts["groupnorm_film_silu"],
+             launches_flagship=flag["counts"]["groupnorm_film_silu"],
+             group_norm_ms=gn["group_norm_ms"], flagship_ms=flag["gn"]["ms"],
+             flagship_plain_ms=flag["gn"]["plain_ms"],
+             flagship_bound_ms=flag["gn"]["bound_ms"],
+             flagship_max_abs_err=flag["gn"]["max_abs_err"]),
+        dict(name="flash_attention", route="cuda",
+             source="localdiffusion_tpu_torch/csrc/flash_attention.cu",
+             replaces="localdiffusion_tpu/ops/pallas_attention.py:26",
+             launches=counts["flash_attention"], max_abs_err=attn["max_abs_err"],
+             ms=attn["ms"], plain_ms=attn["plain_ms"], bound_ms=attn["bound_ms"],
+             bound_by=attn["bound_by"], library_ms=attn["library_ms"],
+             per="one launch at [8,1024,4,32] bf16 (3 per 256px UNet call)",
+             f32_ms=mri["attn"]["float32"]["ms"],
+             f32_max_abs_err=mri["attn"]["float32"]["max_abs_err"]),
+    ]
+    for key, src_line in (("kv", 149), ("q", 201)):
+        t = lin[key]
+        kernels.append(dict(
+            name=f"linear_attention_{key}", route="cuda",
+            source="localdiffusion_tpu_torch/csrc/linear_attention.cu",
+            replaces=f"localdiffusion_tpu/ops/pallas_linear_attention.py:{src_line}",
+            launches=counts[f"linear_attention_{key}"], max_abs_err=t["max_abs_err"],
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=None,
+            per="256px UNet call, 6 launches (one per site), bf16"))
+    log(f"end to end: flagship {json.dumps(flag['perf'])}; 256px {json.dumps(mri['perf'])}; "
+        f"busy share flagship {flag['busy_share']:.4f} 256px {mri['busy_share']:.4f}")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

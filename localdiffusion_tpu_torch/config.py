@@ -5,7 +5,8 @@ A copy of the dataclasses the Stage-B serving path reads from
 OODConfig, DataConfig, TrainConfig, Config, min_max_val_for).  The port keeps
 its own copy because it imports nothing of the JAX package, and that module
 imports `yaml`, which a CUDA host need not have.  The flagship configuration
-(`configs/mnist.yaml`) is built in Python by `flagship_config()`;
+(`configs/mnist.yaml`) is built in Python by `flagship_config()`, the 256px
+MRI one (`configs/mri_synthetic_256.yaml`) by `mri256_config()`;
 `Config.from_dict` takes the parsed contents of such a file.
 """
 
@@ -282,6 +283,43 @@ def flagship_config() -> Config:
         ),
         data=DataConfig(name="mnist", mnist_cls="8to3", anomaly_name=3),
         train=TrainConfig(results_dir="./results", project_name="mnist_x250"),
+    )
+
+
+def mri256_config() -> Config:
+    """`configs/mri_synthetic_256.yaml`, the 256px MRI chain, built without
+    YAML: 4-stage UNet (dim 32, mults 1/2/4/8), deep condition encoder,
+    T=250 ancestral DDPM, minval mask_x, cond_in floor 0.95, bf16 compute."""
+    return Config(
+        model=ModelConfig(
+            dim=32, init_dim=32, dim_mults=(1, 2, 4, 8),
+            full_attn=(False, False, False, True), channels=1,
+            cond_encoder_depth="deep",
+        ),
+        diffusion=DiffusionConfig(
+            image_size=256, timesteps=250, sampling_timesteps=250,
+            objective="pred_x0", beta_schedule="sigmoid",
+        ),
+        sampler=SamplerConfig(
+            branch_out=True, start_intermediate=True, start_timestep=2,
+            mask_x=True, mask_x_policy="minval", cond_in_floor=0.95, ood_ad=True,
+        ),
+        ood=OODConfig(
+            detector="patchcore", feature_source="denoiser",
+            feature_npz="results/mri_synth256_ema.npz", feature_t=5,
+            input_size=256, mask_refine="hysteresis", refine_seed="fwhm",
+            refine_lo_frac=0.45, mask_dilate=8,
+            memory_bank_path="results/memory_bank_mri256_denoiser.npy",
+            layers=("layer2", "layer3"),
+        ),
+        data=DataConfig(
+            name="synthetic_brain", translate_zero=True, mean_t1=300.0,
+            std_t1=350.0, mean_flair=250.0, std_flair=280.0,
+        ),
+        train=TrainConfig(
+            batch_size=8, lr=1e-4, num_steps=400, results_dir="./results",
+            project_name="mri_synth256", compute_dtype="bfloat16",
+        ),
     )
 
 

@@ -14,7 +14,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from localdiffusion_tpu_torch.config import DiffusionConfig, ModelConfig
+from localdiffusion_tpu_torch.config import Config, DiffusionConfig, ModelConfig
 from localdiffusion_tpu_torch.models.unet import UNet
 from localdiffusion_tpu_torch.ops import diffusion_math as dm
 from localdiffusion_tpu_torch.ops.schedules import Schedule, make_schedule
@@ -37,19 +37,23 @@ def resolve_device(device="cuda") -> torch.device:
 class GaussianDiffusion:
     """A denoiser UNet bound to its diffusion schedule, on one device.
 
-    The UNet runs float32 (the flagship's compute dtype) and starts with
-    random weights drawn under seed 0; load trained ones with
-    `gd.model.load_state_dict(params_from_jax(...))`.
+    The UNet computes in `dtype` (float32 or bfloat16; `build_gd` takes it
+    from the configuration's `train.compute_dtype`, as the JAX factory
+    does) with float32 parameters and a float32 output, so the sampler's
+    state stays float32.  It starts with random weights drawn under seed 0;
+    load trained ones with `gd.model.load_state_dict(params_from_jax(...))`
+    or `load_params_npz`.
     """
 
     def __init__(self, model_cfg: ModelConfig, diff_cfg: DiffusionConfig,
-                 device="cuda"):
+                 device="cuda", dtype=torch.float32):
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.diff_cfg = diff_cfg
+        self.dtype = dtype
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(0)  # the UNet's initial (random) weights
-            model = UNet(model_cfg)
+            model = UNet(model_cfg, dtype)
         self.model = model.to(self.device, memory_format=torch.channels_last).eval()
         self.schedule: Schedule = make_schedule(
             diff_cfg.timesteps,
@@ -66,10 +70,13 @@ class GaussianDiffusion:
 
     @torch.no_grad()
     def apply_model(self, x, cond, t, cond_feat=None):
+        """The UNet on NHWC x (and cond, or precomputed cond_feat): float32
+        out, as the JAX engine's `apply_model` through `UNet.apply`."""
         return self.model(x, cond, t, cond_feat=cond_feat)
 
     @torch.no_grad()
     def encode_cond(self, cond):
+        """Condition features of NHWC cond, in the compute type."""
         return self.model.encode_cond(cond)
 
     @torch.no_grad()
@@ -95,3 +102,12 @@ class GaussianDiffusion:
                 x_start = x_start.clamp(lo, hi)
             pred_noise = dm.predict_noise_from_start(sched, x, t, x_start)
         return ModelPrediction(pred_noise, x_start)
+
+
+def build_gd(cfg: Config, device="cuda") -> GaussianDiffusion:
+    """The engine of a configuration, computing in `cfg.train.compute_dtype`
+    (the JAX package's `factory.build_gd`)."""
+    dtype = getattr(torch, cfg.train.compute_dtype)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype {cfg.train.compute_dtype!r} is not float32 or bfloat16")
+    return GaussianDiffusion(cfg.model, cfg.diffusion, device=device, dtype=dtype)

@@ -4,6 +4,13 @@ Modules take and return NCHW tensors (PyTorch's convolution layout); the
 UNet converts at its NHWC public boundary.  Module and parameter names
 follow the JAX parameter tree so `utils.params_io.params_from_jax` maps it
 leaf by leaf.
+
+Every module takes a compute `dtype` with flax's meaning: parameters stay
+float32; each Conv or Dense casts its input and its weights to `dtype` and
+returns `dtype`; softmaxes, norm statistics and the GroupNorm kernel's
+arithmetic run in float32 and cast back.  The casts are written out where
+the JAX modules make them (not `torch.autocast`, which keeps another set
+of ops in float32).
 """
 
 from __future__ import annotations
@@ -15,30 +22,60 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from localdiffusion_tpu_torch.ops.attention import full_attention
+from localdiffusion_tpu_torch.ops.attention import full_attention, xla_attention
 from localdiffusion_tpu_torch.ops.groupnorm import (
     groupnorm_film_silu,
     groupnorm_film_silu_reference,
 )
+from localdiffusion_tpu_torch.ops.linear_attention import (
+    linear_attention,
+    linear_attention_reference,
+    supports as linear_attention_supports,
+)
 
-# LinearAttention's fused kernel engages at this many pixels in the JAX
-# package (`ops/pallas_linear_attention.py`); ported in a later slice.
-FUSED_LINEAR_ATTENTION_MIN_HW = 4096
+
+class Conv2d(nn.Conv2d):
+    """`nn.Conv2d` computing in `compute_dtype` (flax `nn.Conv(dtype=...)`):
+    input, weight and bias cast to it, output of it; parameters stay
+    float32."""
+
+    def __init__(self, *args, compute_dtype=torch.float32, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class Linear(nn.Linear):
+    """`nn.Linear` computing in `compute_dtype` (flax `nn.Dense(dtype=...)`)."""
+
+    def __init__(self, *args, compute_dtype=torch.float32, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class RMSNorm(nn.Module):
-    """l2-normalize over channels, scale by g·√C (norm clamped at 1e-12)."""
+    """l2-normalize over channels, scale by g·√C (norm clamped at 1e-12),
+    in float32, cast to `dtype`."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, dtype=torch.float32):
         super().__init__()
         self.g = nn.Parameter(torch.ones(channels))
+        self.dtype = dtype
 
     def forward(self, x):
         c = x.shape[1]
         x32 = x.float()
         norm = torch.sqrt((x32 * x32).sum(dim=1, keepdim=True))
         normed = x32 / norm.clamp_min(1e-12)
-        return (normed * self.g.view(1, c, 1, 1) * math.sqrt(c)).to(x.dtype)
+        return (normed * self.g.view(1, c, 1, 1) * math.sqrt(c)).to(self.dtype)
 
 
 class SinusoidalPosEmb(nn.Module):
@@ -57,20 +94,22 @@ class SinusoidalPosEmb(nn.Module):
 
 
 class TimeMlp(nn.Module):
-    """sinusoidal → Linear → exact GELU → Linear."""
+    """sinusoidal (float32) → Linear → exact GELU → Linear, in `dtype`."""
 
-    def __init__(self, dim: int, time_dim: int, theta: int = 10000):
+    def __init__(self, dim: int, time_dim: int, theta: int = 10000,
+                 dtype=torch.float32):
         super().__init__()
         self.pos_emb = SinusoidalPosEmb(dim, theta)
-        self.fc1 = nn.Linear(dim, time_dim)
-        self.fc2 = nn.Linear(time_dim, time_dim)
+        self.fc1 = Linear(dim, time_dim, compute_dtype=dtype)
+        self.fc2 = Linear(time_dim, time_dim, compute_dtype=dtype)
 
     def forward(self, t):
         return self.fc2(F.gelu(self.fc1(self.pos_emb(t)), approximate="none"))
 
 
 class GroupNormFilmSiLU(nn.Module):
-    """GroupNorm + FiLM + SiLU through the fused kernel's wrapper.
+    """GroupNorm + FiLM + SiLU through the fused kernel's wrapper (float32
+    arithmetic, output in the input's type).
 
     `use_kernel = False` routes to the plain version whatever the device: an
     explicit switch for comparing a chain with and without the kernel.
@@ -97,9 +136,10 @@ class GroupNormFilmSiLU(nn.Module):
 class Block(nn.Module):
     """conv3×3 → GroupNorm → (FiLM) → SiLU."""
 
-    def __init__(self, dim_in: int, dim_out: int, groups: int = 8):
+    def __init__(self, dim_in: int, dim_out: int, groups: int = 8,
+                 dtype=torch.float32):
         super().__init__()
-        self.proj = nn.Conv2d(dim_in, dim_out, 3, padding=1)
+        self.proj = Conv2d(dim_in, dim_out, 3, padding=1, compute_dtype=dtype)
         self.norm = GroupNormFilmSiLU(dim_out, groups)
 
     def forward(self, x, scale_shift=None):
@@ -110,12 +150,13 @@ class ResnetBlock(nn.Module):
     """Two Blocks + 1×1 residual, FiLM-conditioned on the time embedding."""
 
     def __init__(self, dim_in: int, dim_out: int, groups: int = 8,
-                 time_dim: int | None = None):
+                 time_dim: int | None = None, dtype=torch.float32):
         super().__init__()
-        self.mlp = nn.Linear(time_dim, dim_out * 2) if time_dim else None
-        self.block1 = Block(dim_in, dim_out, groups)
-        self.block2 = Block(dim_out, dim_out, groups)
-        self.res_conv = nn.Conv2d(dim_in, dim_out, 1) if dim_in != dim_out else None
+        self.mlp = Linear(time_dim, dim_out * 2, compute_dtype=dtype) if time_dim else None
+        self.block1 = Block(dim_in, dim_out, groups, dtype)
+        self.block2 = Block(dim_out, dim_out, groups, dtype)
+        self.res_conv = (Conv2d(dim_in, dim_out, 1, compute_dtype=dtype)
+                         if dim_in != dim_out else None)
 
     def forward(self, x, time_emb=None):
         scale_shift = None
@@ -129,9 +170,9 @@ class ResnetBlock(nn.Module):
 class Downsample(nn.Module):
     """Space-to-depth ×2, channels ordered (c p1 p2), then a 1×1 conv."""
 
-    def __init__(self, dim_in: int, dim_out: int):
+    def __init__(self, dim_in: int, dim_out: int, dtype=torch.float32):
         super().__init__()
-        self.conv = nn.Conv2d(dim_in * 4, dim_out, 1)
+        self.conv = Conv2d(dim_in * 4, dim_out, 1, compute_dtype=dtype)
 
     def forward(self, x):
         b, c, h, w = x.shape
@@ -142,9 +183,9 @@ class Downsample(nn.Module):
 class Upsample(nn.Module):
     """Nearest ×2 upsample then a 3×3 conv."""
 
-    def __init__(self, dim_in: int, dim_out: int):
+    def __init__(self, dim_in: int, dim_out: int, dtype=torch.float32):
         super().__init__()
-        self.conv = nn.Conv2d(dim_in, dim_out, 3, padding=1)
+        self.conv = Conv2d(dim_in, dim_out, 3, padding=1, compute_dtype=dtype)
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
@@ -152,48 +193,60 @@ class Upsample(nn.Module):
 
 class LinearAttention(nn.Module):
     """Softmax-feature linear attention with RMSNorm in and out: q softmaxed
-    over the head dimension then scaled, k softmaxed over tokens."""
+    over the head dimension then scaled, k softmaxed over tokens.
 
-    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+    Inside the kernels' gate (`ops.linear_attention.supports`: 4 heads of
+    32, C ∈ {32, 64, 128}, bf16, h·w ≥ 4096) it goes to the kernels'
+    wrapper, as the JAX module goes to its Pallas kernels; outside it runs
+    the unfused math on whatever device it is on, as the JAX module does.
+    `use_kernel = False` takes the unfused math everywhere (for comparing a
+    chain with and without the kernels).
+    """
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32,
+                 dtype=torch.float32):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
         hidden = heads * dim_head
-        self.norm = RMSNorm(dim)
-        self.to_qkv = nn.Conv2d(dim, hidden * 3, 1, bias=False)
-        self.to_out = nn.Conv2d(hidden, dim, 1)
-        self.out_norm = RMSNorm(dim)
+        self.norm = RMSNorm(dim, dtype)
+        self.to_qkv = Conv2d(dim, hidden * 3, 1, bias=False, compute_dtype=dtype)
+        self.to_out = Conv2d(hidden, dim, 1, compute_dtype=dtype)
+        self.out_norm = RMSNorm(dim, dtype)
+        self.use_kernel = True
 
     def forward(self, x):
-        b, c, h, w = x.shape
-        if x.is_cuda and h * w >= FUSED_LINEAR_ATTENTION_MIN_HW:
-            raise NotImplementedError("fused linear attention kernel: next slice")
-        n = h * w
-        qkv = self.to_qkv(self.norm(x)).reshape(b, 3, self.heads, self.dim_head, n)
-        q, k, v = qkv.unbind(1)  # [b, H, d, n]
-        q = torch.softmax(q.float(), dim=2).to(x.dtype) * self.dim_head**-0.5
-        k = torch.softmax(k.float(), dim=3).to(x.dtype)
-        context = torch.einsum("bhdn,bhen->bhde", k, v)
-        out = torch.einsum("bhde,bhdn->bhen", context, q)
-        out = out.reshape(b, self.heads * self.dim_head, h, w)
-        return self.out_norm(self.to_out(out))
+        # NHWC view; the UNet's channels_last tensors make it free
+        xh = x.permute(0, 2, 3, 1).to(self.to_qkv.compute_dtype)
+        params = (self.norm.g, self.to_qkv.weight[:, :, 0, 0].t(),
+                  self.to_out.weight[:, :, 0, 0].t(), self.to_out.bias, self.out_norm.g)
+        if self.use_kernel and linear_attention_supports(
+                xh.shape, self.heads, self.dim_head, xh.dtype):
+            out = linear_attention(xh.contiguous(), *params, self.heads, self.dim_head)
+        else:
+            out = linear_attention_reference(xh, *params, self.heads, self.dim_head)
+        return out.permute(0, 3, 1, 2)
 
 
 class Attention(nn.Module):
-    """Full softmax attention over the flattened H×W tokens."""
+    """Full softmax attention over the flattened H×W tokens.  `use_kernel =
+    False` takes the plain attention at every size."""
 
-    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32,
+                 dtype=torch.float32):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
         hidden = heads * dim_head
-        self.norm = RMSNorm(dim)
-        self.to_qkv = nn.Conv2d(dim, hidden * 3, 1, bias=False)
-        self.to_out = nn.Conv2d(hidden, dim, 1)
+        self.norm = RMSNorm(dim, dtype)
+        self.to_qkv = Conv2d(dim, hidden * 3, 1, bias=False, compute_dtype=dtype)
+        self.to_out = Conv2d(hidden, dim, 1, compute_dtype=dtype)
+        self.use_kernel = True
 
     def forward(self, x):
         b, c, h, w = x.shape
         n = h * w
         qkv = self.to_qkv(self.norm(x)).reshape(b, 3, self.heads, self.dim_head, n)
-        q, k, v = (t.permute(0, 3, 1, 2) for t in qkv.unbind(1))  # [b, n, H, d]
-        out = full_attention(q, k, v)  # [b, n, H, d]
+        q, k, v = (t.permute(0, 3, 1, 2) for t in qkv.unbind(1))  # [b, n, H, d] views
+        attend = full_attention if self.use_kernel else xla_attention
+        out = attend(q, k, v)  # [b, n, H, d]
         out = out.permute(0, 2, 3, 1).reshape(b, self.heads * self.dim_head, h, w)
         return self.to_out(out)

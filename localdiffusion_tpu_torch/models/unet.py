@@ -4,7 +4,12 @@ Public tensors are NHWC, as in the JAX package: `forward(x, cond, t)` takes
 x and cond as [B, H, W, C] and returns [B, H, W, C_out], and `encode_cond`
 returns NHWC features.  Inside, the network runs NCHW tensors in the
 channels_last memory format: the transposes at the boundary are views, and
-each GroupNorm hands its input to the NHWC kernel without a copy.
+each GroupNorm and LinearAttention hands its input to an NHWC kernel without
+a copy.
+
+`dtype` is the compute type (the JAX UNet's `dtype`): the input is cast to
+it, every layer computes in it, and the final 1×1 conv runs in float32, so
+the output is float32 whichever the compute type; parameters stay float32.
 """
 
 from __future__ import annotations
@@ -15,8 +20,8 @@ from torch import nn
 from localdiffusion_tpu_torch.config import ModelConfig
 from localdiffusion_tpu_torch.models.blocks import (
     Attention,
+    Conv2d,
     Downsample,
-    GroupNormFilmSiLU,
     LinearAttention,
     ResnetBlock,
     TimeMlp,
@@ -41,7 +46,7 @@ class UNet(nn.Module):
     Res + 1×1.
     """
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, dtype=torch.float32):
         super().__init__()
         if cfg.learned_sinusoidal_cond or cfg.random_fourier_features:
             raise NotImplementedError("learned/random Fourier time features: later slice")
@@ -50,6 +55,7 @@ class UNet(nn.Module):
         if cfg.self_condition:
             raise NotImplementedError("self-conditioning: later slice")
         self.cfg = cfg
+        self.dtype = dtype
         dim = cfg.dim
         init_dim = cfg.resolved_init_dim
         dims = [init_dim] + [dim * m for m in cfg.dim_mults]
@@ -59,14 +65,17 @@ class UNet(nn.Module):
         groups = cfg.resnet_block_groups
 
         def res(di, do):
-            return ResnetBlock(di, do, groups, time_dim)
+            return ResnetBlock(di, do, groups, time_dim, dtype)
 
         def attn(full, d):
             cls = Attention if full else LinearAttention
-            return cls(d, cfg.attn_heads, cfg.attn_dim_head)
+            return cls(d, cfg.attn_heads, cfg.attn_dim_head, dtype)
 
-        self.init_conv = nn.Conv2d(cfg.channels, init_dim, 7, padding=3)
-        self.time_mlp = TimeMlp(dim, time_dim, cfg.time_emb_theta)
+        def conv3(di, do):
+            return Conv2d(di, do, 3, padding=1, compute_dtype=dtype)
+
+        self.init_conv = Conv2d(cfg.channels, init_dim, 7, padding=3, compute_dtype=dtype)
+        self.time_mlp = TimeMlp(dim, time_dim, cfg.time_emb_theta, dtype)
         n = len(in_out)
         for i, (di, do) in enumerate(in_out):
             self.add_module(f"down{i}_block1", res(di, di))
@@ -74,7 +83,7 @@ class UNet(nn.Module):
             self.add_module(f"down{i}_attn", attn(cfg.full_attn[i], di))
             self.add_module(
                 f"down{i}_down",
-                Downsample(di, do) if i < n - 1 else nn.Conv2d(di, do, 3, padding=1),
+                Downsample(di, do, dtype) if i < n - 1 else conv3(di, do),
             )
         mid = dims[-1]
         self.mid_block1 = res(mid, mid)
@@ -83,7 +92,7 @@ class UNet(nn.Module):
         enc_out = cfg.cond_base_dim * 2 ** (cfg.cond_num_blocks - 1)
         self.cond_model = CondEncoder(
             cfg.resolved_cond_channels, cfg.cond_num_blocks, cfg.cond_base_dim,
-            cfg.cond_group_num,
+            cfg.cond_group_num, dtype,
         )
         self.conv_fusion = res(mid + enc_out, mid)
         for j, (di, do) in enumerate(reversed(in_out)):
@@ -92,31 +101,34 @@ class UNet(nn.Module):
             self.add_module(f"up{j}_attn", attn(cfg.full_attn[n - 1 - j], do))
             self.add_module(
                 f"up{j}_up",
-                Upsample(do, di) if j < n - 1 else nn.Conv2d(do, di, 3, padding=1),
+                Upsample(do, di, dtype) if j < n - 1 else conv3(do, di),
             )
         self.final_res_block = res(init_dim * 2, dim)
         self.final_conv = nn.Conv2d(dim, cfg.resolved_out_dim, 1)
 
-    def use_plain_groupnorm(self, plain: bool = True) -> "UNet":
-        """Route every Block's GroupNorm to the plain version (True) or the
-        kernel's wrapper (False).  For comparing a chain against the kernel;
-        never set by default."""
+    def use_plain_kernels(self, plain: bool = True) -> "UNet":
+        """Route every module that has a kernel (GroupNorm, full and linear
+        attention) to its plain version (True) or to the kernel's wrapper
+        (False).  For comparing a chain against the kernels; never set by
+        default."""
         for m in self.modules():
-            if isinstance(m, GroupNormFilmSiLU):
+            if hasattr(m, "use_kernel"):
                 m.use_kernel = not plain
         return self
 
     def encode_cond(self, cond):
-        """Condition-encoder features of an NHWC image, as NHWC.  The image is
-        constant across a sampling chain, so a sampler calls this once."""
-        return _nhwc(self.cond_model(_nchw(cond).float()))
+        """Condition-encoder features of an NHWC image, as NHWC in the
+        compute type.  The image is constant across a sampling chain, so a
+        sampler calls this once."""
+        return _nhwc(self.cond_model(_nchw(cond).to(self.dtype)))
 
     def forward(self, x, cond, time, cond_feat=None):
         cfg = self.cfg
         f = cfg.downsample_factor
         if x.shape[1] % f or x.shape[2] % f:
             raise ValueError(f"input dims {tuple(x.shape[1:3])} must be divisible by {f}")
-        x = self.init_conv(_nchw(x.float()).contiguous(memory_format=torch.channels_last))
+        x = _nchw(x.to(self.dtype)).contiguous(memory_format=torch.channels_last)
+        x = self.init_conv(x)
         r = x
         t = self.time_mlp(time)
 
@@ -135,7 +147,7 @@ class UNet(nn.Module):
         x = self.mid_block2(x, t)
 
         feat = self.encode_cond(cond) if cond_feat is None else cond_feat
-        x = torch.cat([x, _nchw(feat)], dim=1)
+        x = torch.cat([x, _nchw(feat).to(self.dtype)], dim=1)
         x = self.conv_fusion(x, t)
 
         for j in range(n):

@@ -62,3 +62,23 @@ def test_diffusion_math_matches_jax(objective):
                       tdm.q_posterior(ts, T(x0), T(xt), tl)))
     for a, b in pairs:
         np.testing.assert_allclose(np.asarray(a), b.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_mri256_schedule_at_t250():
+    """The 256px chain's schedule (sigmoid, pred_x0, T=250): equal buffers,
+    and the posterior at its first, fusion and last steps within 1e-6."""
+    j = jax_schedule(250, beta_schedule="sigmoid", objective="pred_x0")
+    t = torch_schedule(250, beta_schedule="sigmoid", objective="pred_x0")
+    for f in dataclasses.fields(t):
+        a, b = getattr(j, f.name), getattr(t, f.name)
+        if isinstance(b, torch.Tensor):
+            assert b.shape[0] == 250
+            np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=f.name)
+    rng = np.random.default_rng(1)
+    x0, xt = (rng.standard_normal((3, 4, 4, 1)).astype(np.float32) for _ in range(2))
+    tt = np.array([249, 2, 0], np.int32)
+    want = jdm.q_posterior(j, jnp.asarray(x0), jnp.asarray(xt), jnp.asarray(tt))
+    got = tdm.q_posterior(t, torch.as_tensor(x0), torch.as_tensor(xt),
+                          torch.as_tensor(tt).long())
+    for a, b in zip(want, got):
+        np.testing.assert_allclose(np.asarray(a), b.numpy(), rtol=1e-6, atol=1e-6)

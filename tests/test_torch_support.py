@@ -56,11 +56,36 @@ def perturbed(params, seed=0, std=0.1):
     return jax.tree_util.tree_map(f, params)
 
 
-def make_pair(model_cfg, diff_cfg, seed=0):
-    """(JAX engine, JAX params, port engine on the CPU) sharing weights."""
-    jgd = JaxGD(to_jax(model_cfg), to_jax(diff_cfg))
-    params = perturbed(jgd.init_params(jax.random.PRNGKey(seed)), seed)
-    tgd = TorchGD(model_cfg, diff_cfg, device="cpu")
+def numpy_params(template, seed=0):
+    """A params tree shaped like `template` (a `jax.eval_shape` of the
+    init), filled from a seeded numpy generator: kernels N(0, 1/fan_in),
+    norm gains 1 and biases 0, each 1-D leaf with 0.1 noise.  It skips
+    flax's init, which runs op by op and takes about a minute for a
+    4-stage UNet on the CPU."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, s):
+        if len(s.shape) >= 2:
+            a = rng.standard_normal(s.shape) / np.sqrt(np.prod(s.shape[:-1]))
+        else:
+            base = 1.0 if getattr(path[-1], "key", None) in ("scale", "g") else 0.0
+            a = base + 0.1 * rng.standard_normal(s.shape)
+        return np.asarray(a, np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, template)
+
+
+def make_pair(model_cfg, diff_cfg, seed=0, dtype="float32", numpy_init=False):
+    """(JAX engine, JAX params, port engine on the CPU) sharing weights,
+    both computing in `dtype`.  The weights are the JAX init, perturbed, or
+    with `numpy_init` drawn by `numpy_params`."""
+    jgd = JaxGD(to_jax(model_cfg), to_jax(diff_cfg), dtype=getattr(jnp, dtype))
+    if numpy_init:
+        template = jax.eval_shape(lambda: jgd.init_params(jax.random.PRNGKey(seed)))
+        params = numpy_params(template, seed)
+    else:
+        params = perturbed(jgd.init_params(jax.random.PRNGKey(seed)), seed)
+    tgd = TorchGD(model_cfg, diff_cfg, device="cpu", dtype=getattr(torch, dtype))
     tgd.model.load_state_dict(params_from_jax(params, tgd.model))
     params = jax.tree_util.tree_map(jnp.asarray, params)
     return jgd, params, tgd

@@ -87,12 +87,20 @@ def test_npz_snapshot_round_trip(tmp_path):
 
 
 def test_plain_groupnorm_switch_is_explicit():
+    """`use_plain_kernels` routes every module with a kernel (GroupNorm, full
+    and linear attention) to its plain version, and back."""
     _, _, tgd = make_pair(*CASES["narrow_8px"], seed=5)
-    from localdiffusion_tpu_torch.models.blocks import GroupNormFilmSiLU
+    from localdiffusion_tpu_torch.models.blocks import (
+        Attention,
+        GroupNormFilmSiLU,
+        LinearAttention,
+    )
 
-    norms = [m for m in tgd.model.modules() if isinstance(m, GroupNormFilmSiLU)]
-    assert norms and all(m.use_kernel for m in norms)
-    tgd.model.use_plain_groupnorm()
-    assert not any(m.use_kernel for m in norms)
-    tgd.model.use_plain_groupnorm(False)
-    assert all(m.use_kernel for m in norms)
+    switched = [m for m in tgd.model.modules() if hasattr(m, "use_kernel")]
+    kinds = {type(m) for m in switched}
+    assert kinds == {GroupNormFilmSiLU, Attention, LinearAttention}
+    assert all(m.use_kernel for m in switched)
+    tgd.model.use_plain_kernels()
+    assert not any(m.use_kernel for m in switched)
+    tgd.model.use_plain_kernels(False)
+    assert all(m.use_kernel for m in switched)
