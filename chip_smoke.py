@@ -98,16 +98,23 @@ GN_OPS_PER_ELEMENT = 14  # stats 4, normalize+affine 3, FiLM 2, SiLU 5
 # GN kernel vs plain version: float32 differs only by summation order;
 # bfloat16 may differ by one rounding step of the output (2^-8 relative)
 GN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-# attention kernel vs plain version: float32, summation order; bfloat16, one
-# output rounding step (the kernel keeps the probabilities in float32 where
-# the plain version rounds them to bf16)
+# attention kernel vs plain version: float32, summation order.  bfloat16: both
+# round the probabilities to bf16 before P·V, but the kernel rounds the
+# unnormalised exp(s − m) against a running max and divides by l after the
+# product, where the plain version rounds the normalised softmax; with the
+# output's own bf16 rounding step that reads 3.9e-3 when the kernel is sound
+# (NVIDIA H100 80GB HBM3, 700 W), and the limit is 1e-2
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 # linear attention, the JAX tests' bar between the Pallas kernels and their
 # reference (bf16 rounding points differ between the streaming and unfused
-# forms): atol 0.04 / rtol 0.05 and correlation > 0.999; the kv partials are
-# compared as G / l (an average of RMS-normalised inputs, O(1)) at 2e-2
+# forms): atol 0.04 / rtol 0.05 and correlation > 0.999
 LINATT_TOL = dict(atol=0.04, rtol=0.05)
-KV_TOL = 2e-2
+# the kv partials, per block, each against its own size (see `kv_errors`):
+# m one bf16 step, l 1e-3 and G 5e-3 relative norm, where a sound kernel
+# reads l ≤ 1e-4 and G ≤ 1.3e-3 at these sites and at the card-only tests'
+# inputs (NVIDIA H100 80GB HBM3, 700 W), and a missed running-max rescale
+# of l or G on one sub-tile reads above 1e-2
+KV_TOL = dict(m=2**-7, l=1e-3, g=5e-3)
 # flagship final images, kernel vs plain (same card, same noise) and card vs
 # CPU: float32 differences of ~1e-6 per call through 50 posterior steps
 CHAIN_TOL = 1e-3
@@ -494,6 +501,31 @@ def attention_kernel_phase(seen) -> dict:
     return out
 
 
+def kv_errors(got, want) -> dict:
+    """The kv kernel's partials (m, l, G) against the plain version's, each
+    measured against its own size, block by block.
+
+    m: the relative difference; both are the max of bf16-rounded k, which
+    may round one step apart where float32 sums in another order land on a
+    rounding boundary (2^-7 relative at most).  l and G are first put on the
+    plain version's max (times exp(m − m_plain)), then compared per block
+    as relative L2 over l's 128 columns and relative Frobenius over G's
+    C×128.  A norm over the block, not the largest entry: one token whose k
+    rounds a step apart moves one column of G by up to ~2^-7 of a token's
+    share, while a fault (a missed rescale, a block's G scaled) moves the
+    block.  Also the largest |G/l| difference, the number the JSON line
+    reports."""
+    (m, l, g), (pm, pl, pg) = got, want
+    r = torch.exp(m - pm)
+    l, g = l * r, g * r[:, :, None, :]
+    return dict(
+        m=((m - pm).abs() / pm.abs().clamp_min(1e-6)).max().item(),
+        l=((l - pl).norm(dim=2) / pl.norm(dim=2)).max().item(),
+        g=((g - pg).norm(dim=(2, 3)) / pg.norm(dim=(2, 3))).max().item(),
+        ctx=(g / l[:, :, None] - pg / pl[:, :, None]).abs().max().item(),
+    )
+
+
 def linear_attention_kernel_phase(seen) -> dict:
     """The kv and q kernels against their plain versions, and the whole
     two-pass function against the unfused plain version, at each
@@ -522,12 +554,9 @@ def linear_attention_kernel_phase(seen) -> dict:
 
         m, l, gram = LA.linear_attention_kv(xr, g_in, wk, per)
         torch.cuda.synchronize()
-        pm, pl, pg = LA.kv_partials_reference(xr, g_in, wk, per)
-        ctx = gram / l[:, :, None, :]
-        pctx = pg / pl[:, :, None, :]
-        err_kv = (ctx - pctx).abs().max().item()
-        ok_kv = torch.allclose(ctx, pctx, rtol=KV_TOL, atol=KV_TOL) and torch.allclose(
-            m, pm, rtol=KV_TOL, atol=KV_TOL)
+        kv_err = kv_errors((m, l, gram), LA.kv_partials_reference(xr, g_in, wk, per))
+        err_kv = kv_err["ctx"]
+        ok_kv = all(kv_err[k] <= tol for k, tol in KV_TOL.items())
         wtil = LA.fold(*LA.merge_kv(m, l, gram), wv, w_out)
         got = LA.linear_attention_q(xr, g_in, wq, wtil, b_out, g_out, per)
         torch.cuda.synchronize()
@@ -539,8 +568,9 @@ def linear_attention_kernel_phase(seen) -> dict:
         err_full = (full.float() - ref.float()).abs().max().item()
         corr = torch.corrcoef(torch.stack([full.float().ravel(), ref.float().ravel()]))[0, 1]
         ok_full = torch.allclose(full.float(), ref.float(), **LINATT_TOL) and corr > 0.999
-        log(f"256px linear attention {list(shape)} ({nb} blocks of {per} tokens): kv G/l "
-            f"max_abs_err {err_kv:.3g} (tol {KV_TOL:g}) {'ok' if ok_kv else 'FAIL'}; q "
+        log(f"256px linear attention {list(shape)} ({nb} blocks of {per} tokens): kv "
+            + ", ".join(f"{k} {kv_err[k]:.3g} (tol {KV_TOL[k]:.3g})" for k in KV_TOL)
+            + f", G/l max_abs_err {err_kv:.3g} {'ok' if ok_kv else 'FAIL'}; q "
             f"{err_q:.3g} (tol {LINATT_TOL}) {'ok' if ok_q else 'FAIL'}; two-pass vs "
             f"unfused {err_full:.3g}, corr {float(corr):.6f} {'ok' if ok_full else 'FAIL'}")
         if not (ok_kv and ok_q and ok_full):

@@ -449,6 +449,8 @@ q_kernel(const bf16* __restrict__ x, const float* __restrict__ g_in,
   }
 }
 
+// Set before every launch: the attribute belongs to the device that is
+// current at the call, so a once-per-process setting misses a second card.
 template <typename K>
 cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -458,7 +460,7 @@ template <int C>
 cudaError_t launch_kv(const void* x, const void* g_in, const void* wk, void* m, void* l,
                       void* gram, int batch, int n, int per_block, cudaStream_t s) {
   constexpr int bytes = kv_smem_bytes<C>();
-  static const cudaError_t attr = allow_smem(kv_kernel<C>, bytes);
+  const cudaError_t attr = allow_smem(kv_kernel<C>, bytes);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((n + per_block - 1) / per_block, batch);
   kv_kernel<C><<<grid, kThreads, bytes, s>>>(
@@ -473,7 +475,7 @@ cudaError_t launch_q(const void* x, const void* g_in, const void* wq, const void
                      const void* b_out, const void* g_out, void* out, int batch, int n,
                      int per_block, float scale, cudaStream_t s) {
   constexpr int bytes = q_smem_bytes<C>();
-  static const cudaError_t attr = allow_smem(q_kernel<C>, bytes);
+  const cudaError_t attr = allow_smem(q_kernel<C>, bytes);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((n + per_block - 1) / per_block, batch);
   q_kernel<C><<<grid, kThreads, bytes, s>>>(

@@ -277,13 +277,13 @@ def split_qkv(w_qkv, hidden=HIDDEN):
     return (wq.to(torch.bfloat16).contiguous(), wk.to(torch.bfloat16).contiguous(), wv)
 
 
-def linear_attention_two_pass(x, g_in, w_qkv, w_out, b_out, g_out, per_block=None):
+def linear_attention_two_pass(x, g_in, w_qkv, w_out, b_out, g_out):
     """Pass 1, the fold and pass 2 on x [B, H, W, C] bf16 (contiguous):
     the kernels on a CUDA tensor, their plain versions on a CPU tensor.
     Returns [B, H, W, C] bf16 (without the residual)."""
     b, h, w, c = x.shape
     xr = x.reshape(b, h * w, c)
-    per_block = per_block or tokens_per_block(b, h * w)
+    per_block = tokens_per_block(b, h * w)
     wq, wk, wv = split_qkv(w_qkv)
     g_in = g_in.float().contiguous()
     m, l, gram = linear_attention_kv(xr, g_in, wk, per_block)

@@ -104,8 +104,11 @@ def _qkv_views(shape, dtype, device, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", ATTN_SHAPES)
 def test_attention_kernel_matches_plain_version(cuda_device, shape, dtype):
-    """f32: 2e-5 (summation order); bf16: 1e-2, one output rounding step
-    (the kernel keeps probabilities in f32, the plain version rounds them)."""
+    """f32: 2e-5 (summation order).  bf16: 1e-2.  Both round the
+    probabilities to bf16 before P·V, the kernel the unnormalised exp(s − m)
+    against a running max with 1/l applied after the product, the plain
+    version the normalised softmax; with the output's rounding step a sound
+    kernel reads 3.9e-3 at [8, 1024, 4, 32]."""
     q, k, v = _qkv_views(shape, dtype, cuda_device)
     before = flash_attention.launches
     got = flash_attention(q, k, v)
@@ -139,22 +142,39 @@ def _linatt_inputs(shape, device, seed=0):
     return x, params
 
 
+def _kv_errors(got, want):
+    """The kv kernel's partials against the plain version's, block by block:
+    m relative (both are the max of bf16-rounded k, at most one rounding
+    step apart); then, with the kernel's partials put on the plain
+    version's max, l as relative L2 over its 128 columns and G as relative
+    Frobenius over its C×128 (a norm over the block: one token whose k
+    rounds a step apart moves one column, a fault moves the block)."""
+    (m, l, g), (pm, pl, pg) = got, want
+    r = torch.exp(m - pm)
+    l, g = l * r, g * r[:, :, None, :]
+    return dict(
+        m=((m - pm).abs() / pm.abs().clamp_min(1e-6)).max().item(),
+        l=((l - pl).norm(dim=2) / pl.norm(dim=2)).max().item(),
+        g=((g - pg).norm(dim=(2, 3)) / pg.norm(dim=(2, 3))).max().item(),
+    )
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", LINATT_SHAPES)
 def test_linear_attention_kernels_match_plain_versions(cuda_device, shape):
-    """Each pass against its plain version on the same inputs (kv: G/l and
-    m at 2e-2; q: the JAX bar atol 0.04 / rtol 0.05), and the two-pass
-    function against the unfused plain version at the JAX bar plus
-    correlation > 0.999."""
+    """Each pass against its plain version on the same inputs (kv, per
+    block: m within 2^-7 relative, l within 1e-3 and G within 5e-3 relative
+    norm; q: the JAX bar atol 0.04 / rtol 0.05), and the two-pass function
+    against the unfused plain version at the JAX bar plus correlation
+    > 0.999."""
     b, h, w, c = shape
     x, (g_in, w_qkv, w_out, b_out, g_out) = _linatt_inputs(shape, cuda_device)
     xr = x.reshape(b, h * w, c)
     wq, wk, wv = LA.split_qkv(w_qkv)
     per = LA.tokens_per_block(b, h * w)
     m, l, gram = LA.linear_attention_kv(xr, g_in, wk, per)
-    pm, pl, pg = LA.kv_partials_reference(xr, g_in, wk, per)
-    torch.testing.assert_close(m, pm, rtol=2e-2, atol=2e-2)
-    torch.testing.assert_close(gram / l[:, :, None], pg / pl[:, :, None], rtol=2e-2, atol=2e-2)
+    err = _kv_errors((m, l, gram), LA.kv_partials_reference(xr, g_in, wk, per))
+    assert err["m"] <= 2**-7 and err["l"] <= 1e-3 and err["g"] <= 5e-3, err
     wtil = LA.fold(*LA.merge_kv(m, l, gram), wv, w_out)
     got = LA.linear_attention_q(xr, g_in, wq, wtil, b_out, g_out, per)
     want = LA.q_pass_reference(xr, g_in, wq, wtil, b_out, g_out)
