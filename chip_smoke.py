@@ -25,13 +25,23 @@ Phases, each printed on its own line with the elapsed seconds:
    version at the shapes that chain gives it (one UNet call at batch 8 is
    recorded by hooks): full attention [8,1024,4,32] in bf16 and f32 (and
    `scaled_dot_product_attention` timed beside it), the linear-attention
-   kv and q kernels at the six linear-attention sites, the GroupNorm kernel
-   at the 40 Block shapes, all in bf16; errors against tolerances, times
-   and bounds, summed per UNet call;
+   kv and q kernels at the six linear-attention sites (and their times at
+   batch 4 and 8 beside those of the block size the port took from the
+   batch before), the fused ResnetBlock's conv3x3_stats (pass 1, pass 2)
+   and epilogue at the six shapes of its 13 blocks (up3's two blocks and
+   the final block share one), each pass held against its plain
+   version and three emulated faults held above the bars, the whole fused
+   block against its plain version and beside the unfused block (cuDNN
+   convolutions, the GroupNorm kernel, the adds), the GroupNorm kernel at
+   the 14 Block shapes outside the fused gate, all in bf16; a row alone
+   against the same row in the batch, bit for bit, for linear attention and
+   the fused block; errors against tolerances, times and bounds, summed per
+   UNet call;
 8. 256px main path: with every count at 0, `translate` on the 256px chain
-   (full width, seeded random weights, T=250, bf16, branched) at batch 4
-   with a given disc mask, then an `InferenceServer` answering three 256px
-   requests; checks each kernel's launches per UNet call;
+   (full width, seeded random weights, T=250, bf16, branched, the JAX
+   package's default fused-ResnetBlock layout) at batch 4 with a given
+   disc mask, then an `InferenceServer` answering three 256px requests;
+   checks each kernel's launches per UNet call;
 9. 256px check: the chain against the same chain with every kernel's plain
    version on the card (same noise), and one UNet call against the CPU;
 10. 256px profile: one chain under torch.profiler.
@@ -60,10 +70,12 @@ from localdiffusion_tpu_torch.models.blocks import (
     Attention,
     GroupNormFilmSiLU,
     LinearAttention,
+    ResnetBlock,
 )
 from localdiffusion_tpu_torch.ood.manual import manual_mask
 from localdiffusion_tpu_torch.ops import _build
 from localdiffusion_tpu_torch.ops import linear_attention as LA
+from localdiffusion_tpu_torch.ops import resnet_block as RB
 from localdiffusion_tpu_torch.ops.attention import flash_attention, xla_attention
 from localdiffusion_tpu_torch.ops.groupnorm import (
     groupnorm_film_silu,
@@ -72,12 +84,14 @@ from localdiffusion_tpu_torch.ops.groupnorm import (
 from localdiffusion_tpu_torch.pipeline import LocalDiffusionPipeline
 from localdiffusion_tpu_torch.serving import InferenceServer
 
-KERNELS = ("groupnorm_film_silu", "flash_attention", "linear_attention")
+KERNELS = ("groupnorm_film_silu", "flash_attention", "linear_attention", "resnet_block")
 COUNTERS = {
     "groupnorm_film_silu": groupnorm_film_silu,
     "flash_attention": flash_attention,
     "linear_attention_kv": LA.linear_attention_kv,
     "linear_attention_q": LA.linear_attention_q,
+    "conv3x3_stats": RB.conv3x3_stats,
+    "epilogue": RB.epilogue,
 }
 
 BATCH = 64  # flagship chain
@@ -85,10 +99,13 @@ SERVE_BATCH = 8
 MRI_BATCH = 4  # 256px chain: an [8] UNet batch in the branched phase
 MRI_SERVE_BATCH = 4
 FLAGSHIP_PER_CALL = {"groupnorm_film_silu": 32}  # 2 Blocks x 16 ResnetBlocks
-# per 256px UNet call: 3 full-attention sites, 6 linear-attention sites,
-# 2 Blocks x 20 ResnetBlocks
-MRI_PER_CALL = {"groupnorm_film_silu": 40, "flash_attention": 3,
-                "linear_attention_kv": 6, "linear_attention_q": 6}
+# per 256px UNet call: 3 full-attention sites, 6 linear-attention sites, 13
+# fused ResnetBlocks (2 conv3x3_stats and an epilogue each) and 2 Blocks x 7
+# unfused ResnetBlocks at 32x32
+MRI_PER_CALL = {"groupnorm_film_silu": 14, "flash_attention": 3,
+                "linear_attention_kv": 6, "linear_attention_q": 6,
+                "conv3x3_stats": 26, "epilogue": 13}
+MRI_FUSED_BLOCKS, MRI_UNFUSED_BLOCKS = 13, 7
 # H100 SXM data-sheet peaks: device memory, float32 outside the tensor cores,
 # bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -115,6 +132,19 @@ LINATT_TOL = dict(atol=0.04, rtol=0.05)
 # inputs (NVIDIA H100 80GB HBM3, 700 W), and a missed running-max rescale
 # of l or G on one sub-tile reads above 1e-2
 KV_TOL = dict(m=2**-7, l=1e-3, g=5e-3)
+# the fused ResnetBlock's passes against their plain versions on the same
+# inputs.  h1, h2: one bf16 step (`bf16_steps`: float32 sums in another
+# order round a value one step apart).  The sums (`stats_errors`), relative
+# norm per row: against the per-tile sums of the kernel's own h, and
+# against the plain version's with the part the one-step h differences
+# explain taken out; a sound kernel reads <= 6.1e-8 at these sites (NVIDIA
+# H100 80GB HBM3, 700 W), a dropped tile 4.6e-2, and activated padding or
+# a missing halo row read ~500 steps of h.  Epilogue: one bf16 step of its
+# terms, atol 2^-6 / rtol 2^-7 (sound: 2^-7).  The whole fused block
+# against its plain version: the JAX bar, atol 0.05 / rtol 0.06 and
+# correlation > 0.999, and relative L2 <= 2e-3 (sound: <= 5.9e-4).
+RB_TOL = dict(h_steps=1.0, stats=1e-5, epi_atol=2**-6, epi_rtol=2**-7, block_atol=0.05,
+              block_rtol=0.06, block_corr=0.999, block_rel=2e-3)
 # flagship final images, kernel vs plain (same card, same noise) and card vs
 # CPU: float32 differences of ~1e-6 per call through 50 posterior steps
 CHAIN_TOL = 1e-3
@@ -223,8 +253,9 @@ def record_calls(gd, batch: int, cond_max: float) -> dict:
     """The inputs each kernel-bearing module sees in one UNet call at
     `batch` rows (condition drawn in [0, cond_max]), recorded by forward
     pre-hooks: GroupNorm (NHWC shape, FiLM?), linear attention (module, NHWC
-    shape, channels_last?), full attention (module, NCHW shape)."""
-    seen = {"gn": [], "linatt": [], "attn": []}
+    shape, channels_last?), full attention (module, NCHW shape), ResnetBlock
+    (module, NHWC shape, channels_last?, fused?)."""
+    seen = {"gn": [], "linatt": [], "attn": [], "rb": []}
 
     def gn_hook(_mod, args):
         seen["gn"].append((tuple(args[0].permute(0, 2, 3, 1).shape),
@@ -238,7 +269,16 @@ def record_calls(gd, batch: int, cond_max: float) -> dict:
     def at_hook(mod, args):
         seen["attn"].append((mod, tuple(args[0].shape)))
 
-    hooks = {GroupNormFilmSiLU: gn_hook, LinearAttention: la_hook, Attention: at_hook}
+    def rb_hook(mod, args):
+        x = args[0]
+        shape = tuple(x.permute(0, 2, 3, 1).shape)
+        fused = RB.fuses(shape, mod.block1.proj.out_channels, mod.block1.norm.groups,
+                         mod.block1.proj.compute_dtype)
+        seen["rb"].append((mod, shape, x.is_contiguous(memory_format=torch.channels_last),
+                           fused))
+
+    hooks = {GroupNormFilmSiLU: gn_hook, LinearAttention: la_hook, Attention: at_hook,
+             ResnetBlock: rb_hook}
     handles = [m.register_forward_pre_hook(hooks[type(m)])
                for m in gd.model.modules() if type(m) in hooks]
     try:
@@ -526,11 +566,22 @@ def kv_errors(got, want) -> dict:
     )
 
 
+def _batch_rule(batch: int, n: int) -> int:
+    """The block size the port took from the batch before it took it from
+    the token count alone (264 blocks in all), for timing the two beside
+    each other."""
+    per = -(-n // max(1, -(-264 // batch)))
+    return -(-per // LA.SUBTILE) * LA.SUBTILE
+
+
 def linear_attention_kernel_phase(seen) -> dict:
     """The kv and q kernels against their plain versions, and the whole
     two-pass function against the unfused plain version, at each
     linear-attention site of one 256px UNet call (bf16, the site's own
-    random weights).  Times summed over the six sites."""
+    random weights); row 0 alone against row 0 in the batch.  Times summed
+    over the six sites, and kv, q and the two passes with the fold at
+    batch 4 and 8 with the block size from the token count (the port's) and
+    from the batch (before)."""
     if len(seen) != MRI_PER_CALL["linear_attention_kv"]:
         raise RuntimeError(f"{len(seen)} linear-attention sites, expected 6")
     if not all(cl for _, _, cl in seen):
@@ -540,6 +591,7 @@ def linear_attention_kernel_phase(seen) -> dict:
     tot = {k: dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
                    ops_ms=0.0, max_abs_err=0.0) for k in ("kv", "q")}
     whole = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0)
+    sizing = {(bb, rule): [0.0, 0.0, 0.0] for bb in (4, 8) for rule in ("n", "batch")}
     for mod, shape, _ in seen:
         b, h, w, c = shape
         n = h * w
@@ -549,7 +601,7 @@ def linear_attention_kernel_phase(seen) -> dict:
                   mod.to_out.weight[:, :, 0, 0].t(), mod.to_out.bias, mod.out_norm.g)
         g_in, w_qkv, w_out, b_out, g_out = (p.detach() for p in params)
         wq, wk, wv = LA.split_qkv(w_qkv)
-        per = LA.tokens_per_block(b, n)
+        per = LA.tokens_per_block(n)
         nb = -(-n // per)
 
         m, l, gram = LA.linear_attention_kv(xr, g_in, wk, per)
@@ -575,6 +627,26 @@ def linear_attention_kernel_phase(seen) -> dict:
             f"unfused {err_full:.3g}, corr {float(corr):.6f} {'ok' if ok_full else 'FAIL'}")
         if not (ok_kv and ok_q and ok_full):
             raise RuntimeError(f"linear-attention kernels disagree at {shape}")
+        alone = LA.linear_attention(x[:1].clone(), g_in, w_qkv, w_out, b_out, g_out)
+        torch.cuda.synchronize()
+        if not torch.equal(alone, full[:1]):
+            raise RuntimeError(f"linear attention: row 0 alone differs from row 0 in the "
+                               f"batch at {shape}")
+
+        def two_pass(xb_, per_):
+            m_, l_, g_ = LA.linear_attention_kv(xb_, g_in, wk, per_)
+            wt_ = LA.fold(*LA.merge_kv(m_, l_, g_), wv, w_out)
+            return LA.linear_attention_q(xb_, g_in, wq, wt_, b_out, g_out, per_)
+
+        for (bb, rule), acc in sizing.items():
+            xb_ = xr[:bb].contiguous()
+            per_ = LA.tokens_per_block(n) if rule == "n" else _batch_rule(bb, n)
+            wt_ = LA.fold(*LA.merge_kv(*LA.linear_attention_kv(xb_, g_in, wk, per_)), wv, w_out)
+            for i, fn in enumerate((
+                    lambda: LA.linear_attention_kv(xb_, g_in, wk, per_),
+                    lambda: LA.linear_attention_q(xb_, g_in, wq, wt_, b_out, g_out, per_),
+                    lambda: two_pass(xb_, per_))):
+                acc[i] += cuda_ms(fn, 5, 4)[1]
 
         kv_eager, kv_ms = cuda_ms(lambda: LA.linear_attention_kv(xr, g_in, wk, per), 5, 4)
         _, kv_plain = cuda_ms(lambda: LA.kv_partials_reference(xr, g_in, wk, per), 5, 4)
@@ -616,8 +688,261 @@ def linear_attention_kernel_phase(seen) -> dict:
             f"(eager {t['eager_ms']:.4f}) plain {t['plain_ms']:.4f}ms bound "
             f"{t['bound_ms']:.4f}ms ({t['bound_by']})")
     log(f"256px linear attention whole per UNet call: two-pass {whole['ms']:.4f}ms, "
-        f"unfused plain {whole['plain_ms']:.4f}ms")
+        f"unfused plain {whole['plain_ms']:.4f}ms; row 0 alone = row 0 in the batch at "
+        f"every site")
+    for (bb, rule), (kv_t, q_t, tp_t) in sizing.items():
+        log(f"256px linear attention block size from the {rule:5s} at batch {bb}, per UNet "
+            f"call (device): kv {kv_t:.4f}ms q {q_t:.4f}ms two passes with the fold "
+            f"{tp_t:.4f}ms")
+    for key, i in (("kv", 0), ("q", 1)):
+        for bb in (4, 8):
+            tot[key][f"batch{bb}_ms"] = sizing[(bb, "n")][i]
+            tot[key][f"batch{bb}_batch_rule_ms"] = sizing[(bb, "batch")][i]
     return dict(kv=tot["kv"], q=tot["q"], whole=whole)
+
+
+def bf16_steps(got, want) -> float:
+    """|got − want| in bf16 steps, element by element (largest): the step at
+    max(|got|, |want|), or at 1/256 of want's largest |value| where both are
+    smaller (near 0 float32 sums in another order move a value by more than
+    its own step)."""
+    got, want = got.float(), want.float()
+    floor = want.abs().max() / 256
+    _, e = torch.frexp(torch.maximum(torch.maximum(got.abs(), want.abs()), floor))
+    return ((got - want).abs() / torch.ldexp(torch.ones_like(got), e - 8)).max().item()
+
+
+def stats_errors(h, s, ss, plain) -> dict:
+    """conv3x3_stats' sums against (tiles) the per-tile sums of its own h,
+    and (s, ss) the plain version's per-(row, channel) sums with the part
+    that the one-step differences between the two h explain taken out;
+    each a relative norm per row (largest row)."""
+    ph, ps, pss = plain
+    ts, tss = RB.tile_sums(h)
+    own = torch.cat([ts, tss], 1)
+    tiles = ((torch.cat([s, ss], 1) - own).norm(dim=(1, 2)) / own.norm(dim=(1, 2))).max()
+    hk, hp = h.double(), ph.double()
+    out = dict(tiles=tiles.item())
+    for key, got, want, moved in (("s", s, ps, hk - hp), ("ss", ss, pss, hk**2 - hp**2)):
+        diff = got.double().sum(1) - want.double().sum(1) - moved.sum(dim=(1, 2))
+        out[key] = (diff.norm(dim=1) / want.double().sum(1).norm(dim=1)).max().item()
+    return out
+
+
+def _plain_conv(xin, w, bias, pad):
+    """bf16(conv3x3(xin) + bias) of an NHWC float32 input, as the plain
+    version computes it (`pad` 1 pads with zeros, 0 takes xin as padded)."""
+    cout, cin = w.shape[1], w.shape[2]
+    wk = w.float().reshape(3, 3, cout, cin).permute(2, 3, 0, 1)
+    h = F.conv2d(xin.permute(0, 3, 1, 2), wk, padding=pad).permute(0, 2, 3, 1)
+    return (h + bias).to(torch.bfloat16)
+
+
+def emulated_faults(x, w1, bias1, h1, s1, ss1, plain1, w2, bias2, a1, c1, plain2) -> dict:
+    """What three faulty kernels would give, read by the checks of the
+    fused block's phase: pass 2 with the activation applied to its zero
+    padding too (silu(b) ≠ 0 at the border), pass 1 without the halo row
+    above each tile, and pass 1's sums without one tile."""
+    bsz, hh, ww, cin = x.shape
+    y = h1.float() * a1[:, None, None, :] + c1[:, None, None, :]
+    xin = (y * torch.sigmoid(y)).to(torch.bfloat16).float()
+    edge = (c1 * torch.sigmoid(c1)).to(torch.bfloat16).float()  # silu(0·a + b)
+    xp = edge[:, None, None, :].expand(bsz, hh + 2, ww + 2, -1).clone()
+    xp[:, 1:-1, 1:-1] = xin
+    padded = _plain_conv(xp, w2, bias2, 0)
+    x_cut = x.float().clone()
+    th = RB.TILE_H
+    x_cut[:, th - 1:hh - 1:th] = 0  # the row above each tile but the first
+    no_halo = plain1[0].clone()
+    no_halo[:, th::th] = _plain_conv(x_cut, w1, bias1, 1)[:, th::th]
+    s_cut, ss_cut = s1.clone(), ss1.clone()
+    s_cut[:, s1.shape[1] // 2] = 0
+    ss_cut[:, s1.shape[1] // 2] = 0
+    return {"activated padding (h2 steps)": bf16_steps(padded, plain2[0]),
+            "no halo row (h1 steps)": bf16_steps(no_halo, plain1[0]),
+            "dropped tile (sums)": max(stats_errors(h1, s_cut, ss_cut, plain1).values())}
+
+
+def resnet_block_kernel_phase(seen) -> dict:
+    """The fused ResnetBlock's kernels at each shape its 13 blocks take in
+    one 256px UNet call (bf16, the first such block's random weights, random
+    FiLM): conv3x3_stats for pass 1 and, with its prologue, pass 2, and the
+    epilogue, each against its plain version on the kernel's own inputs;
+    the whole three-pass block against its plain version; row 0 alone
+    against row 0 in the batch; at the first shape, three emulated faults
+    read by the same checks.  Times summed over the 13 fused blocks (26
+    conv3x3_stats, 13 epilogues): each pass, the whole block, their plain
+    versions, cuDNN's bf16 convolution with its bias at each pass's
+    operands, and the unfused block as the port runs it outside the gate
+    (cuDNN convolutions, the GroupNorm kernel, the adds)."""
+    fused = [(m, s, cl) for m, s, cl, f in seen if f]
+    if len(fused) != MRI_FUSED_BLOCKS or len(seen) - len(fused) != MRI_UNFUSED_BLOCKS:
+        raise RuntimeError(f"{len(fused)} fused and {len(seen) - len(fused)} unfused "
+                           f"ResnetBlocks: {[(s, f) for _, s, _, f in seen]}")
+    if not all(cl for _, _, cl in fused):
+        raise RuntimeError("a fused ResnetBlock's input is not channels_last: its NHWC view "
+                           f"would be a copy ({[(s, cl) for _, s, cl in fused]})")
+    sites = {}
+    for mod, shape, _ in fused:
+        sites.setdefault((shape, mod.block1.proj.out_channels), [mod, 0])[1] += 1
+    log(f"256px fused ResnetBlocks: {len(fused)} blocks at {len(sites)} shapes "
+        f"{[(list(k[0]), k[1], c) for k, (_, c) in sites.items()]}, all inputs channels_last")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tot = {k: dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                   bytes_ms=0.0, ops_ms=0.0, max_abs_err=0.0) for k in ("conv", "epi")}
+    tot["conv"].update(pass1_ms=0.0, pass2_ms=0.0)
+    whole = dict(ms=0.0, plain_ms=0.0, unfused_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+                 ops_ms=0.0, max_rel_l2=0.0)
+    worst = dict(h_steps=0.0, stats=0.0, epi=0.0)
+    faults = None
+    for (shape, cout), (mod, count) in sites.items():
+        b, hh, ww, cin = shape
+        groups = mod.block1.norm.groups
+        n = hh * ww * (cout // groups)
+        x = (torch.randn(shape, generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+        ss = tuple(torch.randn(b, cout, generator=gen, device="cuda") * 0.3 for _ in range(2))
+        with torch.no_grad():
+            blk1, blk2 = mod.block1, mod.block2
+            w1, w2 = RB.pack_conv3x3(blk1.proj.weight), RB.pack_conv3x3(blk2.proj.weight)
+            bias1, bias2 = blk1.proj.bias.float(), blk2.proj.bias.float()
+            norm1, norm2 = (blk1.norm.weight, blk1.norm.bias), (blk2.norm.weight, blk2.norm.bias)
+            w_res = b_res = None
+            if mod.res_conv is not None:
+                w_res = mod.res_conv.weight[:, :, 0, 0].to(torch.bfloat16).contiguous()
+                b_res = mod.res_conv.bias.float()
+            h1, s1, ss1 = RB.conv3x3_stats(x, w1, bias1)
+            a1, c1 = RB.gn_affine(s1, ss1, *norm1, *ss, groups, n)
+            h2, s2, ss2 = RB.conv3x3_stats(h1, w2, bias2, a1, c1)
+            a2, c2 = RB.gn_affine(s2, ss2, *norm2, None, None, groups, n)
+            out = RB.epilogue(h2, x, a2, c2, w_res, b_res)
+            torch.cuda.synchronize()
+            plain1 = RB.conv_stats_reference(x, w1, bias1)
+            plain2 = RB.conv_stats_reference(h1, w2, bias2, a1, c1)
+            readings = {}
+            for tag, got, plain in (("pass1", (h1, s1, ss1), plain1),
+                                    ("pass2", (h2, s2, ss2), plain2)):
+                readings[tag] = (bf16_steps(got[0], plain[0]), stats_errors(*got, plain))
+            want = RB.epilogue_reference(h2, x, a2, c2, w_res, b_res)
+            epi_err = (out.float() - want.float()).abs().max().item()
+            ok_epi = torch.allclose(out.float(), want.float(), atol=RB_TOL["epi_atol"],
+                                    rtol=RB_TOL["epi_rtol"])
+            full = RB.resnet_block_fused(x, mod, ss)
+            ref = RB.resnet_block_fused_plain(x, mod, ss)
+            alone = RB.resnet_block_fused(x[:1].clone(), mod, tuple(t[:1].clone() for t in ss))
+            torch.cuda.synchronize()
+            if faults is None:
+                faults = emulated_faults(x, w1, bias1, h1, s1, ss1, plain1, w2, bias2, a1, c1,
+                                         plain2)
+        rel = float((full.float() - ref.float()).norm() / ref.float().norm())
+        corr = float(torch.corrcoef(torch.stack([full.float().ravel(), ref.float().ravel()]))[0, 1])
+        ok_block = (torch.allclose(full.float(), ref.float(), atol=RB_TOL["block_atol"],
+                                   rtol=RB_TOL["block_rtol"])
+                    and corr > RB_TOL["block_corr"] and rel <= RB_TOL["block_rel"])
+        steps = max(r[0] for r in readings.values())
+        stats = max(max(r[1].values()) for r in readings.values())
+        ok_pass = steps <= RB_TOL["h_steps"] and stats <= RB_TOL["stats"]
+        batch_free = torch.equal(alone, full[:1])
+        log(f"256px fused block {list(shape)} -> {cout} (x{count}): "
+            + "; ".join(f"{t} h {r[0]:.3g} steps, sums "
+                        + " ".join(f"{k} {v:.3g}" for k, v in r[1].items())
+                        for t, r in readings.items())
+            + f" (bars {RB_TOL['h_steps']:g} step, {RB_TOL['stats']:g}); epilogue max_abs_err "
+            f"{epi_err:.3g} {'ok' if ok_epi else 'FAIL'}; block vs plain rel L2 {rel:.3g} corr "
+            f"{corr:.6f} {'ok' if ok_block else 'FAIL'}; row 0 alone "
+            f"{'= row 0 in the batch' if batch_free else 'DIFFERS'}")
+        if not (ok_pass and ok_epi and ok_block and batch_free):
+            raise RuntimeError(f"the fused ResnetBlock's kernels disagree at {shape}")
+        worst = dict(h_steps=max(worst["h_steps"], steps), stats=max(worst["stats"], stats),
+                     epi=max(worst["epi"], epi_err))
+        whole["max_rel_l2"] = max(whole["max_rel_l2"], rel)
+
+        xc, h1c = x.permute(0, 3, 1, 2), h1.permute(0, 3, 1, 2)  # channels_last NCHW views
+        w1c, w2c = (w.reshape(3, 3, cout, -1).permute(2, 3, 0, 1)
+                    .contiguous(memory_format=torch.channels_last) for w in (w1, w2))
+        b1h, b2h = bias1.to(torch.bfloat16), bias2.to(torch.bfloat16)
+        with torch.no_grad():
+            p1_eager, p1_ms = cuda_ms(lambda: RB.conv3x3_stats(x, w1, bias1), 5, 4)
+            p2_eager, p2_ms = cuda_ms(lambda: RB.conv3x3_stats(h1, w2, bias2, a1, c1), 5, 4)
+            _, p1_plain = cuda_ms(lambda: RB.conv_stats_reference(x, w1, bias1), 5, 4)
+            _, p2_plain = cuda_ms(lambda: RB.conv_stats_reference(h1, w2, bias2, a1, c1), 5, 4)
+            _, p1_lib = cuda_ms(lambda: F.conv2d(xc, w1c, b1h, padding=1), 5, 4)
+            _, p2_lib = cuda_ms(lambda: F.conv2d(h1c, w2c, b2h, padding=1), 5, 4)
+            e_eager, e_ms = cuda_ms(lambda: RB.epilogue(h2, x, a2, c2, w_res, b_res), 5, 4)
+            _, e_plain = cuda_ms(lambda: RB.epilogue_reference(h2, x, a2, c2, w_res, b_res),
+                                 5, 4)
+            _, f_ms = cuda_ms(lambda: RB.resnet_block_fused(x, mod, ss), 5, 4)
+            _, f_plain = cuda_ms(lambda: RB.resnet_block_fused_plain(x, mod, ss), 5, 4)
+
+            def unfused():
+                h = blk2(blk1(xc, ss))
+                return h + (mod.res_conv(xc) if mod.res_conv is not None else xc)
+
+            _, u_ms = cuda_ms(unfused, 5, 4)
+        pix = b * hh * ww
+        tiles = RB.num_tiles(hh, ww)
+
+        def conv_bytes(ci, affine):
+            return (pix * (ci + cout) * 2 + 9 * cout * ci * 2 + cout * 4
+                    + 2 * b * tiles * cout * 4 + (2 * b * ci * 4 if affine else 0))
+
+        conv_ops = lambda ci: 2 * pix * cout * 9 * ci
+        res_bytes = cout * cin * 2 + cout * 4 if w_res is not None else 0
+        res_ops = 2 * pix * cin * cout if w_res is not None else 0
+        epi_bytes = pix * (2 * cout + cin) * 2 + 2 * b * cout * 4 + res_bytes
+        block_bytes = (pix * (cin + cout) * 2 + 9 * cout * (cin + cout) * 2 + 6 * cout * 4
+                       + 2 * b * cout * 4 + res_bytes)
+        block_ops = conv_ops(cin) + conv_ops(cout) + res_ops
+        for key, ms, eager, plain, lib, nbytes, ops, err in (
+                ("conv", p1_ms + p2_ms, p1_eager + p2_eager, p1_plain + p2_plain,
+                 p1_lib + p2_lib, conv_bytes(cin, False) + conv_bytes(cout, True),
+                 conv_ops(cin) + conv_ops(cout),
+                 max((got - want.float()).abs().max().item()
+                     for got, want in ((h1.float(), plain1[0]), (h2.float(), plain2[0])))),
+                ("epi", e_ms, e_eager, e_plain, 0.0, epi_bytes, res_ops, epi_err)):
+            b_ms, o_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / BF16_OPS_PER_S
+            t = tot[key]
+            for k2, v in (("ms", ms), ("eager_ms", eager), ("plain_ms", plain),
+                          ("library_ms", lib), ("bytes_ms", b_ms), ("ops_ms", o_ms),
+                          ("bound_ms", max(b_ms, o_ms))):
+                t[k2] += count * v
+            t["max_abs_err"] = max(t["max_abs_err"], err)
+        tot["conv"]["pass1_ms"] += count * p1_ms
+        tot["conv"]["pass2_ms"] += count * p2_ms
+        wb_ms, wo_ms = 1e3 * block_bytes / HBM_BYTES_PER_S, 1e3 * block_ops / BF16_OPS_PER_S
+        for k2, v in (("ms", f_ms), ("plain_ms", f_plain), ("unfused_ms", u_ms),
+                      ("bytes_ms", wb_ms), ("ops_ms", wo_ms), ("bound_ms", max(wb_ms, wo_ms))):
+            whole[k2] += count * v
+        cb1, cb2 = (bound(conv_bytes(ci, aff), conv_ops(ci), BF16_OPS_PER_S)[0]
+                    for ci, aff in ((cin, False), (cout, True)))
+        log(f"  device us/launch: pass 1 {p1_ms * 1e3:.1f} (eager {p1_eager * 1e3:.1f}, plain "
+            f"{p1_plain * 1e3:.1f}, cuDNN conv {p1_lib * 1e3:.1f}, bound {cb1 * 1e3:.1f}); "
+            f"pass 2 {p2_ms * 1e3:.1f} (eager {p2_eager * 1e3:.1f}, plain {p2_plain * 1e3:.1f}, "
+            f"cuDNN conv {p2_lib * 1e3:.1f}, bound {cb2 * 1e3:.1f}); epilogue {e_ms * 1e3:.1f} "
+            f"(plain {e_plain * 1e3:.1f}, bound "
+            f"{bound(epi_bytes, res_ops, BF16_OPS_PER_S)[0] * 1e3:.1f}); whole block fused "
+            f"{f_ms * 1e3:.1f}, plain {f_plain * 1e3:.1f}, unfused {u_ms * 1e3:.1f}, bound "
+            f"{max(wb_ms, wo_ms) * 1e3:.1f}")
+    for label, reading in faults.items():
+        bar = RB_TOL["stats"] if "sums" in label else RB_TOL["h_steps"]
+        log(f"256px fused block emulated fault, {label}: {reading:.3g} (bar {bar:g}) "
+            f"{'caught' if reading > bar else 'MISSED'}")
+        if not reading > bar:
+            raise RuntimeError(f"the checks miss an emulated fault: {label}")
+    for t in tot.values():
+        t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations"
+    whole["bound_by"] = "bytes" if whole["bytes_ms"] >= whole["ops_ms"] else "operations"
+    c, e = tot["conv"], tot["epi"]
+    log(f"256px fused ResnetBlock per UNet call (13 blocks, device): conv3x3_stats x26 "
+        f"{c['ms']:.4f}ms (pass 1 {c['pass1_ms']:.4f}, pass 2 {c['pass2_ms']:.4f}; eager "
+        f"{c['eager_ms']:.4f}) plain {c['plain_ms']:.4f} cuDNN conv {c['library_ms']:.4f} "
+        f"bound {c['bound_ms']:.4f} ({c['bound_by']}); epilogue x13 {e['ms']:.4f}ms (eager "
+        f"{e['eager_ms']:.4f}) plain {e['plain_ms']:.4f} bound {e['bound_ms']:.4f} "
+        f"({e['bound_by']}); whole blocks fused {whole['ms']:.4f}ms, plain "
+        f"{whole['plain_ms']:.4f}, unfused (cuDNN + GN kernel) {whole['unfused_ms']:.4f}, "
+        f"bound {whole['bound_ms']:.4f} ({whole['bound_by']}); worst readings: h "
+        f"{worst['h_steps']:.3g} steps, sums {worst['stats']:.3g}, epilogue "
+        f"{worst['epi']:.3g}, block rel L2 {whole['max_rel_l2']:.3g}")
+    return dict(conv=c, epi=e, whole=whole, worst=worst, faults=faults)
 
 
 def mri256() -> dict:
@@ -635,11 +960,13 @@ def mri256() -> dict:
     seen = record_calls(gd, 2 * MRI_BATCH, hi)
     log(f"256px UNet call at batch {2 * MRI_BATCH}: {len(seen['gn'])} GN, "
         f"{len(seen['linatt'])} linear-attention sites {[s for _, s, _ in seen['linatt']]}, "
-        f"{len(seen['attn'])} full-attention sites")
+        f"{len(seen['attn'])} full-attention sites, {sum(f for *_, f in seen['rb'])} of "
+        f"{len(seen['rb'])} ResnetBlocks fused")
     if len(seen["gn"]) != MRI_PER_CALL["groupnorm_film_silu"]:
         raise RuntimeError(f"{len(seen['gn'])} GroupNorm launches per 256px UNet call")
     attn = attention_kernel_phase(seen["attn"])
     linatt = linear_attention_kernel_phase(seen["linatt"])
+    rb = resnet_block_kernel_phase(seen["rb"])
     gn = gn_kernel_phase(seen["gn"], (torch.bfloat16,), torch.bfloat16, "256px", (5, 4))
 
     rng = np.random.default_rng(0)
@@ -700,7 +1027,7 @@ def mri256() -> dict:
         del card, cpu
 
     prof = profile_chain(pipe, lr, mask, "256px", top=16)
-    return dict(attn=attn, linatt=linatt, gn=gn, counts=counts, perf=perf, **prof)
+    return dict(attn=attn, linatt=linatt, rb=rb, gn=gn, counts=counts, perf=perf, **prof)
 
 
 def main() -> None:
@@ -719,7 +1046,7 @@ def main() -> None:
              max_abs_err=gn["max_abs_err"], ms=gn["ms"], plain_ms=gn["plain_ms"],
              bound_ms=gn["bound_ms"],
              bound_by="bytes" if gn["bytes_ms"] >= gn["ops_ms"] else "operations",
-             library_ms=None, per="256px UNet call, 40 launches, bf16",
+             library_ms=None, per="256px UNet call, 14 launches, bf16",
              launches_256px=counts["groupnorm_film_silu"],
              launches_flagship=flag["counts"]["groupnorm_film_silu"],
              group_norm_ms=gn["group_norm_ms"], flagship_ms=flag["gn"]["ms"],
@@ -745,7 +1072,27 @@ def main() -> None:
             launches=counts[f"linear_attention_{key}"], max_abs_err=t["max_abs_err"],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=None,
-            per="256px UNet call, 6 launches (one per site), bf16"))
+            per="256px UNet call, 6 launches (one per site), bf16",
+            **{k: t[k] for k in ("batch4_ms", "batch8_ms", "batch4_batch_rule_ms",
+                                 "batch8_batch_rule_ms")}))
+    rb, whole = mri["rb"], mri["rb"]["whole"]
+    block = dict(block_ms=whole["ms"], block_plain_ms=whole["plain_ms"],
+                 block_unfused_ms=whole["unfused_ms"], block_bound_ms=whole["bound_ms"],
+                 block_bound_by=whole["bound_by"], block_max_rel_l2=whole["max_rel_l2"])
+    for name, key, src_line, per in (
+            ("conv3x3_stats", "conv", 74,
+             "256px UNet call, 26 launches (pass 1 and 2 of 13 fused blocks), bf16; "
+             "library: cuDNN conv + bias alone"),
+            ("epilogue", "epi", 133, "256px UNet call, 13 launches, bf16")):
+        t = rb[key]
+        kernels.append(dict(
+            name=name, route="cuda", source="localdiffusion_tpu_torch/csrc/resnet_block.cu",
+            replaces=f"localdiffusion_tpu/ops/pallas_resnet_block.py:{src_line}",
+            launches=counts[name], max_abs_err=t["max_abs_err"], ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"] if key == "conv" else None, per=per,
+            **({"pass1_ms": t["pass1_ms"], "pass2_ms": t["pass2_ms"]} if key == "conv"
+               else {}), **block))
     log(f"end to end: flagship {json.dumps(flag['perf'])}; 256px {json.dumps(mri['perf'])}; "
         f"busy share flagship {flag['busy_share']:.4f} 256px {mri['busy_share']:.4f}")
     print(json.dumps({"kernels": kernels}), flush=True)

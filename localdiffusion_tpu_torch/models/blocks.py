@@ -32,6 +32,11 @@ from localdiffusion_tpu_torch.ops.linear_attention import (
     linear_attention_reference,
     supports as linear_attention_supports,
 )
+from localdiffusion_tpu_torch.ops.resnet_block import (
+    fuses as resnet_block_fuses,
+    resnet_block_fused,
+    resnet_block_fused_plain,
+)
 
 
 class Conv2d(nn.Conv2d):
@@ -147,7 +152,15 @@ class Block(nn.Module):
 
 
 class ResnetBlock(nn.Module):
-    """Two Blocks + 1×1 residual, FiLM-conditioned on the time embedding."""
+    """Two Blocks + 1×1 residual, FiLM-conditioned on the time embedding.
+
+    Where the JAX module takes its fused kernel (`ops.resnet_block.fuses`:
+    bf16 compute, h·w ≥ 4096 and `supports_normal`), the block goes to the
+    fused three-pass wrapper, fed from the same parameters; elsewhere it
+    runs the two Blocks.  `use_kernel = False` takes the fused block's plain
+    version inside that gate (for comparing a chain with and without the
+    kernels).
+    """
 
     def __init__(self, dim_in: int, dim_out: int, groups: int = 8,
                  time_dim: int | None = None, dtype=torch.float32):
@@ -157,11 +170,22 @@ class ResnetBlock(nn.Module):
         self.block2 = Block(dim_out, dim_out, groups, dtype)
         self.res_conv = (Conv2d(dim_in, dim_out, 1, compute_dtype=dtype)
                          if dim_in != dim_out else None)
+        self.use_kernel = True
 
     def forward(self, x, time_emb=None):
-        scale_shift = None
+        film = None
         if self.mlp is not None and time_emb is not None:
-            scale_shift = self.mlp(F.silu(time_emb)).chunk(2, dim=-1)  # [B, C] each
+            film = self.mlp(F.silu(time_emb))  # [B, 2C]: scale, shift
+        nhwc_shape = (x.shape[0], x.shape[2], x.shape[3], x.shape[1])
+        if resnet_block_fuses(nhwc_shape, self.block1.proj.out_channels,
+                              self.block1.norm.groups, self.block1.proj.compute_dtype):
+            # NHWC view; the UNet's channels_last tensors make it free.  The
+            # FiLM terms are the bf16 Dense output cast to float32, as in JAX.
+            xh = x.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous()
+            ss = None if film is None else film.float().chunk(2, dim=-1)
+            fn = resnet_block_fused if self.use_kernel else resnet_block_fused_plain
+            return fn(xh, self, ss).permute(0, 3, 1, 2)
+        scale_shift = None if film is None else film.chunk(2, dim=-1)
         h = self.block1(x, scale_shift)
         h = self.block2(h)
         return h + (self.res_conv(x) if self.res_conv is not None else x)

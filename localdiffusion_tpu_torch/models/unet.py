@@ -4,8 +4,8 @@ Public tensors are NHWC, as in the JAX package: `forward(x, cond, t)` takes
 x and cond as [B, H, W, C] and returns [B, H, W, C_out], and `encode_cond`
 returns NHWC features.  Inside, the network runs NCHW tensors in the
 channels_last memory format: the transposes at the boundary are views, and
-each GroupNorm and LinearAttention hands its input to an NHWC kernel without
-a copy.
+each GroupNorm, LinearAttention and fused ResnetBlock hands its input to an
+NHWC kernel without a copy.
 
 `dtype` is the compute type (the JAX UNet's `dtype`): the input is cast to
 it, every layer computes in it, and the final 1×1 conv runs in float32, so
@@ -108,8 +108,8 @@ class UNet(nn.Module):
 
     def use_plain_kernels(self, plain: bool = True) -> "UNet":
         """Route every module that has a kernel (GroupNorm, full and linear
-        attention) to its plain version (True) or to the kernel's wrapper
-        (False).  For comparing a chain against the kernels; never set by
+        attention, the fused ResnetBlock) to its plain version (True) or to
+        the kernel's wrapper (False).  For comparing a chain against the kernels; never set by
         default."""
         for m in self.modules():
             if hasattr(m, "use_kernel"):

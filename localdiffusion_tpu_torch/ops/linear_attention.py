@@ -37,7 +37,7 @@ HIDDEN = HEADS * DIM_HEAD
 CHANNELS = (32, 64, 128)
 MIN_HW = 4096  # the JAX package engages its kernel at this many pixels
 SUBTILE = 64  # tokens per sub-tile inside a kernel block (csrc: kTok)
-_TARGET_BLOCKS = 264  # two blocks per SM of an H100 (132 SMs)
+BLOCKS_PER_ROW = 64  # two blocks per SM of an H100 (132 SMs) at batch 4
 
 
 def supports(x_shape, heads: int, dim_head: int, dtype) -> bool:
@@ -52,11 +52,13 @@ def supports(x_shape, heads: int, dim_head: int, dtype) -> bool:
     return w % r == 0 and (h * (w // r)) % 8 == 0
 
 
-def tokens_per_block(batch: int, n: int) -> int:
-    """Tokens each kernel block takes: enough blocks for two per SM, in
-    whole sub-tiles."""
-    blocks_per_row = max(1, -(-_TARGET_BLOCKS // batch))
-    per = -(-n // blocks_per_row)
+def tokens_per_block(n: int) -> int:
+    """Tokens each kernel block takes, from the row's token count alone (as
+    the JAX package takes its tile from h·w alone): about `BLOCKS_PER_ROW`
+    blocks a row, in whole sub-tiles.  Each block rounds exp(k − m) against
+    its own max, so a block size that followed the batch would make a
+    row's output depend on the rows beside it."""
+    per = -(-n // BLOCKS_PER_ROW)
     return -(-per // SUBTILE) * SUBTILE
 
 
@@ -188,23 +190,29 @@ linear_attention_kv.launches = 0
 
 def merge_kv(m, l, gram):
     """The blocks' partials of a row as one: each block's l and G rescaled
-    by exp(m_block − m_row) and summed.  Returns l [B, 128], G [B, C, 128]."""
+    by exp(m_block − m_row) and summed.  Returns l [B, 128], G [B, C, 128].
+    The sums run in float64, so the float32 result does not depend on the
+    rows beside it (PyTorch may reduce in another order for another
+    batch)."""
     w = torch.exp(m - m.amax(dim=1, keepdim=True))  # [B, nb, 128]
-    return (l * w).sum(dim=1), (gram * w[:, :, None, :]).sum(dim=1)
+    return ((l * w).sum(dim=1, dtype=torch.float64).float(),
+            (gram * w[:, :, None, :]).sum(dim=1, dtype=torch.float64).float())
 
 
 def fold(l, gram, wv, w_out, heads=HEADS, dim_head=DIM_HEAD):
     """The per-row weight of pass 2, W̃ [B, hidden, C] bf16, as the JAX
     package folds it (`pallas_linear_attention.py:352-360`): ctxᵀ = Wvᵀ·G,
     divided by l per column, the cross-head entries zeroed, rounded to bf16,
-    then contracted with the (bf16) output projection."""
+    then contracted with the (bf16) output projection.  The contractions run
+    in float64 and round to float32, so a row's W̃ does not depend on the
+    batch (a batched product may sum in another order for another batch)."""
     hidden = heads * dim_head
-    ctxt = torch.einsum("ce,bcd->bed", wv.float(), gram)  # [B, e, d]
+    ctxt = torch.einsum("ce,bcd->bed", wv.double(), gram.double()).float()  # [B, e, d]
     head = torch.arange(hidden, device=gram.device) // dim_head
     same_head = (head[:, None] == head[None, :]).to(torch.bfloat16)
     ctxn = (ctxt / l[:, None, :]).to(torch.bfloat16) * same_head
-    wtil = torch.einsum("bed,ec->bdc", ctxn.float(),
-                        w_out.to(torch.bfloat16).float())
+    wtil = torch.einsum("bed,ec->bdc", ctxn.double(),
+                        w_out.to(torch.bfloat16).double()).float()
     return wtil.to(torch.bfloat16).contiguous()
 
 
@@ -283,7 +291,7 @@ def linear_attention_two_pass(x, g_in, w_qkv, w_out, b_out, g_out):
     Returns [B, H, W, C] bf16 (without the residual)."""
     b, h, w, c = x.shape
     xr = x.reshape(b, h * w, c)
-    per_block = tokens_per_block(b, h * w)
+    per_block = tokens_per_block(h * w)
     wq, wk, wv = split_qkv(w_qkv)
     g_in = g_in.float().contiguous()
     m, l, gram = linear_attention_kv(xr, g_in, wk, per_block)

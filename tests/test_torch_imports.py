@@ -30,6 +30,7 @@ REQUIRED = {
     "localdiffusion_tpu_torch.ops.attention",
     "localdiffusion_tpu_torch.ops.linear_attention",
     "localdiffusion_tpu_torch.ops.groupnorm",
+    "localdiffusion_tpu_torch.ops.resnet_block",
     "localdiffusion_tpu_torch.models.blocks",
     "localdiffusion_tpu_torch.models.unet",
     "localdiffusion_tpu_torch.diffusion.gaussian",

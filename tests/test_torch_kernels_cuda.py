@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 GroupNorm+FiLM+SiLU at the flagship's and the 256px chain's shapes, full
-attention and the two linear-attention passes at the 256px chain's shapes,
-and the inputs each wrapper refuses.
+attention, the two linear-attention passes and the fused ResnetBlock's
+conv3x3_stats and epilogue at the 256px chain's shapes, the inputs each
+wrapper refuses, and a row alone against the same row in a batch.
 
 Every test here needs an NVIDIA GPU and nvcc (the kernels have no CPU mode)
 and skips without one.  The module imports neither JAX nor the JAX package,
@@ -13,7 +14,9 @@ so it runs on a machine that has only PyTorch:
 import pytest
 import torch
 
+from localdiffusion_tpu_torch.models.blocks import ResnetBlock
 from localdiffusion_tpu_torch.ops import linear_attention as LA
+from localdiffusion_tpu_torch.ops import resnet_block as RB
 from localdiffusion_tpu_torch.ops.attention import flash_attention, xla_attention
 from localdiffusion_tpu_torch.ops.groupnorm import (
     groupnorm_film_silu,
@@ -27,9 +30,14 @@ FLAGSHIP_SHAPES = [(128, 28, 28, 32), (128, 14, 14, 32), (128, 14, 14, 64),
 
 @pytest.fixture
 def cuda_device():
+    """The card, with TF32 off for float32 convolutions and products (the
+    plain versions then compute in float32, as chip_smoke.py runs them)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
-    return torch.device("cuda")
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield torch.device("cuda")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
 
 
 def _inputs(shape, film, dtype, device):
@@ -171,7 +179,7 @@ def test_linear_attention_kernels_match_plain_versions(cuda_device, shape):
     x, (g_in, w_qkv, w_out, b_out, g_out) = _linatt_inputs(shape, cuda_device)
     xr = x.reshape(b, h * w, c)
     wq, wk, wv = LA.split_qkv(w_qkv)
-    per = LA.tokens_per_block(b, h * w)
+    per = LA.tokens_per_block(h * w)
     m, l, gram = LA.linear_attention_kv(xr, g_in, wk, per)
     err = _kv_errors((m, l, gram), LA.kv_partials_reference(xr, g_in, wk, per))
     assert err["m"] <= 2**-7 and err["l"] <= 1e-3 and err["g"] <= 5e-3, err
@@ -215,3 +223,173 @@ def test_groupnorm_kernel_at_the_256px_shapes(cuda_device, shape, film):
     got = groupnorm_film_silu(x, g, b, s, h, groups=8)
     want = groupnorm_film_silu_reference(x, g, b, s, h, groups=8)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_linear_attention_row_alone_equals_row_in_batch(cuda_device):
+    """The kernels' blocks come from the token count alone: row 0 by itself
+    gives, bit for bit, what it gives inside a batch of 8."""
+    x, params = _linatt_inputs((8, 128, 128, 32), cuda_device)
+    whole = LA.linear_attention(x, *params)
+    alone = LA.linear_attention(x[:1].clone(), *params)
+    torch.cuda.synchronize()
+    assert torch.equal(alone, whole[:1])
+
+
+# ---------------------------------------------------------------------------
+# the fused ResnetBlock
+# ---------------------------------------------------------------------------
+# the 13 fused blocks' (NHWC input, dim_out) at the 256px chain's sites, at
+# batch 2, and ragged cases: H, W not multiples of the 8x16 tile, Cin not a
+# multiple of the 32-channel chunk
+RB_SHAPES = [((2, 256, 256, 32), 32), ((2, 128, 128, 32), 32), ((2, 64, 64, 64), 64),
+             ((2, 64, 64, 192), 128), ((2, 128, 128, 96), 64), ((2, 256, 256, 64), 32),
+             ((1, 20, 36, 48), 64), ((3, 12, 40, 8), 128)]
+
+
+def bf16_steps(got, want):
+    """|got − want| in bf16 steps, element by element (largest): the step at
+    max(|got|, |want|), or at 1/256 of want's largest |value| where both are
+    smaller (near 0 float32 sums in another order move a value by more than
+    its own step)."""
+    got, want = got.float(), want.float()
+    floor = want.abs().max() / 256
+    _, e = torch.frexp(torch.maximum(torch.maximum(got.abs(), want.abs()), floor))
+    return ((got - want).abs() / torch.ldexp(torch.ones_like(got), e - 8)).max().item()
+
+
+def stats_errors(h, s, ss, plain):
+    """The kernel's sums against (tiles) the per-tile sums of its own h, and
+    (s, ss) the plain version's per-(row, channel) sums with the part that
+    the one-step differences between the two h explain taken out; each a
+    relative norm per row (largest row)."""
+    ph, ps, pss = plain
+    ts, tss = RB.tile_sums(h)
+    own = torch.cat([ts, tss], 1)
+    tiles = ((torch.cat([s, ss], 1) - own).norm(dim=(1, 2)) / own.norm(dim=(1, 2))).max()
+    hk, hp = h.double(), ph.double()
+    out = dict(tiles=tiles.item())
+    for key, got, want, moved in (("s", s, ps, hk - hp), ("ss", ss, pss, hk**2 - hp**2)):
+        diff = got.double().sum(1) - want.double().sum(1) - moved.sum(dim=(1, 2))
+        out[key] = (diff.norm(dim=1) / want.double().sum(1).norm(dim=1)).max().item()
+    return out
+
+
+def _rb_block(cin, dim_out, device, seed=0):
+    """A bf16 ResnetBlock with seeded non-trivial parameters, on device."""
+    torch.manual_seed(seed)
+    mod = ResnetBlock(cin, dim_out, 8, 64, torch.bfloat16)
+    with torch.no_grad():
+        for p in mod.parameters():
+            p.add_(torch.randn_like(p) * 0.1)
+    return mod.to(device)
+
+
+def _rb_inputs(shape, dim_out, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=gen, device=device)
+    x = (r(*shape) * 0.5).to(torch.bfloat16)
+    return x, (r(shape[0], dim_out) * 0.3, r(shape[0], dim_out) * 0.3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dim_out", RB_SHAPES)
+def test_resnet_block_passes_match_plain_versions(cuda_device, shape, dim_out):
+    """Each pass against its plain version on the same inputs: h1 and h2
+    within one bf16 step, the sums within 1e-5 relative norm, the epilogue
+    within one bf16 step of its terms (atol 2^-6, rtol 2^-7); then the whole
+    fused block against the plain three passes at the JAX bar (atol 0.05 /
+    rtol 0.06, correlation > 0.999) and relative L2 ≤ 2e-3.  The bars and
+    the sound readings are chip_smoke.py's (`RB_TOL`)."""
+    x, ss = _rb_inputs(shape, dim_out, cuda_device)
+    mod = _rb_block(shape[-1], dim_out, cuda_device)
+    b1, b2 = mod.block1, mod.block2
+    n = shape[1] * shape[2] * (dim_out // 8)
+    w1, w2 = RB.pack_conv3x3(b1.proj.weight.detach()), RB.pack_conv3x3(b2.proj.weight.detach())
+    bias1, bias2 = b1.proj.bias.detach(), b2.proj.bias.detach()
+    before = (RB.conv3x3_stats.launches, RB.epilogue.launches)
+    h1, s1, ss1 = RB.conv3x3_stats(x, w1, bias1)
+    plain1 = RB.conv_stats_reference(x, w1, bias1)
+    a1, c1 = RB.gn_affine(s1, ss1, b1.norm.weight.detach(), b1.norm.bias.detach(), *ss, 8, n)
+    h2, s2, ss2 = RB.conv3x3_stats(h1, w2, bias2, a1, c1)
+    plain2 = RB.conv_stats_reference(h1, w2, bias2, a1, c1)
+    a2, c2 = RB.gn_affine(s2, ss2, b2.norm.weight.detach(), b2.norm.bias.detach(), None, None,
+                          8, n)
+    wr = br = None
+    if mod.res_conv is not None:
+        wr = mod.res_conv.weight.detach()[:, :, 0, 0].to(torch.bfloat16).contiguous()
+        br = mod.res_conv.bias.detach()
+    out = RB.epilogue(h2, x, a2, c2, wr, br)
+    torch.cuda.synchronize()
+    assert (RB.conv3x3_stats.launches, RB.epilogue.launches) == (before[0] + 2, before[1] + 1)
+    for (h, s, ss_, plain) in ((h1, s1, ss1, plain1), (h2, s2, ss2, plain2)):
+        assert bf16_steps(h, plain[0]) <= 1.0
+        err = stats_errors(h, s, ss_, plain)
+        assert max(err.values()) <= 1e-5, err
+    want = RB.epilogue_reference(h2, x, a2, c2, wr, br)
+    torch.testing.assert_close(out.float(), want.float(), atol=2**-6, rtol=2**-7)
+
+    with torch.no_grad():
+        got = RB.resnet_block_fused(x, mod, ss)
+        ref = RB.resnet_block_fused_plain(x, mod, ss)
+    torch.testing.assert_close(got.float(), ref.float(), atol=0.05, rtol=0.06)
+    corr = torch.corrcoef(torch.stack([got.float().ravel(), ref.float().ravel()]))[0, 1]
+    assert corr > 0.999
+    assert (got.float() - ref.float()).norm() <= 2e-3 * ref.float().norm()
+
+
+@pytest.mark.cuda
+def test_resnet_block_row_alone_equals_row_in_batch(cuda_device):
+    """The tile grid comes from H and W alone: row 0 by itself gives, bit
+    for bit, what it gives inside a batch of 8 (with FiLM and a res_conv)."""
+    x, ss = _rb_inputs((8, 128, 128, 96), 64, cuda_device, seed=3)
+    mod = _rb_block(96, 64, cuda_device, seed=3)
+    with torch.no_grad():
+        whole = RB.resnet_block_fused(x, mod, ss)
+        alone = RB.resnet_block_fused(x[:1].clone(), mod, tuple(t[:1].clone() for t in ss))
+    torch.cuda.synchronize()
+    assert torch.equal(alone, whole[:1])
+
+
+@pytest.mark.cuda
+def test_resnet_block_module_launches_the_kernels(cuda_device):
+    """Inside the gate the module launches conv3x3_stats twice and the
+    epilogue once, and no GroupNorm kernel; outside it, the GroupNorm
+    kernel twice."""
+    from localdiffusion_tpu_torch.ops.groupnorm import groupnorm_film_silu
+
+    mod = _rb_block(64, 32, cuda_device)
+    t = torch.randn(2, 64, device=cuda_device).bfloat16()
+    for side, convs, epis, gns in ((64, 2, 1, 0), (32, 0, 0, 2)):
+        x = torch.randn(2, 64, side, side, device=cuda_device).bfloat16()
+        x = x.contiguous(memory_format=torch.channels_last)
+        before = (RB.conv3x3_stats.launches, RB.epilogue.launches, groupnorm_film_silu.launches)
+        with torch.no_grad():
+            out = mod(x, t)
+        torch.cuda.synchronize()
+        after = (RB.conv3x3_stats.launches, RB.epilogue.launches, groupnorm_film_silu.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == (convs, epis, gns)
+        assert out.shape == (2, 32, side, side) and torch.isfinite(out.float()).all()
+
+
+@pytest.mark.cuda
+def test_resnet_block_kernels_reject_what_they_cannot_take(cuda_device):
+    x, ss = _rb_inputs((1, 8, 16, 32), 32, cuda_device)
+    w = torch.zeros(9, 32, 32, dtype=torch.bfloat16, device=cuda_device)
+    bias = torch.zeros(32, device=cuda_device)
+    with pytest.raises(TypeError):
+        RB.conv3x3_stats(x.float(), w, bias)
+    with pytest.raises(ValueError, match="on cpu"):
+        RB.conv3x3_stats(x, w, bias.cpu())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        RB.conv3x3_stats(x[..., :12].contiguous(), w[:, :, :12].contiguous(), bias)
+    with pytest.raises(ValueError, match="C out"):
+        RB.conv3x3_stats(x, w[:, :24].contiguous(), bias[:24].contiguous())
+    a = torch.zeros(1, 32, device=cuda_device)
+    with pytest.raises(ValueError, match="C out"):
+        RB.epilogue(x[..., :16].contiguous(), x[..., :16].contiguous(), a[:, :16].contiguous(),
+                    a[:, :16].contiguous())
+    mod = _rb_block(32, 32, cuda_device)
+    with pytest.raises(ValueError, match="does not take"):
+        RB.resnet_block_fused(torch.zeros(1, 64, 62, 32, dtype=torch.bfloat16,
+                                          device=cuda_device), mod, ss)

@@ -88,17 +88,19 @@ def test_npz_snapshot_round_trip(tmp_path):
 
 def test_plain_groupnorm_switch_is_explicit():
     """`use_plain_kernels` routes every module with a kernel (GroupNorm, full
-    and linear attention) to its plain version, and back."""
+    and linear attention, the fused ResnetBlock) to its plain version, and
+    back."""
     _, _, tgd = make_pair(*CASES["narrow_8px"], seed=5)
     from localdiffusion_tpu_torch.models.blocks import (
         Attention,
         GroupNormFilmSiLU,
         LinearAttention,
+        ResnetBlock,
     )
 
     switched = [m for m in tgd.model.modules() if hasattr(m, "use_kernel")]
     kinds = {type(m) for m in switched}
-    assert kinds == {GroupNormFilmSiLU, Attention, LinearAttention}
+    assert kinds == {GroupNormFilmSiLU, Attention, LinearAttention, ResnetBlock}
     assert all(m.use_kernel for m in switched)
     tgd.model.use_plain_kernels()
     assert not any(m.use_kernel for m in switched)
