@@ -17,7 +17,7 @@ Phases, each printed on its own line with the elapsed seconds:
 4. flagship main path: with every launch count at 0, `translate` on the
    flagship (seeded random weights, T=50, f32) at batch 64 with the manual
    mask, then an `InferenceServer` answering three requests; the counts
-   are read right after;
+   are read right after and every kernel's launches checked;
 5. flagship check: the same chain with every kernel's plain version on the
    card, and a small batch on the CPU, against the kernel chain;
 6. flagship profile: one chain under torch.profiler;
@@ -32,11 +32,13 @@ Phases, each printed on its own line with the elapsed seconds:
    the final block share one), each pass held against its plain
    version and three emulated faults held above the bars, the whole fused
    block against its plain version and beside the unfused block (cuDNN
-   convolutions, the GroupNorm kernel, the adds), the GroupNorm kernel at
-   the 14 Block shapes outside the fused gate, all in bf16; a row alone
-   against the same row in the batch, bit for bit, for linear attention and
-   the fused block; errors against tolerances, times and bounds, summed per
-   UNet call;
+   convolutions, the GroupNorm kernels, the adds), the GroupNorm op at the
+   14 Block shapes outside the fused gate (the single-pass kernel at
+   32x32x128, the tiled stats/apply pair past the row gate at 32x32x256,
+   each pass held on its own), all in bf16; a row alone against the same
+   row in the batch, bit for bit, for linear attention, the fused block
+   and the tiled pair; errors against tolerances, times and bounds, summed
+   per UNet call;
 8. 256px main path: with every count at 0, `translate` on the 256px chain
    (full width, seeded random weights, T=250, bf16, branched, the JAX
    package's default fused-ResnetBlock layout) at batch 4 with a given
@@ -44,7 +46,20 @@ Phases, each printed on its own line with the elapsed seconds:
    checks each kernel's launches per UNet call;
 9. 256px check: the chain against the same chain with every kernel's plain
    version on the card (same noise), and one UNet call against the CPU;
-10. 256px profile: one chain under torch.profiler.
+10. 256px profile: one chain under torch.profiler;
+11. stem kernels: the s2d-stem configuration (`stem256_config()`, the
+    README's recommended 256px deployment: f32, DDIM-50, plain chain) at
+    full width, one UNet call at batch 8 recorded: the GroupNorm op at its
+    40 Block shapes (the tiled pair at the 14 past the row gate) and full
+    attention at its three 16x16 sites, f32, against their plain versions,
+    timed as in phase 7;
+12. stem main path: with every count at 0, the plain DDIM-50 chain at batch
+    4 (detector none), the branched DDIM-50 chain with disc masks, then an
+    `InferenceServer` answering three requests; every kernel's launches
+    checked per UNet call;
+13. stem check: both chains against the same chains with every kernel's
+    plain version (same noise), and one UNet call against the CPU, f32;
+14. stem profile: the plain chain under torch.profiler.
 
 The line before the last is one JSON object with the kernels' numbers; the
 last line is the device record.  Any failed check raises, so the exit code
@@ -63,7 +78,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from localdiffusion_tpu_torch.config import flagship_config, mri256_config
+from localdiffusion_tpu_torch.config import flagship_config, mri256_config, stem256_config
 from localdiffusion_tpu_torch.diffusion.gaussian import GaussianDiffusion, build_gd
 from localdiffusion_tpu_torch.diffusion.sampler import ArrayNoise
 from localdiffusion_tpu_torch.models.blocks import (
@@ -74,6 +89,7 @@ from localdiffusion_tpu_torch.models.blocks import (
 )
 from localdiffusion_tpu_torch.ood.manual import manual_mask
 from localdiffusion_tpu_torch.ops import _build
+from localdiffusion_tpu_torch.ops import groupnorm as G
 from localdiffusion_tpu_torch.ops import linear_attention as LA
 from localdiffusion_tpu_torch.ops import resnet_block as RB
 from localdiffusion_tpu_torch.ops.attention import flash_attention, xla_attention
@@ -84,9 +100,12 @@ from localdiffusion_tpu_torch.ops.groupnorm import (
 from localdiffusion_tpu_torch.pipeline import LocalDiffusionPipeline
 from localdiffusion_tpu_torch.serving import InferenceServer
 
-KERNELS = ("groupnorm_film_silu", "flash_attention", "linear_attention", "resnet_block")
+KERNELS = ("groupnorm_film_silu", "groupnorm_tiled", "flash_attention", "linear_attention",
+           "resnet_block")
 COUNTERS = {
-    "groupnorm_film_silu": groupnorm_film_silu,
+    "groupnorm_film_silu": groupnorm_film_silu,  # the single-pass kernel
+    "gn_tiled_stats": G.gn_tiled_stats,
+    "gn_tiled_apply": G.gn_tiled_apply,
     "flash_attention": flash_attention,
     "linear_attention_kv": LA.linear_attention_kv,
     "linear_attention_q": LA.linear_attention_q,
@@ -98,23 +117,44 @@ BATCH = 64  # flagship chain
 SERVE_BATCH = 8
 MRI_BATCH = 4  # 256px chain: an [8] UNet batch in the branched phase
 MRI_SERVE_BATCH = 4
+STEM_BATCH = 4  # s2d-stem chain: an [8] UNet batch in the branched phase
+STEM_SERVE_BATCH = 4
+# launches per UNet call of every kernel on each path (0 where absent)
 FLAGSHIP_PER_CALL = {"groupnorm_film_silu": 32}  # 2 Blocks x 16 ResnetBlocks
 # per 256px UNet call: 3 full-attention sites, 6 linear-attention sites, 13
 # fused ResnetBlocks (2 conv3x3_stats and an epilogue each) and 2 Blocks x 7
-# unfused ResnetBlocks at 32x32
-MRI_PER_CALL = {"groupnorm_film_silu": 14, "flash_attention": 3,
-                "linear_attention_kv": 6, "linear_attention_q": 6,
+# unfused ResnetBlocks at 32x32: down3's 4 GN at 32x32x128 (512 KiB, the
+# single-pass kernel), the mid blocks', conv_fusion's and up0's 10 at
+# 32x32x256 (1 MiB, past the row gate: the tiled pair)
+MRI_PER_CALL = {"groupnorm_film_silu": 4, "gn_tiled_stats": 10, "gn_tiled_apply": 10,
+                "flash_attention": 3, "linear_attention_kv": 6, "linear_attention_q": 6,
                 "conv3x3_stats": 26, "epilogue": 13}
 MRI_FUSED_BLOCKS, MRI_UNFUSED_BLOCKS = 13, 7
+# per s2d-stem UNet call (f32: no ResnetBlock fuses, linear attention takes
+# the plain module): 40 GN, of which down0's, up2's, up3's and the final
+# block's 14 are past the row gate (128x128x32 and 64x64x64) and 26 are not
+# (down1's 64x64x32 sits exactly at it); full attention at the three 16x16
+# sites (256 tokens)
+STEM_PER_CALL = {"groupnorm_film_silu": 26, "gn_tiled_stats": 14, "gn_tiled_apply": 14,
+                 "flash_attention": 3}
 # H100 SXM data-sheet peaks: device memory, float32 outside the tensor cores,
 # bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 GN_OPS_PER_ELEMENT = 14  # stats 4, normalize+affine 3, FiLM 2, SiLU 5
+GN_STATS_OPS_PER_ELEMENT = 3  # tiled pair: sum, square, sum of squares
+GN_APPLY_OPS_PER_ELEMENT = 8  # normalize+affine 3, SiLU 5; FiLM adds 2
 # GN kernel vs plain version: float32 differs only by summation order;
 # bfloat16 may differ by one rounding step of the output (2^-8 relative)
 GN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the tiled pair vs its plain version: float32 3e-5, the JAX package's bar
+# for its tiled kernel (tests/test_pallas_kernels.py); bfloat16 one output
+# step.  Its partials, per row, relative norm against the plain partials of
+# the same tiles: 1e-5, where float32 sums in another order read ~1e-7 and
+# one dropped tile of 16 or more reads above 1e-2
+GN_TILED_F32_TOL = 3e-5
+GN_PARTIALS_TOL = 1e-5
 # attention kernel vs plain version: float32, summation order.  bfloat16: both
 # round the probabilities to bf16 before P·V, but the kernel rounds the
 # unnormalised exp(s − m) against a running max and divides by l after the
@@ -157,6 +197,11 @@ CHAIN_TOL = 1e-3
 # >= 0.99 on images in [0, 14.6].
 MRI_UNET_REL, MRI_UNET_CORR, MRI_UNET_F32_TOL = 5e-2, 0.999, 1e-3
 MRI_CHAIN_REL, MRI_CHAIN_CORR = 0.1, 0.99
+# s2d stem, float32.  The DDIM-50 chains, kernels vs plain versions (same
+# noise), and one UNet call, card vs CPU: float32 sums in another order
+# (~1e-6 per call) through 50 DDIM updates: relative L2 <= 1e-3, and for
+# the UNet call 1e-3 abs+rel
+STEM_CHAIN_REL, STEM_UNET_F32_TOL = 1e-3, 1e-3
 
 _T0 = time.perf_counter()
 
@@ -301,58 +346,159 @@ def _gn_inputs(shape, film, dtype, gen):
     return x, r(c), r(c), scale, shift
 
 
+def _gn_close(got, want, tiled) -> tuple:
+    """(max abs error, within tolerance?) of a GN output against its plain
+    version: `GN_TOL` for the single-pass kernel; for the tiled pair 3e-5 in
+    float32 and one output step in bfloat16 (`bf16_steps`)."""
+    err = (got.float() - want.float()).abs().max().item()
+    if got.dtype == torch.bfloat16:
+        ok = (bf16_steps(got, want) <= 1.0 if tiled
+              else torch.allclose(got.float(), want.float(), rtol=GN_TOL[got.dtype],
+                                  atol=GN_TOL[got.dtype]))
+    else:
+        tol = GN_TILED_F32_TOL if tiled else GN_TOL[got.dtype]
+        ok = torch.allclose(got, want, rtol=tol, atol=tol)
+    return err, bool(ok)
+
+
 def gn_kernel_phase(launches, dtypes, time_dtype, label, iters=(20, 10)) -> dict:
-    """The GN kernel against its plain version at each (shape, FiLM) of one
-    UNet call; times summed over that call's launches, in `time_dtype`."""
+    """The GN op at each (shape, FiLM) of one UNet call: below the row gate
+    the single-pass kernel, past it the tiled pair, each against its plain
+    version.  For the pair also each pass on its own: the stats pass's
+    partials per row against the plain partials at the same tiles (relative
+    norm <= `GN_PARTIALS_TOL`, which one dropped tile fails), the apply pass
+    against its plain version on the kernel's partials, and row 0 alone
+    against row 0 in the batch, bit for bit.  Times summed over the call's
+    launches, in `time_dtype`: each kernel, its plain version, the memory
+    and operation bounds; per op (single pass, tiled pair) also
+    `F.group_norm` alone."""
     counts = {}
     for key in launches:
         counts[key] = counts.get(key, 0) + 1
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_err = {dt: 0.0 for dt in dtypes}
-    totals = dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, group_norm_ms=0.0,
-                  bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+    zero = lambda: dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+                        ops_ms=0.0, group_norm_ms=0.0, launches=0, max_abs_err=0.0)
+    parts = {k: zero() for k in ("single", "stats", "apply", "pair")}
+    worst_partials = 0.0
     for (shape, film), n in sorted(counts.items()):
+        tiled = G.large_block(shape)
+        b, hh, ww, c = shape
         for dtype in dtypes:
-            x, g, b, s, h = _gn_inputs(shape, film, dtype, gen)
-            got = groupnorm_film_silu(x, g, b, s, h, groups=8)
+            x, g, bt, s, h = _gn_inputs(shape, film, dtype, gen)
+            got = groupnorm_film_silu(x, g, bt, s, h, groups=8)
             torch.cuda.synchronize()
-            want = groupnorm_film_silu_reference(x, g, b, s, h, groups=8)
-            err = (got.float() - want.float()).abs().max().item()
-            tol = GN_TOL[dtype]
-            ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+            err, ok = _gn_close(got, G.groupnorm_film_silu_plain(x, g, bt, s, h, groups=8),
+                                tiled)
             max_err[dtype] = max(max_err[dtype], err)
-            log(f"{label} GN {list(shape)} film={film} {str(dtype)[6:]}: "
-                f"max_abs_err {err:.3g} (tol {tol:g} abs+rel) {'ok' if ok else 'FAIL'}")
+            extra = ""
+            if tiled:
+                partials = G.gn_tiled_stats(x)
+                applied = G.gn_tiled_apply(x, partials, g, bt, s, h, groups=8)
+                alone = groupnorm_film_silu(x[:1].clone(), g, bt,
+                                            *(t[:1].clone() if t is not None else None
+                                              for t in (s, h)), groups=8)
+                torch.cuda.synchronize()
+                plain_p = G.tiled_partials_reference(x, G.stats_tile(hh * ww, c))
+                rel = ((partials - plain_p).flatten(1).norm(dim=1)
+                       / plain_p.flatten(1).norm(dim=1)).max().item()
+                p_err = (partials - plain_p).abs().max().item()
+                a_err, a_ok = _gn_close(applied, G.tiled_apply_reference(
+                    x, partials, g, bt, s, h, groups=8), True)
+                batch_free = torch.equal(alone, got[:1])
+                worst_partials = max(worst_partials, rel)
+                if dtype == time_dtype:
+                    parts["stats"]["max_abs_err"] = max(parts["stats"]["max_abs_err"], p_err)
+                    parts["apply"]["max_abs_err"] = max(parts["apply"]["max_abs_err"], a_err)
+                ok = ok and rel <= GN_PARTIALS_TOL and a_ok and batch_free
+                extra = (f"; {partials.shape[1]} tiles of {G.stats_tile(hh * ww, c)} px, "
+                         f"partials rel {rel:.3g} per row (tol {GN_PARTIALS_TOL:g}), apply "
+                         f"on them {a_err:.3g}, row 0 alone "
+                         f"{'= row 0 in the batch' if batch_free else 'DIFFERS'}")
+            log(f"{label} GN {list(shape)} film={film} {str(dtype)[6:]} "
+                f"{'tiled pair' if tiled else 'single pass'}: max_abs_err {err:.3g}{extra} "
+                f"{'ok' if ok else 'FAIL'}")
             if not ok:
-                raise RuntimeError(f"GN kernel disagrees with its plain version at {shape}")
+                raise RuntimeError(f"GN kernels disagree with their plain versions at {shape}")
             if dtype != time_dtype:
                 continue
-            k_eager, k_ms = cuda_ms(lambda: groupnorm_film_silu(x, g, b, s, h, groups=8), *iters)
-            _, p_ms = cuda_ms(lambda: groupnorm_film_silu_reference(x, g, b, s, h, groups=8),
-                              *iters)
             xc = x.permute(0, 3, 1, 2)  # NCHW view (channels_last)
-            gc, bc = g.to(dtype), b.to(dtype)
+            gc, bc = g.to(dtype), bt.to(dtype)
             _, l_ms = cuda_ms(lambda: F.group_norm(xc, 8, gc, bc, eps=1e-5), *iters)
-            bytes_moved = 2 * x.numel() * x.element_size() + 2 * g.numel() * 4
-            if film:
-                bytes_moved += 2 * s.numel() * 4
-            bytes_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S
-            ops_ms = 1e3 * GN_OPS_PER_ELEMENT * x.numel() / FP32_OPS_PER_S
-            log(f"  device us/launch, x{n} per UNet call: kernel {k_ms * 1e3:.2f} "
-                f"(eager from Python {k_eager * 1e3:.2f}) plain {p_ms * 1e3:.2f} "
-                f"F.group_norm {l_ms * 1e3:.2f} bound {max(bytes_ms, ops_ms) * 1e3:.2f} "
-                f"({bytes_moved / 1e6:.2f} MB)")
-            for key, v in (("ms", k_ms), ("eager_ms", k_eager), ("plain_ms", p_ms),
-                           ("group_norm_ms", l_ms), ("bound_ms", max(bytes_ms, ops_ms)),
-                           ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
-                totals[key] += n * v
-    log(f"{label} GN per UNet call ({len(launches)} launches, {str(time_dtype)[6:]}, device): "
-        f"kernel {totals['ms']:.4f}ms (eager {totals['eager_ms']:.4f}ms) "
-        f"plain {totals['plain_ms']:.4f}ms F.group_norm {totals['group_norm_ms']:.4f}ms "
-        f"bound {totals['bound_ms']:.4f}ms; max_abs_err "
-        + " ".join(f"{str(dt)[6:]} {e:.3g}" for dt, e in max_err.items()))
-    return dict(totals, max_abs_err=max_err[time_dtype],
+            esize, film_bytes = x.element_size(), (2 * s.numel() * 4 if film else 0)
+            param_bytes = 2 * g.numel() * 4 + film_bytes
+            if not tiled:
+                k_eager, k_ms = cuda_ms(lambda: groupnorm_film_silu(x, g, bt, s, h, groups=8),
+                                        *iters)
+                _, p_ms = cuda_ms(lambda: groupnorm_film_silu_reference(x, g, bt, s, h,
+                                                                        groups=8), *iters)
+                rows = {"single": (k_ms, k_eager, p_ms, 2 * x.numel() * esize + param_bytes,
+                                   GN_OPS_PER_ELEMENT * x.numel())}
+                parts["single"]["group_norm_ms"] += n * l_ms
+            else:
+                pb = partials.numel() * 4
+                apply_ops = (GN_APPLY_OPS_PER_ELEMENT + (2 if film else 0)) * x.numel()
+                timed = {
+                    "stats": (lambda: G.gn_tiled_stats(x), lambda: G.tiled_partials_reference(
+                        x, G.stats_tile(hh * ww, c)), x.numel() * esize + pb,
+                              GN_STATS_OPS_PER_ELEMENT * x.numel()),
+                    "apply": (lambda: G.gn_tiled_apply(x, partials, g, bt, s, h, groups=8),
+                              lambda: G.tiled_apply_reference(x, partials, g, bt, s, h,
+                                                              groups=8),
+                              2 * x.numel() * esize + pb + param_bytes, apply_ops),
+                    "pair": (lambda: groupnorm_film_silu(x, g, bt, s, h, groups=8),
+                             lambda: G.groupnorm_film_silu_plain(x, g, bt, s, h, groups=8),
+                             2 * x.numel() * esize + param_bytes,
+                             (GN_STATS_OPS_PER_ELEMENT + GN_APPLY_OPS_PER_ELEMENT
+                              + (2 if film else 0)) * x.numel()),
+                }
+                rows = {}
+                for key, (fn, plain_fn, nbytes, ops) in timed.items():
+                    k_eager, k_ms = cuda_ms(fn, *iters)
+                    _, p_ms = cuda_ms(plain_fn, *iters)
+                    rows[key] = (k_ms, k_eager, p_ms, nbytes, ops)
+                parts["pair"]["group_norm_ms"] += n * l_ms
+                parts["pair"]["max_abs_err"] = max(parts["pair"]["max_abs_err"], err)
+            if not tiled:
+                parts["single"]["max_abs_err"] = max(parts["single"]["max_abs_err"], err)
+            for key, (k_ms, k_eager, p_ms, nbytes, ops) in rows.items():
+                b_ms, o_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / FP32_OPS_PER_S
+                t = parts[key]
+                for k2, v in (("ms", k_ms), ("eager_ms", k_eager), ("plain_ms", p_ms),
+                              ("bound_ms", max(b_ms, o_ms)), ("bytes_ms", b_ms),
+                              ("ops_ms", o_ms)):
+                    t[k2] += n * v
+                t["launches"] += n
+            log(f"  device us/launch, x{n} per UNet call: "
+                + "; ".join(f"{key} {r[0] * 1e3:.2f} (eager {r[1] * 1e3:.2f}, plain "
+                            f"{r[2] * 1e3:.2f}, bound "
+                            f"{max(r[3] / HBM_BYTES_PER_S, r[4] / FP32_OPS_PER_S) * 1e6:.2f})"
+                            for key, r in rows.items())
+                + f"; F.group_norm {l_ms * 1e3:.2f} ({x.numel() * esize / 1e6:.2f} MB of x)")
+    for t in parts.values():
+        t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations"
+    log(f"{label} GN per UNet call ({len(launches)} ops, {str(time_dtype)[6:]}, device): "
+        + "; ".join(f"{key} x{t['launches']} {t['ms']:.4f}ms (eager {t['eager_ms']:.4f}) plain "
+                    f"{t['plain_ms']:.4f} bound {t['bound_ms']:.4f} ({t['bound_by']})"
+                    + (f" F.group_norm {t['group_norm_ms']:.4f}" if key in ("single", "pair")
+                       else "")
+                    for key, t in parts.items() if t["launches"])
+        + "; max_abs_err " + " ".join(f"{str(dt)[6:]} {e:.3g}" for dt, e in max_err.items())
+        + f"; partials worst rel {worst_partials:.3g}")
+    return dict(parts, max_abs_err=max_err[time_dtype], worst_partials=worst_partials,
                 max_abs_err_by_dtype={str(dt)[6:]: e for dt, e in max_err.items()})
+
+
+def check_gn_sites(sites, per_call, label) -> None:
+    """The GN ops one UNet call recorded split at the row gate as `per_call`
+    says: single-pass launches below it, one stats and one apply past it."""
+    large = sum(G.large_block(shape) for shape, _ in sites)
+    got = {"groupnorm_film_silu": len(sites) - large, "gn_tiled_stats": large,
+           "gn_tiled_apply": large}
+    if any(per_call.get(k, 0) != v for k, v in got.items()):
+        raise RuntimeError(f"{label}: GN ops per UNet call {got}, expected {per_call}")
+    log(f"{label} UNet call: {len(sites)} GN ops, {len(sites) - large} single pass and {large} "
+        f"past the row gate (shapes {sorted({(s, G.large_block(s)) for s, _ in sites})})")
 
 
 def _check_images(name, pred, shape, lo, hi):
@@ -362,34 +508,56 @@ def _check_images(name, pred, shape, lo, hi):
         raise RuntimeError(f"{name}: values outside [{lo}, {hi}]")
 
 
-def run_main_path(pipe, lr, hr, mask, per_call, serve_batch, label):
-    """The counted run: translate with every count at 0, then three served
-    requests (uniform mask: plain; the mask; the mask of row 2 or, for the
-    manual detector, none).  Checks each kernel's launches per UNet call."""
+def check_counts(got: dict, per_call: dict, calls: int, what: str) -> None:
+    """Every kernel's launches in `got` equal its launches per UNet call
+    (`per_call`, 0 where absent) times `calls`."""
+    for name, n in got.items():
+        if n != per_call.get(name, 0) * calls:
+            raise RuntimeError(f"{what}: {name} launched {n} times, expected "
+                               f"{per_call.get(name, 0)} x {calls} UNet calls")
+
+
+def run_main_path(pipe, lr, hr, chains, per_call, serve_batch, label):
+    """The counted run: with every count at 0, `translate` once per entry of
+    `chains` (mask, whether it must take the branched chain), then three
+    served requests (uniform mask: plain; the last chain's mask of row 1;
+    of row 2 or, for the manual detector, none).  Checks every kernel's
+    launches per UNet call in each chain and while serving; the UNet rows
+    of each chain (a branched call counts its two halves) are counted by a
+    hook for model-steps/s."""
     gd = pipe.gd
-    T = gd.num_timesteps
+    calls = gd.diff_cfg.resolved_sampling_timesteps  # UNet calls per chain (DDPM or DDIM)
     lo, hi = pipe.min_max_val
     b = lr.shape[0]
+    rows = [0]
+    hook = gd.model.register_forward_pre_hook(
+        lambda _m, args: rows.__setitem__(0, rows[0] + args[0].shape[0]))
+    results, perf = [], {}
     reset_counts()
-    res = pipe.translate(lr, hr=hr, noise=1, mask=mask)
+    try:
+        for mask, want_branched in chains:
+            before, rows[0] = read_counts(), 0
+            res = pipe.translate(lr, hr=hr, noise=1, mask=mask)
+            got = {k: v - before[k] for k, v in read_counts().items()}
+            dt = float(res["time"])
+            kind = "branched" if want_branched else "plain"
+            log(f"{label} {kind} chain: {dt * 1e3:.1f}ms for {b} images -> {b / dt:.3f} img/s, "
+                f"{rows[0] / dt:.1f} model-steps/s ({rows[0]} UNet rows in {calls} calls); "
+                f"mse {float(res['mse']):.4f} ssim {float(res['ssim']):.4f} "
+                f"psnr {float(res['psnr']):.2f}; launches {got}")
+            if bool(res["branched"]) != want_branched:
+                raise RuntimeError(f"{label}: the {kind} chain took the wrong sampler")
+            check_counts(got, per_call, calls, f"{label} {kind} chain")
+            _check_images(f"{label} {kind} chain", res["pred"], lr.shape, lo, hi)
+            results.append(res)
+            perf[kind] = dict(chain_s=dt, img_per_s=b / dt, model_steps_per_s=rows[0] / dt)
+    finally:
+        hook.remove()
     chain_counts = read_counts()
-    s = pipe.config.sampler.start_timestep
-    dt = float(res["time"])
-    steps = b * (2 * (T - s) + s)  # a branched step counts as two
-    log(f"{label} chain: branched={bool(res['branched'])} {dt * 1e3:.1f}ms for {b} images "
-        f"-> {b / dt:.3f} img/s, {steps / dt:.1f} model-steps/s; "
-        f"mse {float(res['mse']):.4f} ssim {float(res['ssim']):.4f} "
-        f"psnr {float(res['psnr']):.2f}; launches {chain_counts}")
-    if not bool(res["branched"]):
-        raise RuntimeError("the mask must take the branched chain")
-    for name, n in per_call.items():
-        if chain_counts[name] != n * T:
-            raise RuntimeError(f"{name}: {chain_counts[name]} launches in the chain, "
-                               f"expected {n} x {T} UNet calls")
-    _check_images(f"{label} chain", res["pred"], lr.shape, lo, hi)
 
     s_ = gd.image_size
     ones = np.ones((s_, s_, 1), np.float32)
+    mask = chains[-1][0]
     third = None if pipe.config.ood.detector == "manual" else mask[2]
     reqs = [(lr[0], ones), (lr[1], mask[1]), (lr[2], third)]
     srv = InferenceServer(pipe, batch_size=serve_batch, max_wait_ms=200)
@@ -413,13 +581,11 @@ def run_main_path(pipe, lr, hr, mask, per_call, serve_batch, label):
         raise RuntimeError("served branched flags wrong")
     for i, o in enumerate(outs):
         _check_images(f"{label} served request {i}", o["pred"], (s_, s_, 1), lo, hi)
-    for name, n in per_call.items():
-        served = counts[name] - chain_counts[name]
-        if served != n * T * dispatches:
-            raise RuntimeError(f"{name}: {served} launches while serving")
-    log(f"{label} main path: launches {counts} (chain {chain_counts})")
-    return res, counts, dict(chain_s=dt, img_per_s=b / dt, model_steps_per_s=steps / dt,
-                             serve_latency_mean_s=stats["latency_mean_s"])
+    check_counts({k: v - chain_counts[k] for k, v in counts.items()}, per_call,
+                 calls * dispatches, f"{label} serving")
+    log(f"{label} main path: launches {counts} (chains {chain_counts})")
+    perf["serve_latency_mean_s"] = stats["latency_mean_s"]
+    return results, counts, perf
 
 
 def profile_chain(pipe, lr, mask, label, top=12) -> dict:
@@ -454,8 +620,7 @@ def flagship() -> dict:
         f"{sum(p.numel() for p in gd.model.parameters())} params (seeded random), "
         f"T={gd.num_timesteps}, {cfg.diffusion.beta_schedule}, {cfg.diffusion.objective}, f32")
     seen = record_calls(gd, 2 * BATCH, pipe.min_max_val[1])
-    if len(seen["gn"]) != FLAGSHIP_PER_CALL["groupnorm_film_silu"]:
-        raise RuntimeError(f"{len(seen['gn'])} GroupNorm launches per flagship UNet call")
+    check_gn_sites(seen["gn"], FLAGSHIP_PER_CALL, "flagship")
     gn = gn_kernel_phase(seen["gn"], (torch.float32, torch.bfloat16), torch.float32,
                          "flagship")
 
@@ -466,8 +631,8 @@ def flagship() -> dict:
     mask = manual_mask((BATCH, s, s, 1), cfg.ood.manual_mask_cols)
     pipe.translate(lr, hr=hr, noise=1, mask=mask)  # warm-up (not counted)
     torch.cuda.synchronize()
-    res, counts, perf = run_main_path(pipe, lr, hr, mask, FLAGSHIP_PER_CALL, SERVE_BATCH,
-                                      "flagship")
+    (res,), counts, perf = run_main_path(pipe, lr, hr, [(mask, True)], FLAGSHIP_PER_CALL,
+                                         SERVE_BATCH, "flagship")
 
     gd.model.use_plain_kernels(True)
     try:
@@ -500,18 +665,19 @@ def flagship() -> dict:
 # the 256px MRI chain
 # ---------------------------------------------------------------------------
 
-def attention_kernel_phase(seen) -> dict:
-    """The flash kernel against `xla_attention` at the 256px sites' shape,
-    in bf16 and f32, with q/k/v cut from a channels_last qkv projection as
-    `Attention` cuts them.  Times per launch, bf16."""
+def attention_kernel_phase(seen, expected, dtypes, label) -> dict:
+    """The flash kernel against `xla_attention` at the `expected` sites'
+    shape (one shape for all), in each of `dtypes`, with q/k/v cut from a
+    channels_last qkv projection as `Attention` cuts them.  Times per
+    launch."""
     sites = {(s[0], s[2], s[3], m.heads, m.dim_head) for m, s in seen}
-    if len(seen) != MRI_PER_CALL["flash_attention"] or len(sites) != 1:
+    if len(seen) != expected or len(sites) != 1:
         raise RuntimeError(f"full-attention sites: {[s for _, s in seen]}")
     b, h, w, heads, dh = sites.pop()  # the same [B, N, H, D] at every site
     n = h * w
     gen = torch.Generator(device="cuda").manual_seed(1)
     out = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         qkv = torch.randn(b, 3 * heads * dh, h, w, generator=gen, device="cuda").to(dtype)
         qkv = qkv.contiguous(memory_format=torch.channels_last)
         q, k, v = (t.permute(0, 3, 1, 2) for t in qkv.reshape(b, 3, heads, dh, n).unbind(1))
@@ -521,7 +687,7 @@ def attention_kernel_phase(seen) -> dict:
         err = (got.float() - want.float()).abs().max().item()
         tol = ATTN_TOL[dtype]
         ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
-        log(f"256px attention [{b},{n},{heads},{dh}] {str(dtype)[6:]}: max_abs_err {err:.3g} "
+        log(f"{label} attention [{b},{n},{heads},{dh}] {str(dtype)[6:]}: max_abs_err {err:.3g} "
             f"(tol {tol:g} abs+rel) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError("attention kernel disagrees with its plain version")
@@ -945,6 +1111,17 @@ def resnet_block_kernel_phase(seen) -> dict:
     return dict(conv=c, epi=e, whole=whole, worst=worst, faults=faults)
 
 
+def disc_masks(b: int, s: int) -> np.ndarray:
+    """[b, s, s, 1] masks, each a disc of radius 25 (the synthetic tumour's)
+    at its own place."""
+    yy, xx = np.mgrid[:s, :s]
+    mask = np.zeros((b, s, s, 1), np.float32)
+    for i in range(b):
+        cy, cx = 90 + 20 * i, 150 - 15 * i
+        mask[i, (yy - cy) ** 2 + (xx - cx) ** 2 < 25**2] = 1.0
+    return mask
+
+
 def mri256() -> dict:
     cfg = mri256_config()
     gd = build_gd(cfg, device="cuda")
@@ -962,9 +1139,9 @@ def mri256() -> dict:
         f"{len(seen['linatt'])} linear-attention sites {[s for _, s, _ in seen['linatt']]}, "
         f"{len(seen['attn'])} full-attention sites, {sum(f for *_, f in seen['rb'])} of "
         f"{len(seen['rb'])} ResnetBlocks fused")
-    if len(seen["gn"]) != MRI_PER_CALL["groupnorm_film_silu"]:
-        raise RuntimeError(f"{len(seen['gn'])} GroupNorm launches per 256px UNet call")
-    attn = attention_kernel_phase(seen["attn"])
+    check_gn_sites(seen["gn"], MRI_PER_CALL, "256px")
+    attn = attention_kernel_phase(seen["attn"], MRI_PER_CALL["flash_attention"],
+                                  (torch.float32, torch.bfloat16), "256px")
     linatt = linear_attention_kernel_phase(seen["linatt"])
     rb = resnet_block_kernel_phase(seen["rb"])
     gn = gn_kernel_phase(seen["gn"], (torch.bfloat16,), torch.bfloat16, "256px", (5, 4))
@@ -973,13 +1150,9 @@ def mri256() -> dict:
     s = gd.image_size
     lr = rng.uniform(0, hi, (MRI_BATCH, s, s, 1)).astype(np.float32)
     hr = rng.uniform(0, hi, (MRI_BATCH, s, s, 1)).astype(np.float32)
-    yy, xx = np.mgrid[:s, :s]
-    mask = np.zeros((MRI_BATCH, s, s, 1), np.float32)
-    for i in range(MRI_BATCH):  # a disc of radius 25, the synthetic tumour's
-        cy, cx = 90 + 20 * i, 150 - 15 * i
-        mask[i, (yy - cy) ** 2 + (xx - cx) ** 2 < 25**2] = 1.0
-    res, counts, perf = run_main_path(pipe, lr, hr, mask, MRI_PER_CALL, MRI_SERVE_BATCH,
-                                      "256px")
+    mask = disc_masks(MRI_BATCH, s)
+    (res,), counts, perf = run_main_path(pipe, lr, hr, [(mask, True)], MRI_PER_CALL,
+                                         MRI_SERVE_BATCH, "256px")
 
     gd.model.use_plain_kernels(True)
     try:
@@ -1030,46 +1203,151 @@ def mri256() -> dict:
     return dict(attn=attn, linatt=linatt, rb=rb, gn=gn, counts=counts, perf=perf, **prof)
 
 
+# ---------------------------------------------------------------------------
+# the s2d-stem 256px configuration (the README's recommended deployment)
+# ---------------------------------------------------------------------------
+
+def stem256() -> dict:
+    cfg = stem256_config()
+    gd = build_gd(cfg, device="cuda")
+    pipe = LocalDiffusionPipeline(cfg, gd)
+    lo, hi = pipe.min_max_val
+    log(f"stem model: dim {cfg.model.dim} mults {cfg.model.dim_mults}, stem s2d x"
+        f"{cfg.model.stem_space_to_depth}, {sum(p.numel() for p in gd.model.parameters())} "
+        f"params (seeded random), compute {gd.dtype}, T={gd.num_timesteps}, DDIM "
+        f"{cfg.diffusion.sampling_timesteps} steps (eta {cfg.diffusion.ddim_sampling_eta}), "
+        f"detector {cfg.ood.detector}, mask_x {cfg.sampler.mask_x_policy}, min_max_val "
+        f"({lo}, {hi:.4f})")
+
+    seen = record_calls(gd, 2 * STEM_BATCH, hi)
+    log(f"stem UNet call at batch {2 * STEM_BATCH}: {len(seen['gn'])} GN, "
+        f"{len(seen['attn'])} full-attention sites, {len(seen['linatt'])} linear-attention "
+        f"sites (plain module in f32), {sum(f for *_, f in seen['rb'])} of {len(seen['rb'])} "
+        f"ResnetBlocks fused")
+    check_gn_sites(seen["gn"], STEM_PER_CALL, "stem")
+    if any(f for *_, f in seen["rb"]):
+        raise RuntimeError("a float32 ResnetBlock took the fused (bf16) block")
+    attn = attention_kernel_phase(seen["attn"], STEM_PER_CALL["flash_attention"],
+                                  (torch.float32,), "stem")
+    gn = gn_kernel_phase(seen["gn"], (torch.float32,), torch.float32, "stem")
+
+    rng = np.random.default_rng(2)
+    s = gd.image_size
+    lr = rng.uniform(0, hi, (STEM_BATCH, s, s, 1)).astype(np.float32)
+    hr = rng.uniform(0, hi, (STEM_BATCH, s, s, 1)).astype(np.float32)
+    mask = disc_masks(STEM_BATCH, s)
+    pipe.translate(lr, noise=1)  # warm-up (not counted)
+    torch.cuda.synchronize()
+    # the deployment's default: detector none, so the plain chain; then the
+    # branched chain with the disc masks
+    (res_p, res_b), counts, perf = run_main_path(
+        pipe, lr, hr, [(None, False), (mask, True)], STEM_PER_CALL, STEM_SERVE_BATCH, "stem")
+
+    gd.model.use_plain_kernels(True)
+    try:
+        plain = [pipe.translate(lr, noise=1, mask=m) for m in (None, mask)]
+    finally:
+        gd.model.use_plain_kernels(False)
+    checks = {}
+    for kind, got, want in (("plain", res_p, plain[0]), ("branched", res_b, plain[1])):
+        a, p = got["pred"].ravel(), want["pred"].ravel()
+        rel = float(np.linalg.norm(a - p) / np.linalg.norm(p))
+        checks[kind] = rel
+        log(f"stem check: {kind} DDIM chain, kernels vs plain versions (same noise): "
+            f"relative L2 {rel:.4g} (tol {STEM_CHAIN_REL:g}), max_abs_err "
+            f"{float(np.abs(a - p).max()):.4g}; plain-version chain {float(want['time']):.2f}s")
+        if not rel <= STEM_CHAIN_REL:
+            raise RuntimeError(f"the stem {kind} chain disagrees with its plain-version chain")
+
+    x = rng.standard_normal((2, s, s, 1)).astype(np.float32)
+    cond = rng.uniform(0, hi, (2, s, s, 1)).astype(np.float32)
+    t = np.array([9, 201])
+    cpu = build_gd(cfg, device="cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in gd.model.state_dict().items()})
+    got = gd.apply_model(torch.as_tensor(x, device="cuda"), torch.as_tensor(cond, device="cuda"),
+                         torch.as_tensor(t, device="cuda")).cpu().numpy()
+    t0 = time.perf_counter()
+    want = cpu.apply_model(torch.as_tensor(x), torch.as_tensor(cond), torch.as_tensor(t)).numpy()
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(got - want).max())
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    ok = bool(np.allclose(got, want, rtol=STEM_UNET_F32_TOL, atol=STEM_UNET_F32_TOL))
+    checks["unet_card_vs_cpu_max_abs_err"] = err
+    log(f"stem check: one UNet call, card vs CPU (batch 2, float32): max_abs_err {err:.4g}, "
+        f"relative L2 {rel:.4g} ({STEM_UNET_F32_TOL:g} abs+rel) {'ok' if ok else 'FAIL'}; "
+        f"CPU call {cpu_s:.1f}s")
+    if not ok:
+        raise RuntimeError("the stem UNet on the card disagrees with the CPU's")
+    del cpu
+
+    prof = profile_chain(pipe, lr, None, "stem", top=16)
+    return dict(attn=attn, gn=gn, counts=counts, perf=perf, checks=checks, **prof)
+
+
+def _row(t: dict) -> dict:
+    """A GN part's numbers under the kernels line's keys."""
+    return dict(ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], max_abs_err=t["max_abs_err"])
+
+
 def main() -> None:
     phase_device()
     phase_build()
     flag = flagship()
     mri = mri256()
+    stem = stem256()
 
+    phases = {"flagship": flag, "256px": mri, "stem": stem}
+    launches = {name: {label: ph["counts"][name] for label, ph in phases.items()}
+                for name in COUNTERS}
+    total = {name: sum(v.values()) for name, v in launches.items()}
     attn, lin, gn = mri["attn"]["bfloat16"], mri["linatt"], mri["gn"]
-    counts = mri["counts"]
+    sgn = stem["gn"]
     kernels = [
         dict(name="groupnorm_film_silu", route="cuda",
              source="localdiffusion_tpu_torch/csrc/groupnorm_film_silu.cu",
              replaces="localdiffusion_tpu/ops/pallas_groupnorm.py:74",
-             launches=counts["groupnorm_film_silu"] + flag["counts"]["groupnorm_film_silu"],
-             max_abs_err=gn["max_abs_err"], ms=gn["ms"], plain_ms=gn["plain_ms"],
-             bound_ms=gn["bound_ms"],
-             bound_by="bytes" if gn["bytes_ms"] >= gn["ops_ms"] else "operations",
-             library_ms=None, per="256px UNet call, 14 launches, bf16",
-             launches_256px=counts["groupnorm_film_silu"],
-             launches_flagship=flag["counts"]["groupnorm_film_silu"],
-             group_norm_ms=gn["group_norm_ms"], flagship_ms=flag["gn"]["ms"],
-             flagship_plain_ms=flag["gn"]["plain_ms"],
-             flagship_bound_ms=flag["gn"]["bound_ms"],
-             flagship_max_abs_err=flag["gn"]["max_abs_err"]),
-        dict(name="flash_attention", route="cuda",
-             source="localdiffusion_tpu_torch/csrc/flash_attention.cu",
-             replaces="localdiffusion_tpu/ops/pallas_attention.py:26",
-             launches=counts["flash_attention"], max_abs_err=attn["max_abs_err"],
-             ms=attn["ms"], plain_ms=attn["plain_ms"], bound_ms=attn["bound_ms"],
-             bound_by=attn["bound_by"], library_ms=attn["library_ms"],
-             per="one launch at [8,1024,4,32] bf16 (3 per 256px UNet call)",
-             f32_ms=mri["attn"]["float32"]["ms"],
-             f32_max_abs_err=mri["attn"]["float32"]["max_abs_err"]),
+             launches=total["groupnorm_film_silu"], **_row(gn["single"]), library_ms=None,
+             per="256px UNet call, 4 launches (32x32x128), bf16",
+             launches_by_phase=launches["groupnorm_film_silu"],
+             group_norm_ms=gn["single"]["group_norm_ms"],
+             flagship=_row(flag["gn"]["single"]), stem=_row(sgn["single"]),
+             stem_group_norm_ms=sgn["single"]["group_norm_ms"]),
     ]
+    for name, key, src_line in (("gn_tiled_stats", "stats", 231),
+                                ("gn_tiled_apply", "apply", 251)):
+        kernels.append(dict(
+            name=name, route="cuda", source="localdiffusion_tpu_torch/csrc/groupnorm_tiled.cu",
+            replaces=f"localdiffusion_tpu/ops/pallas_groupnorm.py:{src_line}",
+            launches=total[name], **_row(sgn[key]), library_ms=None,
+            per="stem UNet call, 14 launches (128x128x32 and 64x64x64, batch 8), f32; "
+                "library: none computes the pass (the whole op's F.group_norm alone beside)",
+            launches_by_phase=launches[name], mri256=_row(gn[key]),
+            pair_stem=dict(_row(sgn["pair"]), group_norm_ms=sgn["pair"]["group_norm_ms"]),
+            pair_256px=dict(_row(gn["pair"]), group_norm_ms=gn["pair"]["group_norm_ms"]),
+            partials_worst_rel=max(sgn["worst_partials"], gn["worst_partials"])))
+    sattn = stem["attn"]["float32"]
+    kernels.append(dict(
+        name="flash_attention", route="cuda",
+        source="localdiffusion_tpu_torch/csrc/flash_attention.cu",
+        replaces="localdiffusion_tpu/ops/pallas_attention.py:26",
+        launches=total["flash_attention"], max_abs_err=attn["max_abs_err"],
+        ms=attn["ms"], plain_ms=attn["plain_ms"], bound_ms=attn["bound_ms"],
+        bound_by=attn["bound_by"], library_ms=attn["library_ms"],
+        per="one launch at [8,1024,4,32] bf16 (3 per 256px UNet call)",
+        launches_by_phase=launches["flash_attention"],
+        f32_ms=mri["attn"]["float32"]["ms"],
+        f32_max_abs_err=mri["attn"]["float32"]["max_abs_err"],
+        stem_f32=dict(per="one launch at [8,256,4,32] f32 (3 per stem UNet call)",
+                      **{k: sattn[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                               "bound_by", "max_abs_err")})))
     for key, src_line in (("kv", 149), ("q", 201)):
         t = lin[key]
         kernels.append(dict(
             name=f"linear_attention_{key}", route="cuda",
             source="localdiffusion_tpu_torch/csrc/linear_attention.cu",
             replaces=f"localdiffusion_tpu/ops/pallas_linear_attention.py:{src_line}",
-            launches=counts[f"linear_attention_{key}"], max_abs_err=t["max_abs_err"],
+            launches=total[f"linear_attention_{key}"], max_abs_err=t["max_abs_err"],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=None,
             per="256px UNet call, 6 launches (one per site), bf16",
@@ -1088,13 +1366,18 @@ def main() -> None:
         kernels.append(dict(
             name=name, route="cuda", source="localdiffusion_tpu_torch/csrc/resnet_block.cu",
             replaces=f"localdiffusion_tpu/ops/pallas_resnet_block.py:{src_line}",
-            launches=counts[name], max_abs_err=t["max_abs_err"], ms=t["ms"],
+            launches=total[name], max_abs_err=t["max_abs_err"], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"] if key == "conv" else None, per=per,
             **({"pass1_ms": t["pass1_ms"], "pass2_ms": t["pass2_ms"]} if key == "conv"
                else {}), **block))
-    log(f"end to end: flagship {json.dumps(flag['perf'])}; 256px {json.dumps(mri['perf'])}; "
-        f"busy share flagship {flag['busy_share']:.4f} 256px {mri['busy_share']:.4f}")
+    if any(k["launches"] < 1 for k in kernels):
+        raise RuntimeError(f"a kernel never launched on the main paths: {launches}")
+    log("end to end: " + "; ".join(f"{label} {json.dumps(ph['perf'])}"
+                                   for label, ph in phases.items())
+        + "; busy share " + " ".join(f"{label} {ph['busy_share']:.4f}"
+                                     for label, ph in phases.items())
+        + f"; stem checks {json.dumps(stem['checks'])}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

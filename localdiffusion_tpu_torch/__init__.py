@@ -1,8 +1,9 @@
 """localdiffusion_tpu_torch: the PyTorch/CUDA port of localdiffusion_tpu.
 
 The JAX package `localdiffusion_tpu` is the reference; this package imports
-nothing of it, nor JAX, nor YAML on its serving path.  This slice ports the
-28px flagship's Stage-B serving path: InferenceServer → pipeline.translate →
-the plain and branched DDPM samplers → GaussianDiffusion → UNet, with the
-fused GroupNorm+FiLM+SiLU as a CUDA kernel (`csrc/groupnorm_film_silu.cu`).
+nothing of it, nor JAX, nor YAML on its serving path.  It ports Stage B's
+serving path: InferenceServer → pipeline.translate → the plain and branched
+DDPM and DDIM samplers → GaussianDiffusion → UNet, for the 28px flagship,
+the 256px MRI chain and its s2d-stem variant, with every Pallas kernel of
+the JAX package as a CUDA kernel in `csrc/`.
 """

@@ -6,8 +6,10 @@ OODConfig, DataConfig, TrainConfig, Config, min_max_val_for).  The port keeps
 its own copy because it imports nothing of the JAX package, and that module
 imports `yaml`, which a CUDA host need not have.  The flagship configuration
 (`configs/mnist.yaml`) is built in Python by `flagship_config()`, the 256px
-MRI one (`configs/mri_synthetic_256.yaml`) by `mri256_config()`;
-`Config.from_dict` takes the parsed contents of such a file.
+MRI one (`configs/mri_synthetic_256.yaml`) by `mri256_config()`, and its
+s2d-stem variant (`configs/mri_synthetic_256_stem.yaml`) by
+`stem256_config()`; `Config.from_dict` takes the parsed contents of such a
+file.
 """
 
 from __future__ import annotations
@@ -319,6 +321,29 @@ def mri256_config() -> Config:
         train=TrainConfig(
             batch_size=8, lr=1e-4, num_steps=400, results_dir="./results",
             project_name="mri_synth256", compute_dtype="bfloat16",
+        ),
+    )
+
+
+def stem256_config() -> Config:
+    """`configs/mri_synthetic_256_stem.yaml`, the README's recommended 256px
+    deployment, built without YAML: the 256px UNet with a space-to-depth ×2
+    stem (the network runs at 128² and the condition encoder gains a
+    block), DDIM-50, the plain chain (`detector: none`), float32 compute."""
+    base = mri256_config()
+    return Config(
+        model=dataclasses.replace(base.model, stem_space_to_depth=2),
+        diffusion=dataclasses.replace(base.diffusion, sampling_timesteps=50),
+        sampler=base.sampler,
+        ood=OODConfig(
+            detector="none", input_size=256,
+            memory_bank_path="results/memory_bank_synthetic_brain_256.npy",
+            layers=("layer2", "layer3"),
+        ),
+        data=base.data,
+        train=TrainConfig(
+            batch_size=8, lr=1e-4, num_steps=400, results_dir="./results",
+            project_name="mri_stem256",
         ),
     )
 

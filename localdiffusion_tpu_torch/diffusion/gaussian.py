@@ -4,7 +4,7 @@ Port of `localdiffusion_tpu/diffusion/gaussian.py` (`apply_model`,
 `encode_cond`, `model_predictions`).  The JAX package's space-to-depth
 execution (`apply_unet_s2d`, taken automatically at ≥128px) is a TPU lane
 layout of the same network and is not ported: the port always runs the
-standard layout.  Unlike the JAX engine, which takes params per call, this
+standard layout, which the tests hold equal to it at 128px.  Unlike the JAX engine, which takes params per call, this
 one owns its UNet and the weights in it.
 """
 

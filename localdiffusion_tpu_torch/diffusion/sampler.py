@@ -1,4 +1,5 @@
-"""Local-diffusion DDPM sampling.  Port of `localdiffusion_tpu/diffusion/sampler.py`.
+"""Local-diffusion DDPM and DDIM sampling.  Port of
+`localdiffusion_tpu/diffusion/sampler.py`.
 
 The JAX package runs each phase as a `lax.scan`; here each phase is a
 Python loop over the timesteps with static shapes:
@@ -10,12 +11,18 @@ Python loop over the timesteps with static shapes:
           fused through the binary mask;
   phase B (fused): t ∈ [s-1 .. 0] — one plain chain.
 
+DDIM (`ddim_sample_plain`, `ddim_sample_branched`) walks the strided time
+grid of `ddim_times` in (t, t_next) pairs, with the same [2B] branch pair;
+the branched chain fuses at the first pair with t <= times[-s-2].
+
 The condition features are encoded once per chain.  The classifier-gated
-phase B and DDIM are later slices: asking for them raises.
+phase B is a later slice: asking for it raises.
 
 Noise comes from a noise source: a callable `noise(shape) -> Tensor`, called
 once for the initial image and once per step, in chain order (so T + 1
-draws per chain, for the plain and the branched sampler alike).  By default
+draws per DDPM chain, for the plain and the branched sampler alike, and
+S + 1 per DDIM chain of S pairs, η = 0 included: the JAX samplers draw
+then too).  By default
 it draws from a `torch.Generator` on the device (`GeneratorNoise`);
 `ArrayNoise` hands out given arrays instead, which is how a test replays the
 JAX package's key stream.
@@ -133,6 +140,31 @@ def _tb(t: int, n: int, device):
     return torch.full((n,), t, dtype=torch.long, device=device)
 
 
+def _branch_starts(gd, scfg: SamplerConfig, m, cond_out, feat_pair, lo: float, hi: float):
+    """(x2, tb2) → both branches' x_start from one [2B] UNet call (OOD half
+    first), the mask_x policy on the OOD half, clipped to [lo, hi]."""
+    b, device = m.shape[0], m.device
+    out_half = torch.cat([torch.ones(b, 1, 1, 1, dtype=torch.bool, device=device),
+                          torch.zeros(b, 1, 1, 1, dtype=torch.bool, device=device)])
+    if scfg.mask_x_policy == "cond":
+        mask_x_repl2 = torch.cat([cond_out, torch.zeros_like(cond_out)])
+    else:
+        mask_x_mult2 = torch.cat([m, torch.ones_like(m)])
+        mask_x_zero2 = torch.cat([m == 0.0, torch.zeros_like(m, dtype=torch.bool)])
+
+    def starts(x2, tb2):
+        out2 = gd.apply_model(x2, None, tb2, cond_feat=feat_pair)
+        xs2 = dm.model_output_to_x_start(gd.schedule, out2, x2, tb2)
+        if scfg.mask_x:
+            if scfg.mask_x_policy == "cond":
+                xs2 = torch.where(out_half, mask_x_repl2, xs2)
+            else:
+                xs2 = torch.where(mask_x_zero2, torch.full_like(xs2, lo), xs2 * mask_x_mult2)
+        return xs2.clamp(lo, hi)
+
+    return starts
+
+
 @torch.no_grad()
 def ddpm_sample_plain(gd, cond, min_max_val: Tuple[float, float], noise=None,
                       gt=None, use_gt_timestep: Optional[int] = None,
@@ -203,25 +235,7 @@ def ddpm_sample_branched(gd, cond, mask, scfg: SamplerConfig,
 
     # both branches as ONE flat [2B] batch: OOD half first, then IND
     x2 = torch.cat([img0, img0])
-    out_half = torch.cat([torch.ones(b, 1, 1, 1, dtype=torch.bool, device=device),
-                          torch.zeros(b, 1, 1, 1, dtype=torch.bool, device=device)])
-    if scfg.mask_x_policy == "cond":
-        mask_x_repl2 = torch.cat([cond_out, torch.zeros_like(cond_out)])
-    else:
-        mask_x_mult2 = torch.cat([m, torch.ones_like(m)])
-        mask_x_zero2 = torch.cat([m == 0.0, torch.zeros_like(m, dtype=torch.bool)])
-
-    def branch_starts2(x2, tb2):
-        """Both branches' x_start, with the mask_x policy on the OOD half,
-        clipped."""
-        out2 = gd.apply_model(x2, None, tb2, cond_feat=feat_pair)
-        xs2 = dm.model_output_to_x_start(sched, out2, x2, tb2)
-        if scfg.mask_x:
-            if scfg.mask_x_policy == "cond":
-                xs2 = torch.where(out_half, mask_x_repl2, xs2)
-            else:
-                xs2 = torch.where(mask_x_zero2, torch.full_like(xs2, lo), xs2 * mask_x_mult2)
-        return xs2.clamp(lo, hi)
+    branch_starts2 = _branch_starts(gd, scfg, m, cond_out, feat_pair, lo, hi)
 
     def branched_step(x2, t):
         tb2 = _tb(t, 2 * b, device)
@@ -277,4 +291,163 @@ def ddpm_sample_branched(gd, cond, mask, scfg: SamplerConfig,
         mean, _, logvar = dm.q_posterior(sched, x_start, img, tb)
         img = mean + torch.exp(0.5 * logvar) * _step_noise(noise, shape, t)
         record_fused(img)
+    return finish(img)
+
+
+# ---------------------------------------------------------------------------
+# DDIM
+# ---------------------------------------------------------------------------
+
+def ddim_times(total_timesteps: int, sampling_timesteps: int) -> np.ndarray:
+    """Strided DDIM time grid, descending, with the trailing -1."""
+    times = np.linspace(-1, total_timesteps - 1, sampling_timesteps + 1)
+    return np.asarray(list(reversed(times.astype(int).tolist())))
+
+
+def _ddim_coeffs(sched, t: int, t_next: int, eta: float):
+    """(sqrt(alpha_next), c, sigma) of the DDIM update from t to t_next, as
+    float32 tensors computed from the schedule's float32 alphas."""
+    alpha = sched.alphas_cumprod[t]
+    alpha_next = sched.alphas_cumprod[t_next] if t_next >= 0 else torch.ones_like(alpha)
+    sigma = eta * torch.sqrt((1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha))
+    c = torch.sqrt((1.0 - alpha_next - sigma**2).clamp(min=0.0))
+    return torch.sqrt(alpha_next), c, sigma
+
+
+def _ddim_pairs(gd):
+    times = ddim_times(gd.num_timesteps, gd.diff_cfg.resolved_sampling_timesteps)
+    return times, [(int(a), int(b)) for a, b in zip(times[:-1], times[1:])]
+
+
+def _ddim_step(gd, img, t: int, t_next: int, cond_feat, min_max_val, eta: float, n):
+    """One plain DDIM update with noise n: x_start clipped, pred_noise
+    rederived from it; the terminal pair (t_next < 0) returns x_start."""
+    pred = gd.model_predictions(img, _tb(t, img.shape[0], img.device), cond_feat,
+                                min_max_val, clip_x_start=True, rederive_pred_noise=True)
+    if t_next < 0:
+        return pred.pred_x_start
+    sa, c, sigma = _ddim_coeffs(gd.schedule, t, t_next, eta)
+    return pred.pred_x_start * sa + c * pred.pred_noise + sigma * n
+
+
+@torch.no_grad()
+def ddim_sample_plain(gd, cond, min_max_val: Tuple[float, float], noise=None,
+                      return_all: bool = False):
+    """Plain DDIM over the strided pairs (η = `ddim_sampling_eta`, 0 by
+    default): x_start clipped, pred_noise rederived from it; the final pair
+    (t_next < 0) returns x_start.  cond: [B, H, W, C]."""
+    noise = as_noise(noise, cond.device)
+    eta = float(gd.diff_cfg.ddim_sampling_eta)
+    shape = (cond.shape[0], gd.image_size, gd.image_size, gd.model_cfg.channels)
+    _, pairs = _ddim_pairs(gd)
+
+    img = noise(shape)
+    cond_feat = gd.encode_cond(cond)
+    frames = [img]
+    for t, t_next in pairs:
+        # noise drawn at every pair, as the JAX chain draws it
+        img = _ddim_step(gd, img, t, t_next, cond_feat, min_max_val, eta, noise(shape))
+        if return_all:
+            frames.append(img)
+    if return_all:
+        return _maybe_unnorm(gd, img), _maybe_unnorm(gd, torch.stack(frames))
+    return _maybe_unnorm(gd, img)
+
+
+@torch.no_grad()
+def ddim_sample_branched(gd, cond, mask, scfg: SamplerConfig,
+                         min_max_val: Tuple[float, float], noise=None,
+                         return_all: bool = False):
+    """Branched DDIM with mid-chain fusion.
+
+    The OOD and IND branches step as one [2B] batch (OOD half first, the
+    same noise for both) over the pairs before the fusion index, the first
+    pair with t <= times[-start_timestep-2].  At that pair the branches'
+    x_start (mask_x on the OOD half, clipped, pred_noise rederived from it)
+    and pred_noise are fused through the mask, x_start clipped again, and
+    the DDIM update taken; the later pairs run plain DDIM.  When the fusion
+    pair is the terminal one (t_next < 0) the unfused pair of x_starts is
+    returned, as the reference checks t_next < 0 before fusing; with
+    `start_intermediate` False, or no pair at or below the fusion time, the
+    branches run to the end and the pair [2, B, H, W, C] is returned.
+
+    `return_all` → (final, frames), frames [S+1, 2, B, H, W, C]: the
+    initial noise, the branch pair while branched, the fused image
+    duplicated on the pair axis after fusion.
+    """
+    if scfg.classifier:
+        raise NotImplementedError("classifier-gated phase B: later slice")
+    scfg = reconcile(scfg)
+    sched = gd.schedule
+    lo, hi = min_max_val
+    device = cond.device
+    noise = as_noise(noise, device)
+    eta = float(gd.diff_cfg.ddim_sampling_eta)
+    b = cond.shape[0]
+    shape = (b, gd.image_size, gd.image_size, gd.model_cfg.channels)
+    times, pairs = _ddim_pairs(gd)
+    fuse_time = int(times[-scfg.start_timestep - 2])
+    fuse_idx = next((i for i, (t, _) in enumerate(pairs) if t <= fuse_time), None)
+
+    m = binarize_mask(mask)
+    cond_out, cond_in = partition_cond(cond, m, scfg.cond_in_floor)
+    feat_pair = torch.cat([gd.encode_cond(cond_out), gd.encode_cond(cond_in)])
+    feat_full = gd.encode_cond(cond)
+
+    img0 = noise(shape)
+    x2 = torch.cat([img0, img0])
+    starts2 = _branch_starts(gd, scfg, m, cond_out, feat_pair, lo, hi)
+
+    def branch_preds2(x2, tb2):
+        """Both branches' clipped x_start and the pred_noise rederived from
+        it."""
+        xs2 = starts2(x2, tb2)
+        return xs2, dm.predict_noise_from_start(sched, x2, tb2, xs2)
+
+    frames = [torch.stack([img0, img0])]
+
+    def as_pair(x2):
+        return x2.reshape(2, b, *x2.shape[1:])
+
+    def finish(result):
+        if return_all:
+            return _maybe_unnorm(gd, result), _maybe_unnorm(gd, torch.stack(frames))
+        return _maybe_unnorm(gd, result)
+
+    def branched_step(x2, t, t_next):
+        xs2, pn2 = branch_preds2(x2, _tb(t, 2 * b, device))
+        sa, c, sigma = _ddim_coeffs(sched, t, t_next, eta)
+        n = noise(shape)  # shared across the branches
+        x2 = xs2 if t_next < 0 else xs2 * sa + c * pn2 + sigma * torch.cat([n, n])
+        if return_all:
+            frames.append(as_pair(x2))
+        return x2
+
+    if not scfg.start_intermediate or fuse_idx is None:
+        for t, t_next in pairs:
+            x2 = branched_step(x2, t, t_next)
+        return finish(as_pair(x2))
+
+    for t, t_next in pairs[:fuse_idx]:
+        x2 = branched_step(x2, t, t_next)
+
+    # ---- fusion pair ----
+    t, t_next = pairs[fuse_idx]
+    xs2, pn2 = branch_preds2(x2, _tb(t, 2 * b, device))
+    if t_next < 0:
+        if return_all:
+            frames.append(as_pair(xs2))
+        return finish(as_pair(xs2))
+    x_start = fuse_noisy_states(xs2[:b], xs2[b:], m, scfg.fusion_route).clamp(lo, hi)
+    pred_noise = fuse_noisy_states(pn2[:b] * m, pn2[b:] * (1.0 - m), m, scfg.fusion_route)
+    sa, c, sigma = _ddim_coeffs(sched, t, t_next, eta)
+    img = x_start * sa + c * pred_noise + sigma * noise(shape)
+    if return_all:
+        frames.append(torch.stack([img, img]))
+
+    # ---- plain DDIM on the fused chain ----
+    for t, t_next in pairs[fuse_idx + 1:]:
+        img = _ddim_step(gd, img, t, t_next, feat_full, min_max_val, eta, noise(shape))
+        if return_all:
+            frames.append(torch.stack([img, img]))
     return finish(img)

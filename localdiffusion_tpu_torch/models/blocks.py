@@ -25,7 +25,7 @@ from torch import nn
 from localdiffusion_tpu_torch.ops.attention import full_attention, xla_attention
 from localdiffusion_tpu_torch.ops.groupnorm import (
     groupnorm_film_silu,
-    groupnorm_film_silu_reference,
+    groupnorm_film_silu_plain,
 )
 from localdiffusion_tpu_torch.ops.linear_attention import (
     linear_attention,
@@ -113,11 +113,12 @@ class TimeMlp(nn.Module):
 
 
 class GroupNormFilmSiLU(nn.Module):
-    """GroupNorm + FiLM + SiLU through the fused kernel's wrapper (float32
-    arithmetic, output in the input's type).
+    """GroupNorm + FiLM + SiLU through the fused kernels' wrapper (float32
+    arithmetic, output in the input's type): the single-pass kernel, or past
+    the JAX row gate the tiled pair.
 
     `use_kernel = False` routes to the plain version whatever the device: an
-    explicit switch for comparing a chain with and without the kernel.
+    explicit switch for comparing a chain with and without the kernels.
     """
 
     def __init__(self, channels: int, groups: int):
@@ -133,7 +134,7 @@ class GroupNormFilmSiLU(nn.Module):
         scale = shift = None
         if scale_shift is not None:
             scale, shift = (t.float().contiguous() for t in scale_shift)
-        fn = groupnorm_film_silu if self.use_kernel else groupnorm_film_silu_reference
+        fn = groupnorm_film_silu if self.use_kernel else groupnorm_film_silu_plain
         y = fn(xh, self.weight, self.bias, scale, shift, self.groups)
         return y.permute(0, 3, 1, 2)
 

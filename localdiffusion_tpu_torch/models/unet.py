@@ -10,11 +10,19 @@ NHWC kernel without a copy.
 `dtype` is the compute type (the JAX UNet's `dtype`): the input is cast to
 it, every layer computes in it, and the final 1×1 conv runs in float32, so
 the output is float32 whichever the compute type; parameters stay float32.
+
+`stem_space_to_depth` f > 1 (the s2d-stem configuration) folds f×f pixel
+blocks into channels before `init_conv` and unfolds the final conv's
+`out_dim·f²` channels after it, so the network runs at 1/f of the input's
+resolution.  The JAX UNet orders a folded pixel's channels c·f² + i·f + j
+for row offset i and column offset j, which is what `F.pixel_unshuffle`
+and `F.pixel_shuffle` do on NCHW.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from localdiffusion_tpu_torch.config import ModelConfig
@@ -50,8 +58,6 @@ class UNet(nn.Module):
         super().__init__()
         if cfg.learned_sinusoidal_cond or cfg.random_fourier_features:
             raise NotImplementedError("learned/random Fourier time features: later slice")
-        if cfg.stem_space_to_depth != 1:
-            raise NotImplementedError("stem_space_to_depth: later slice")
         if cfg.self_condition:
             raise NotImplementedError("self-conditioning: later slice")
         self.cfg = cfg
@@ -74,7 +80,8 @@ class UNet(nn.Module):
         def conv3(di, do):
             return Conv2d(di, do, 3, padding=1, compute_dtype=dtype)
 
-        self.init_conv = Conv2d(cfg.channels, init_dim, 7, padding=3, compute_dtype=dtype)
+        f2 = cfg.stem_space_to_depth ** 2
+        self.init_conv = Conv2d(cfg.channels * f2, init_dim, 7, padding=3, compute_dtype=dtype)
         self.time_mlp = TimeMlp(dim, time_dim, cfg.time_emb_theta, dtype)
         n = len(in_out)
         for i, (di, do) in enumerate(in_out):
@@ -104,7 +111,7 @@ class UNet(nn.Module):
                 Upsample(do, di, dtype) if j < n - 1 else conv3(do, di),
             )
         self.final_res_block = res(init_dim * 2, dim)
-        self.final_conv = nn.Conv2d(dim, cfg.resolved_out_dim, 1)
+        self.final_conv = nn.Conv2d(dim, cfg.resolved_out_dim * f2, 1)
 
     def use_plain_kernels(self, plain: bool = True) -> "UNet":
         """Route every module that has a kernel (GroupNorm, full and linear
@@ -124,11 +131,14 @@ class UNet(nn.Module):
 
     def forward(self, x, cond, time, cond_feat=None):
         cfg = self.cfg
-        f = cfg.downsample_factor
-        if x.shape[1] % f or x.shape[2] % f:
-            raise ValueError(f"input dims {tuple(x.shape[1:3])} must be divisible by {f}")
-        x = _nchw(x.to(self.dtype)).contiguous(memory_format=torch.channels_last)
-        x = self.init_conv(x)
+        f = cfg.stem_space_to_depth
+        factor = cfg.downsample_factor * f
+        if x.shape[1] % factor or x.shape[2] % factor:
+            raise ValueError(f"input dims {tuple(x.shape[1:3])} must be divisible by {factor}")
+        x = _nchw(x.to(self.dtype))
+        if f > 1:
+            x = F.pixel_unshuffle(x, f)
+        x = self.init_conv(x.contiguous(memory_format=torch.channels_last))
         r = x
         t = self.time_mlp(time)
 
@@ -160,4 +170,7 @@ class UNet(nn.Module):
 
         x = torch.cat([x, r], dim=1)
         x = self.final_res_block(x, t)
-        return _nhwc(self.final_conv(x.float()))
+        out = self.final_conv(x.float())
+        if f > 1:
+            out = F.pixel_shuffle(out, f)
+        return _nhwc(out)

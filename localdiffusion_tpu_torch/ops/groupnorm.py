@@ -1,13 +1,24 @@
-"""Fused GroupNorm + FiLM + SiLU: the CUDA kernel and its plain version.
+"""Fused GroupNorm + FiLM + SiLU: the CUDA kernels and their plain versions.
 
-`groupnorm_film_silu` replaces `localdiffusion_tpu/ops/pallas_groupnorm.py`
-(`_gn_kernel`, reached through `groupnorm_film_silu` / `_gn_fwd_impl`).  The
-kernel is `csrc/groupnorm_film_silu.cu`: bound by device memory (it reads x
-once and writes the output once, 2·x bytes), so it is one launch with one
-thread block per (row, group) and no scratch memory; see the source for the
-design.  On a CUDA tensor the wrapper launches the kernel or raises; on a
-CPU tensor it computes the plain version.  There is no fallback between the
-two.
+`groupnorm_film_silu` replaces `groupnorm_film_silu` of
+`localdiffusion_tpu/ops/pallas_groupnorm.py` and takes its row gate
+(`large_block`): a row of at most 512 KiB (h·w·c·4 bytes, whatever the
+dtype) goes to the single-pass kernel, a larger one to the tiled pair.
+
+  * single pass, `csrc/groupnorm_film_silu.cu` (replaces `_gn_kernel`): one
+    launch with one thread block per (row, group); its launches are counted
+    on `groupnorm_film_silu.launches`;
+  * tiled pair, `csrc/groupnorm_tiled.cu` (replaces `_stats_kernel` +
+    `_apply_kernel`, `_gn_tiled_impl`): `gn_tiled_stats` writes each (row,
+    tile)'s per-channel float32 sum and sum of squares, `gn_tiled_apply`
+    folds a row's partials to the group statistics in float64 and
+    normalises, applies γ/β, FiLM and SiLU.  Two launches and no PyTorch op
+    between them.  The tile (`stats_tile`) comes from h·w and c alone, so a
+    row's result does not depend on its batch.
+
+Both kernels are bound by device memory; see the sources for the designs.
+On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
+it computes its plain version.  There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -17,6 +28,19 @@ import ctypes
 import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the JAX package's row gate (`_MAX_VMEM_BLOCK_BYTES`): a larger row leaves
+# the single-pass kernel
+MAX_BLOCK_BYTES = 512 * 1024
+# elements (pixels × channels) of one tile of the tiled pair's kernels
+TILE_ELEMS = 8192
+MAX_GROUPS = 64  # csrc/groupnorm_tiled.cu: kMaxGroups
+
+
+def large_block(shape) -> bool:
+    """Whether an NHWC input of this shape takes the tiled pair: its row,
+    counted at 4 bytes an element, is over `MAX_BLOCK_BYTES`."""
+    _, h, w, c = shape
+    return h * w * c * 4 > MAX_BLOCK_BYTES
 
 
 def groupnorm_film_silu_reference(x, gamma, beta, scale=None, shift=None,
@@ -37,6 +61,84 @@ def groupnorm_film_silu_reference(x, gamma, beta, scale=None, shift=None,
         y = y * (scale.float()[:, None, None, :] + 1.0) + shift.float()[:, None, None, :]
     return (y * torch.sigmoid(y)).to(x.dtype)
 
+
+# ---------------------------------------------------------------------------
+# the tiled pair's plain versions
+# ---------------------------------------------------------------------------
+
+def pick_tile(hw: int, c: int, budget: int = MAX_BLOCK_BYTES) -> int:
+    """`_pick_tile` of the JAX package: the largest divisor of hw of at most
+    max(8, budget / (4c)) pixels."""
+    max_rows = max(8, budget // (c * 4))
+    t = 1
+    for d in range(1, hw + 1):
+        if hw % d == 0 and d <= max_rows:
+            t = d
+    return t
+
+
+def stats_tile(hw: int, c: int) -> int:
+    """Pixels in one tile of the CUDA pair: ~`TILE_ELEMS` elements, from h·w
+    and c alone (the last tile of a row may be ragged)."""
+    return max(1, min(hw, TILE_ELEMS // c))
+
+
+def tiled_partials_reference(x, tile: int):
+    """Per (row, tile of `tile` pixels), the float32 per-channel sum and sum
+    of squares of x [B, H, W, C]: [B, nt, 2, C], nt = ceil(h·w / tile)."""
+    b, h, w, c = x.shape
+    hw = h * w
+    nt = -(-hw // tile)
+    xf = torch.nn.functional.pad(x.reshape(b, hw, c).float(), (0, 0, 0, nt * tile - hw))
+    xf = xf.reshape(b, nt, tile, c)
+    return torch.stack([xf.sum(dim=2), (xf * xf).sum(dim=2)], dim=2)
+
+
+def tiled_apply_reference(x, partials, gamma, beta, scale=None, shift=None, groups=8,
+                          eps=1e-5):
+    """The apply pass: the partials [B, nt, 2, C] folded to each group's mean
+    and 1/std in float64 (var = E[x²] − mean² clamped at 0, then eps, then
+    1/sqrt), rounded to float32, then the normalisation, γ/β, FiLM and SiLU
+    in float32; the output in x's type."""
+    b, h, w, c = x.shape
+    cg = c // groups
+    sums = partials.double().sum(dim=1).reshape(b, 2, groups, cg).sum(dim=3)  # [B, 2, G]
+    n = float(h * w * cg)
+    mean = sums[:, 0] / n
+    var = (sums[:, 1] / n - mean * mean).clamp(min=0.0)
+    rstd = (1.0 / torch.sqrt(var + eps)).float().repeat_interleave(cg, dim=1)
+    mean = mean.float().repeat_interleave(cg, dim=1)
+    normed = (x.float() - mean[:, None, None, :]) * rstd[:, None, None, :]
+    y = normed * gamma.float() + beta.float()
+    if scale is not None:
+        y = y * (scale.float()[:, None, None, :] + 1.0) + shift.float()[:, None, None, :]
+    return (y * torch.sigmoid(y)).to(x.dtype)
+
+
+def groupnorm_film_silu_tiled_reference(x, gamma, beta, scale=None, shift=None,
+                                        groups=8, eps=1e-5):
+    """Plain tiled GroupNorm + FiLM + SiLU, a transcription of
+    `_gn_tiled_impl` in the JAX package: `pick_tile`, per-(row, tile)
+    per-channel sums, the group fold and the apply.  The fold is the CUDA
+    pair's, in float64 (JAX folds in float32, where E[x²] − mean² can go
+    below 0)."""
+    _, h, w, c = x.shape
+    partials = tiled_partials_reference(x, pick_tile(h * w, c))
+    return tiled_apply_reference(x, partials, gamma, beta, scale, shift, groups, eps)
+
+
+def groupnorm_film_silu_plain(x, gamma, beta, scale=None, shift=None, groups=8, eps=1e-5):
+    """The plain version of `groupnorm_film_silu`, on either side of the
+    gate: the tiled transcription for a large block, the single-pass
+    reference otherwise."""
+    fn = (groupnorm_film_silu_tiled_reference if large_block(x.shape)
+          else groupnorm_film_silu_reference)
+    return fn(x, gamma, beta, scale, shift, groups, eps)
+
+
+# ---------------------------------------------------------------------------
+# checks and launches
+# ---------------------------------------------------------------------------
 
 def _check(x, gamma, beta, scale, shift, groups):
     if x.ndim != 4:
@@ -63,29 +165,122 @@ def _check(x, gamma, beta, scale, shift, groups):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(x, gamma, beta, scale, shift, groups, eps):
+def _device(x):
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no kernel for device {x.device}")
+    return x.is_cuda
+
+
+def _fn(lib_name, fn_name, argtypes):
     from localdiffusion_tpu_torch.ops import _build
 
-    lib = _build.load("groupnorm_film_silu")
-    fn = lib.gn_film_silu
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ctypes.c_float, ci, vp]
-    fn.restype = ci
+    fn = getattr(_build.load(lib_name), fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _call(fn, name, x, *args):
+    with torch.cuda.device(x.device):
+        err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+_VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(x, gamma, beta, scale, shift, groups, eps):
+    fn = _fn("groupnorm_film_silu", "gn_film_silu",
+             [_VP] * 6 + [_CI] * 4 + [_CF, _CI, _VP])
     b, h, w, c = x.shape
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(
-            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            scale.data_ptr() if scale is not None else None,
-            shift.data_ptr() if shift is not None else None,
-            out.data_ptr(), b, h * w, c, groups, float(eps),
-            _DTYPE_CODES[x.dtype], stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"gn_film_silu launch failed: CUDA error {err}")
+    _call(fn, "gn_film_silu", x, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+          _ptr(scale), _ptr(shift), out.data_ptr(), b, h * w, c, groups, float(eps),
+          _DTYPE_CODES[x.dtype])
     groupnorm_film_silu.launches += 1
     return out
+
+
+def groupnorm_film_silu_single_pass(x, gamma, beta, scale=None, shift=None, groups=8,
+                                    eps=1e-5):
+    """The single-pass kernel at any size, whatever the gate says (its
+    launches count on `groupnorm_film_silu.launches`); on a CPU tensor the
+    plain reference."""
+    _check(x, gamma, beta, scale, shift, groups)
+    if _device(x):
+        return _launch(x, gamma, beta, scale, shift, groups, eps)
+    return groupnorm_film_silu_reference(x, gamma, beta, scale, shift, groups, eps)
+
+
+def _tiles(x):
+    """(pixels a tile, tiles a row) of the tiled pair for x [B, H, W, C]."""
+    _, h, w, c = x.shape
+    tile = stats_tile(h * w, c)
+    return tile, -(-(h * w) // tile)
+
+
+def _check_groups(groups):
+    if groups > MAX_GROUPS:
+        raise ValueError(f"groups={groups} is over the kernel's {MAX_GROUPS}")
+
+
+def _launch_stats(x):
+    b, h, w, c = x.shape
+    tile, nt = _tiles(x)
+    partials = torch.empty((b, nt, 2, c), dtype=torch.float32, device=x.device)
+    fn = _fn("groupnorm_tiled", "gn_tiled_stats", [_VP, _VP] + [_CI] * 5 + [_VP])
+    _call(fn, "gn_tiled_stats", x, x.data_ptr(), partials.data_ptr(), b, h * w, c, tile,
+          _DTYPE_CODES[x.dtype])
+    gn_tiled_stats.launches += 1
+    return partials
+
+
+def _launch_apply(x, partials, gamma, beta, scale, shift, groups, eps):
+    b, h, w, c = x.shape
+    out = torch.empty_like(x)
+    fn = _fn("groupnorm_tiled", "gn_tiled_apply", [_VP] * 7 + [_CI] * 5 + [_CF, _CI, _VP])
+    _call(fn, "gn_tiled_apply", x, x.data_ptr(), partials.data_ptr(), gamma.data_ptr(),
+          beta.data_ptr(), _ptr(scale), _ptr(shift), out.data_ptr(), b, h * w, c, groups,
+          _tiles(x)[0], float(eps), _DTYPE_CODES[x.dtype])
+    gn_tiled_apply.launches += 1
+    return out
+
+
+def gn_tiled_stats(x):
+    """Pass 1 of the tiled pair: x [B, H, W, C] contiguous, float32 or
+    bfloat16 → partials [B, nt, 2, C] float32, per (row, tile of
+    `stats_tile(h·w, c)` pixels) the sum and sum of squares of each channel."""
+    if x.ndim != 4:
+        raise ValueError(f"x must be [B, H, W, C], got shape {tuple(x.shape)}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if not _device(x):
+        return tiled_partials_reference(x, _tiles(x)[0])
+    return _launch_stats(x)
+
+
+def gn_tiled_apply(x, partials, gamma, beta, scale=None, shift=None, groups=8, eps=1e-5):
+    """Pass 2 of the tiled pair: the group fold of `partials` (from
+    `gn_tiled_stats` on the same x) and the normalisation, γ/β, FiLM and
+    SiLU; the output in x's type."""
+    _check(x, gamma, beta, scale, shift, groups)
+    _check_groups(groups)
+    b, _, _, c = x.shape
+    want = (b, _tiles(x)[1], 2, c)
+    if (tuple(partials.shape) != want or partials.dtype != torch.float32
+            or not partials.is_contiguous() or partials.device != x.device):
+        raise ValueError(f"partials must be contiguous float32 {want} on {x.device}, "
+                         f"got {partials.dtype} {tuple(partials.shape)} on {partials.device}")
+    if not _device(x):
+        return tiled_apply_reference(x, partials, gamma, beta, scale, shift, groups, eps)
+    return _launch_apply(x, partials, gamma, beta, scale, shift, groups, eps)
 
 
 def groupnorm_film_silu(x, gamma, beta, scale=None, shift=None, groups=8, eps=1e-5):
@@ -93,14 +288,19 @@ def groupnorm_film_silu(x, gamma, beta, scale=None, shift=None, groups=8, eps=1e
 
     x: [B, H, W, C] contiguous, float32 or bfloat16; gamma/beta: [C] float32;
     scale/shift: [B, C] float32 or None.  Returns x's shape and type.
-    A CUDA tensor runs the kernel; a CPU tensor runs the plain version.
+    A CUDA tensor runs the single-pass kernel, or past the gate
+    (`large_block`) the tiled pair; a CPU tensor runs the plain version of
+    the same side of the gate.
     """
     _check(x, gamma, beta, scale, shift, groups)
-    if x.is_cuda:
+    if not _device(x):
+        return groupnorm_film_silu_plain(x, gamma, beta, scale, shift, groups, eps)
+    if not large_block(x.shape):
         return _launch(x, gamma, beta, scale, shift, groups, eps)
-    if x.device.type != "cpu":
-        raise ValueError(f"no kernel for device {x.device}")
-    return groupnorm_film_silu_reference(x, gamma, beta, scale, shift, groups, eps)
+    _check_groups(groups)
+    return _launch_apply(x, _launch_stats(x), gamma, beta, scale, shift, groups, eps)
 
 
 groupnorm_film_silu.launches = 0
+gn_tiled_stats.launches = 0
+gn_tiled_apply.launches = 0

@@ -3,7 +3,9 @@
 Port of `localdiffusion_tpu/pipeline.py` (`LocalDiffusionPipeline.translate`).
 Stage A in this slice is the caller's mask or the configuration's 'manual'
 (or 'none') detector; PatchCore and the segmentation detector come later.
-There is no device mesh: the pipeline runs on one device.
+Stage B is ancestral DDPM, or DDIM when the configuration samples fewer
+steps than it trains (`sampling_timesteps < timesteps`).  There is no device
+mesh: the pipeline runs on one device.
 """
 
 from __future__ import annotations
@@ -25,8 +27,6 @@ class LocalDiffusionPipeline:
     """Config-driven translation with hallucination suppression."""
 
     def __init__(self, config: Config, gd: GaussianDiffusion):
-        if gd.is_ddim_sampling:
-            raise NotImplementedError("DDIM sampling: later slice")
         if config.sampler.classifier:
             raise NotImplementedError("classifier-gated sampling: later slice")
         self.config = config
@@ -55,7 +55,7 @@ class LocalDiffusionPipeline:
         lr (and hr): [B, H, W, C].  `mask` overrides the detector.  `noise`
         is an int seed, a noise source (see diffusion.sampler), or None
         (seed 0).  A uniform-ones mask takes the plain chain, any other mask
-        the branched chain.
+        the branched chain, each DDPM or DDIM as the configuration says.
         """
         scfg = self.config.sampler
         dev = self.device
@@ -76,11 +76,16 @@ class LocalDiffusionPipeline:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        if branch:
-            out = S.ddpm_sample_branched(
-                self.gd, lr_t, torch.as_tensor(mask, device=dev), scfg,
-                self.min_max_val, noise=noise, gt=gt,
-            )
+        mask_t = torch.as_tensor(mask, device=dev)
+        if self.gd.is_ddim_sampling:
+            if branch:
+                out = S.ddim_sample_branched(self.gd, lr_t, mask_t, scfg, self.min_max_val,
+                                             noise=noise)
+            else:
+                out = S.ddim_sample_plain(self.gd, lr_t, self.min_max_val, noise=noise)
+        elif branch:
+            out = S.ddpm_sample_branched(self.gd, lr_t, mask_t, scfg, self.min_max_val,
+                                         noise=noise, gt=gt)
         else:
             out = S.ddpm_sample_plain(self.gd, lr_t, self.min_max_val, noise=noise)
         if dev.type == "cuda":

@@ -30,6 +30,10 @@ REQUIRED = {
     "localdiffusion_tpu_torch.ops.attention",
     "localdiffusion_tpu_torch.ops.linear_attention",
     "localdiffusion_tpu_torch.ops.groupnorm",
+    "localdiffusion_tpu_torch.config",
+    "localdiffusion_tpu_torch.diffusion.sampler",
+    "localdiffusion_tpu_torch.pipeline",
+    "localdiffusion_tpu_torch.utils.params_io",
     "localdiffusion_tpu_torch.ops.resnet_block",
     "localdiffusion_tpu_torch.models.blocks",
     "localdiffusion_tpu_torch.models.unet",

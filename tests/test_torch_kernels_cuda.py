@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-GroupNorm+FiLM+SiLU at the flagship's and the 256px chain's shapes, full
+GroupNorm+FiLM+SiLU at the flagship's and the 256px chain's shapes (the
+single-pass kernel, and past the row gate the tiled stats/apply pair at the
+s2d-stem and 256px chains' large blocks), full
 attention, the two linear-attention passes and the fused ResnetBlock's
 conv3x3_stats and epilogue at the 256px chain's shapes, the inputs each
 wrapper refuses, and a row alone against the same row in a batch.
@@ -15,12 +17,14 @@ import pytest
 import torch
 
 from localdiffusion_tpu_torch.models.blocks import ResnetBlock
+from localdiffusion_tpu_torch.ops import groupnorm as G
 from localdiffusion_tpu_torch.ops import linear_attention as LA
 from localdiffusion_tpu_torch.ops import resnet_block as RB
 from localdiffusion_tpu_torch.ops.attention import flash_attention, xla_attention
 from localdiffusion_tpu_torch.ops.groupnorm import (
     groupnorm_film_silu,
     groupnorm_film_silu_reference,
+    groupnorm_film_silu_single_pass,
 )
 
 # the flagship's five Block shapes at batch 64 (a branched [2B] pair)
@@ -217,10 +221,15 @@ def test_linear_attention_rejects_what_it_cannot_take(cuda_device):
 @pytest.mark.parametrize("film", [True, False])
 @pytest.mark.parametrize("shape", MRI_GN_SHAPES)
 def test_groupnorm_kernel_at_the_256px_shapes(cuda_device, shape, film):
-    """bf16 at the 256px Blocks, where a group holds up to 262,144 elements:
-    2e-2, one output rounding step."""
+    """The single-pass kernel, launched directly (most of these shapes are
+    past the row gate, where the dispatcher takes the tiled pair), in bf16
+    at the 256px Blocks, where a group holds up to 262,144 elements: 2e-2,
+    one output rounding step."""
     x, g, b, s, h = _inputs(shape, film, torch.bfloat16, cuda_device)
-    got = groupnorm_film_silu(x, g, b, s, h, groups=8)
+    before = groupnorm_film_silu.launches
+    got = groupnorm_film_silu_single_pass(x, g, b, s, h, groups=8)
+    torch.cuda.synchronize()
+    assert groupnorm_film_silu.launches == before + 1
     want = groupnorm_film_silu_reference(x, g, b, s, h, groups=8)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
 
@@ -393,3 +402,101 @@ def test_resnet_block_kernels_reject_what_they_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="does not take"):
         RB.resnet_block_fused(torch.zeros(1, 64, 62, 32, dtype=torch.bfloat16,
                                           device=cuda_device), mod, ss)
+
+
+# ---------------------------------------------------------------------------
+# the tiled GroupNorm pair (past the row gate)
+# ---------------------------------------------------------------------------
+# the large blocks of a branched s2d-stem UNet call at batch 8 (f32: 128x128
+# at C=32, 64x64 at C=64) and of the 256px bf16 chain (32x32 at C=256), a
+# ragged last tile, and more channels than a block has threads
+TILED_SHAPES = [(8, 128, 128, 32), (8, 64, 64, 64), (8, 32, 32, 256), (2, 40, 45, 96),
+                (1, 24, 24, 512)]
+
+
+def _bf16_steps(got, want):
+    """|got - want| in bf16 steps at max(|got|, |want|), largest."""
+    got, want = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(got.abs(), want.abs()).clamp_min(1e-30))
+    return ((got - want).abs() / torch.ldexp(torch.ones_like(got), e - 8)).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("film", [True, False])
+@pytest.mark.parametrize("shape", TILED_SHAPES)
+def test_tiled_groupnorm_matches_plain_version(cuda_device, shape, film, dtype):
+    """Past the gate the dispatcher launches the stats pass and the apply
+    pass once each, and no single-pass kernel.  Against the plain tiled
+    version: f32 3e-5 (the JAX bar for its tiled kernel; the sums run in
+    another order), bf16 one output step (both round the same float32
+    value once)."""
+    assert G.large_block(shape)
+    x, g, b, s, h = _inputs(shape, film, dtype, cuda_device)
+    before = (G.groupnorm_film_silu.launches, G.gn_tiled_stats.launches,
+              G.gn_tiled_apply.launches)
+    got = groupnorm_film_silu(x, g, b, s, h, groups=8)
+    torch.cuda.synchronize()
+    after = (G.groupnorm_film_silu.launches, G.gn_tiled_stats.launches,
+             G.gn_tiled_apply.launches)
+    assert tuple(a - c for a, c in zip(after, before)) == (0, 1, 1)
+    assert got.dtype == dtype and got.shape == x.shape
+    want = G.groupnorm_film_silu_plain(x, g, b, s, h, groups=8)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=3e-5, atol=3e-5)
+    else:
+        assert _bf16_steps(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", TILED_SHAPES)
+def test_tiled_stats_partials_match_plain_per_row(cuda_device, shape, dtype):
+    """The stats pass's per-tile partials against the plain partials at the
+    same tiles: relative norm per row <= 1e-5 (float32 sums in another
+    order read ~1e-7), a bar that one dropped tile of a row fails."""
+    x = _inputs(shape, False, dtype, cuda_device)[0]
+    got = G.gn_tiled_stats(x)
+    torch.cuda.synchronize()
+    want = G.tiled_partials_reference(x, G.stats_tile(shape[1] * shape[2], shape[3]))
+    assert got.shape == want.shape and got.dtype == torch.float32
+
+    def worst(p):
+        return ((p - want).flatten(1).norm(dim=1) / want.flatten(1).norm(dim=1)).max().item()
+
+    assert worst(got) <= 1e-5
+    dropped = got.clone()
+    dropped[:, got.shape[1] // 2] = 0
+    assert worst(dropped) > 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 128, 128, 32), (8, 32, 32, 256)])
+def test_tiled_groupnorm_row_alone_equals_row_in_batch(cuda_device, shape, dtype):
+    """The tiles come from h·w and c alone and the fold runs in a fixed
+    order: row 0 alone equals row 0 of the batch of 8, bit for bit."""
+    x, g, b, s, h = _inputs(shape, True, dtype, cuda_device)
+    whole = groupnorm_film_silu(x, g, b, s, h, groups=8)
+    alone = groupnorm_film_silu(x[:1].clone(), g, b, s[:1].clone(), h[:1].clone(), groups=8)
+    torch.cuda.synchronize()
+    assert torch.equal(alone, whole[:1])
+
+
+@pytest.mark.cuda
+def test_tiled_groupnorm_rejects_what_it_cannot_take(cuda_device):
+    x, g, b, s, h = _inputs((2, 32, 32, 256), True, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="over the kernel"):
+        groupnorm_film_silu(x, torch.ones(256, device=cuda_device),
+                            torch.zeros(256, device=cuda_device), s, h, groups=128)
+    with pytest.raises(ValueError, match="on cpu"):
+        groupnorm_film_silu(x, g.cpu(), b, s, h)
+    with pytest.raises(ValueError, match="contiguous"):
+        G.gn_tiled_stats(x.transpose(1, 2))
+    with pytest.raises(TypeError):
+        G.gn_tiled_stats(x.half())
+    partials = G.gn_tiled_stats(x)
+    with pytest.raises(ValueError, match="partials"):
+        G.gn_tiled_apply(x, partials[:1].contiguous(), g, b, s, h)
+    with pytest.raises(ValueError, match="partials"):
+        G.gn_tiled_apply(x, partials.cpu(), g, b, s, h)

@@ -11,6 +11,11 @@
     gives through the network's ~60 layers: the JAX package's own bf16
     output differs from its float32 output by 1.7e-2 relative L2 on this
     input, and the port's from JAX's by 2.4e-2;
+  * the same UNet at a 128px input, port vs the JAX engine's `apply_model`,
+    which at ≥128px takes the space-to-depth layout (`apply_unet_s2d`, the
+    route the 64px cases never reach): float32 at atol/rtol 1e-4, the
+    same bar as the standard layout, since the s2d layout reassociates the
+    same float32 sums;
   * a narrow 4-stage chain in bf16 (64px, T=8, minval mask_x, floor 0.95),
     branched, with the JAX key stream replayed: relative L2 ≤ 0.15,
     correlation ≥ 0.99 and a max difference below 5% of the image range.
@@ -131,6 +136,29 @@ def test_shipped_checkpoint_unet_matches_jax(dtype, unet_inputs):
         assert _corr(got, want) >= 0.999
         feat = gd.encode_cond(torch.as_tensor(cond))
         assert feat.dtype == torch.bfloat16  # features in the compute type
+
+
+def test_shipped_checkpoint_at_128px_matches_the_jax_s2d_route():
+    rng = np.random.default_rng(6)
+    hi = tcfg.min_max_val_for(tcfg.mri256_config())[1]
+    x = rng.standard_normal((1, 128, 128, 1)).astype(np.float32)
+    cond = rng.uniform(0, hi, (1, 128, 128, 1)).astype(np.float32)
+    t = np.array([40], np.int32)
+    jc = jcfg.Config.load_yaml(YAML)
+    assert jc.model.resolve_exact_layout_s2d(128, 128) == 2  # the s2d route is taken
+    jgd = JaxGD(jc.model, jc.diffusion)
+    template = jax.eval_shape(lambda: jgd.init_params(jax.random.PRNGKey(0)))
+    params = jax_load_npz(NPZ, template)
+    want = np.asarray(jax.jit(jgd.apply_model)(params, jnp.asarray(x), jnp.asarray(cond),
+                                               jnp.asarray(t)))
+    cfg = tcfg.mri256_config()
+    gd = build_gd(cfg.replace(train=dataclasses.replace(cfg.train, compute_dtype="float32")),
+                  device="cpu")
+    gd.model.load_state_dict(load_params_npz(NPZ, gd.model))
+    got = gd.apply_model(torch.as_tensor(x), torch.as_tensor(cond),
+                         torch.as_tensor(t).long()).numpy()
+    assert got.shape == want.shape == x.shape and np.abs(want).max() > 0.5
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
 def test_narrow_bf16_branched_chain_matches_jax():
