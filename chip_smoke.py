@@ -24,7 +24,8 @@ Phases, each printed on its own line with the elapsed seconds:
 7. 256px kernels: each kernel of the 256px MRI chain against its plain
    version at the shapes that chain gives it (one UNet call at batch 8 is
    recorded by hooks): full attention [8,1024,4,32] in bf16 and f32 (and
-   `scaled_dot_product_attention` timed beside it), the linear-attention
+   `scaled_dot_product_attention` timed beside it, and the time its
+   exponentials need on the special-function units), the linear-attention
    kv and q kernels at the six linear-attention sites (and their times at
    batch 4 and 8 beside those of the block size the port took from the
    batch before), the fused ResnetBlock's conv3x3_stats (pass 1, pass 2)
@@ -38,7 +39,7 @@ Phases, each printed on its own line with the elapsed seconds:
    each pass held on its own), all in bf16; a row alone against the same
    row in the batch, bit for bit, for linear attention, the fused block
    and the tiled pair; errors against tolerances, times and bounds, summed
-   per UNet call;
+   per UNet call; one whole UNet call at batch 8, eager (host included);
 8. 256px main path: with every count at 0, `translate` on the 256px chain
    (full width, seeded random weights, T=250, bf16, branched, the JAX
    package's default fused-ResnetBlock layout) at batch 4 with a given
@@ -142,6 +143,9 @@ STEM_PER_CALL = {"groupnorm_film_silu": 26, "gn_tiled_stats": 14, "gn_tiled_appl
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+# exponentials per clock per SM on the special-function units (CUDA C++
+# programming guide, arithmetic instruction throughput, compute capability 9.0)
+SFU_EXP_PER_CLOCK_PER_SM = 16
 GN_OPS_PER_ELEMENT = 14  # stats 4, normalize+affine 3, FiLM 2, SiLU 5
 GN_STATS_OPS_PER_ELEMENT = 3  # tiled pair: sum, square, sum of squares
 GN_APPLY_OPS_PER_ELEMENT = 8  # normalize+affine 3, SiLU 5; FiLM adds 2
@@ -258,6 +262,15 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float) -> tuple:
     b_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S
     o_ms = 1e3 * ops / ops_per_s
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reads it."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    return float(mhz) * 1e6
 
 
 def phase_device() -> str:
@@ -699,11 +712,17 @@ def attention_kernel_phase(seen, expected, dtypes, label) -> dict:
         bytes_moved = 4 * b * n * heads * dh * got.element_size()  # q, k, v in; out
         rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
         bd_ms, bd_by = bound(bytes_moved, flops, rate)
+        # the softmax's exponentials on the special-function units, one per score
+        sfu_ms = 1e3 * b * heads * n * n / (
+            torch.cuda.get_device_properties(0).multi_processor_count
+            * SFU_EXP_PER_CLOCK_PER_SM * max_sm_clock_hz())
         log(f"  device us/launch: kernel {k_ms * 1e3:.2f} (eager {k_eager * 1e3:.2f}) "
             f"plain {p_ms * 1e3:.2f} SDPA {l_ms * 1e3:.2f} bound {bd_ms * 1e3:.2f} ({bd_by}: "
-            f"{flops / 1e9:.2f} GFLOP, {bytes_moved / 1e6:.2f} MB)")
+            f"{flops / 1e9:.2f} GFLOP, {bytes_moved / 1e6:.2f} MB); exponentials on the SFUs "
+            f"{sfu_ms * 1e3:.2f}")
         out[str(dtype)[6:]] = dict(ms=k_ms, eager_ms=k_eager, plain_ms=p_ms, library_ms=l_ms,
-                                   bound_ms=bd_ms, bound_by=bd_by, max_abs_err=err)
+                                   bound_ms=bd_ms, bound_by=bd_by, sfu_ms=sfu_ms,
+                                   max_abs_err=err)
     return out
 
 
@@ -956,7 +975,7 @@ def resnet_block_kernel_phase(seen) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(3)
     tot = {k: dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                    bytes_ms=0.0, ops_ms=0.0, max_abs_err=0.0) for k in ("conv", "epi")}
-    tot["conv"].update(pass1_ms=0.0, pass2_ms=0.0)
+    tot["conv"].update(pass1_ms=0.0, pass2_ms=0.0, by_shape=[])
     whole = dict(ms=0.0, plain_ms=0.0, unfused_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
                  ops_ms=0.0, max_rel_l2=0.0)
     worst = dict(h_steps=0.0, stats=0.0, epi=0.0)
@@ -1074,6 +1093,10 @@ def resnet_block_kernel_phase(seen) -> dict:
             t["max_abs_err"] = max(t["max_abs_err"], err)
         tot["conv"]["pass1_ms"] += count * p1_ms
         tot["conv"]["pass2_ms"] += count * p2_ms
+        tot["conv"]["by_shape"].append(dict(
+            shape=list(shape), cout=cout, count=count, pass1_ms=p1_ms, pass2_ms=p2_ms,
+            pass1_eager_ms=p1_eager, pass2_eager_ms=p2_eager, cudnn_pass1_ms=p1_lib,
+            cudnn_pass2_ms=p2_lib))
         wb_ms, wo_ms = 1e3 * block_bytes / HBM_BYTES_PER_S, 1e3 * block_ops / BF16_OPS_PER_S
         for k2, v in (("ms", f_ms), ("plain_ms", f_plain), ("unfused_ms", u_ms),
                       ("bytes_ms", wb_ms), ("ops_ms", wo_ms), ("bound_ms", max(wb_ms, wo_ms))):
@@ -1111,6 +1134,26 @@ def resnet_block_kernel_phase(seen) -> dict:
     return dict(conv=c, epi=e, whole=whole, worst=worst, faults=faults)
 
 
+def unet_call_ms(gd, batch: int, cond_max: float, reps: int = 10) -> float:
+    """Eager milliseconds of one UNet call at `batch` rows, host overhead
+    included: CUDA events around back-to-back calls after a warm-up."""
+    s = gd.image_size
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(batch, s, s, 1, generator=gen, device="cuda")
+    feat = gd.encode_cond(torch.rand(batch, s, s, 1, generator=gen, device="cuda") * cond_max)
+    t = torch.full((batch,), 10, device="cuda")
+    with torch.no_grad():
+        for _ in range(2):
+            gd.apply_model(x, None, t, cond_feat=feat)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            gd.apply_model(x, None, t, cond_feat=feat)
+        end.record()
+        torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def disc_masks(b: int, s: int) -> np.ndarray:
     """[b, s, s, 1] masks, each a disc of radius 25 (the synthetic tumour's)
     at its own place."""
@@ -1145,6 +1188,9 @@ def mri256() -> dict:
     linatt = linear_attention_kernel_phase(seen["linatt"])
     rb = resnet_block_kernel_phase(seen["rb"])
     gn = gn_kernel_phase(seen["gn"], (torch.bfloat16,), torch.bfloat16, "256px", (5, 4))
+    rb["unet_call_eager_ms"] = unet_call_ms(gd, 2 * MRI_BATCH, hi)
+    log(f"256px UNet call at batch {2 * MRI_BATCH}, eager (host included): "
+        f"{rb['unet_call_eager_ms']:.3f}ms")
 
     rng = np.random.default_rng(0)
     s = gd.image_size
@@ -1336,11 +1382,11 @@ def main() -> None:
         bound_by=attn["bound_by"], library_ms=attn["library_ms"],
         per="one launch at [8,1024,4,32] bf16 (3 per 256px UNet call)",
         launches_by_phase=launches["flash_attention"],
-        f32_ms=mri["attn"]["float32"]["ms"],
+        sfu_ms=attn["sfu_ms"], f32_ms=mri["attn"]["float32"]["ms"],
         f32_max_abs_err=mri["attn"]["float32"]["max_abs_err"],
         stem_f32=dict(per="one launch at [8,256,4,32] f32 (3 per stem UNet call)",
                       **{k: sattn[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                               "bound_by", "max_abs_err")})))
+                                               "bound_by", "sfu_ms", "max_abs_err")})))
     for key, src_line in (("kv", 149), ("q", 201)):
         t = lin[key]
         kernels.append(dict(
@@ -1369,7 +1415,9 @@ def main() -> None:
             launches=total[name], max_abs_err=t["max_abs_err"], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"] if key == "conv" else None, per=per,
-            **({"pass1_ms": t["pass1_ms"], "pass2_ms": t["pass2_ms"]} if key == "conv"
+            **({"pass1_ms": t["pass1_ms"], "pass2_ms": t["pass2_ms"],
+                "eager_ms": t["eager_ms"], "by_shape": t["by_shape"],
+                "unet_call_eager_ms": rb["unet_call_eager_ms"]} if key == "conv"
                else {}), **block))
     if any(k["launches"] < 1 for k in kernels):
         raise RuntimeError(f"a kernel never launched on the main paths: {launches}")

@@ -2,9 +2,11 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface (no PyTorch headers), so
 one nvcc call builds it in seconds.  The shared library goes to `build/`
-beside the package (ignored by git), named by the source's hash, so an
-edited source is rebuilt at its next first use and an unchanged one is not.
-A failed build raises with nvcc's stderr.
+beside the package (ignored by git), named by a hash of the source, of
+every local header it includes (`#include "…"`, followed through headers)
+and of the flags, so an edit to any of them rebuilds it at its next first
+use and an unchanged one is not rebuilt.  A failed build raises with
+nvcc's stderr.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -24,6 +27,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
+
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _loaded: dict = {}
 _lock = threading.Lock()
@@ -40,12 +45,28 @@ def _nvcc() -> str:
     return path
 
 
+def sources(name: str) -> list:
+    """csrc/<name>.cu and the local headers it includes, directly or through
+    another header, in a fixed order."""
+    seen = set()
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        for inc in _LOCAL_INCLUDE.findall(path.read_text(encoding="utf-8")):
+            dep = path.parent / inc
+            if dep.exists():
+                todo.append(dep)
+    return sorted(seen)
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

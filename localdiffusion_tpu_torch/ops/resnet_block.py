@@ -207,8 +207,8 @@ def _kernel_channels(name, cout, cin):
 def conv3x3_stats(x, w, bias, a=None, b=None):
     """Pass 1 (a, b None) or pass 2 (the affine+SiLU prologue); arguments and
     results as `conv_stats_reference`.  A CUDA tensor runs the kernel (Cout
-    in 32/64/128, Cin a multiple of 8, or it raises); a CPU tensor runs the
-    plain version."""
+    in 32/64/128, Cin a multiple of 8, x, w, a and b on 16-byte boundaries,
+    or it raises); a CPU tensor runs the plain version."""
     _check_nhwc(x)
     bsz, hh, ww, cin = x.shape
     if w.ndim != 3 or w.shape[0] != 9:
@@ -224,6 +224,10 @@ def conv3x3_stats(x, w, bias, a=None, b=None):
     if not _runs_kernel(x):
         return conv_stats_reference(x, w, bias, a, b)
     _kernel_channels("conv3x3_stats", cout, cin)
+    for name, t in (("x", x), ("w", w), ("a", a), ("b", b)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"the conv3x3_stats kernel reads {name} in 16-byte pieces: it "
+                             f"must start on a 16-byte boundary")
     h = torch.empty((bsz, hh, ww, cout), dtype=torch.bfloat16, device=x.device)
     part = torch.empty((bsz, num_tiles(hh, ww), 2, cout), dtype=torch.float32,
                        device=x.device)

@@ -1,10 +1,12 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 GroupNorm+FiLM+SiLU at the flagship's and the 256px chain's shapes (the
 single-pass kernel, and past the row gate the tiled stats/apply pair at the
-s2d-stem and 256px chains' large blocks), full
-attention, the two linear-attention passes and the fused ResnetBlock's
-conv3x3_stats and epilogue at the 256px chain's shapes, the inputs each
-wrapper refuses, and a row alone against the same row in a batch.
+s2d-stem and 256px chains' large blocks), full attention (on strided,
+contiguous and unaligned inputs, ragged token counts), the two
+linear-attention passes and the fused ResnetBlock's conv3x3_stats (each of
+its shared-memory plans, persistent grids with more and fewer tiles than
+blocks) and epilogue at the 256px chain's shapes, the inputs each wrapper
+refuses, and a row alone against the same row in a batch.
 
 Every test here needs an NVIDIA GPU and nvcc (the kernels have no CPU mode)
 and skips without one.  The module imports neither JAX nor the JAX package,
@@ -87,8 +89,9 @@ def test_groupnorm_kernel_rejects_what_it_cannot_take(cuda_device):
 # the 256px MRI chain's kernels
 # ---------------------------------------------------------------------------
 # full attention at the three 32x32 sites of a batch-4 branched chain, and
-# token counts that leave the last query and key tiles ragged
-ATTN_SHAPES = [(8, 1024, 4, 32), (2, 300, 2, 32), (1, 257, 3, 32)]
+# token counts that leave the last query and key tiles ragged (the bf16
+# kernel takes 128 query rows and 128 keys a tile, the f32 kernel 32 and 64)
+ATTN_SHAPES = [(8, 1024, 4, 32), (2, 300, 2, 32), (1, 257, 3, 32), (1, 1000, 2, 32)]
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 # the six linear-attention sites of a 256px UNet call at batch 8, and one
 # with a ragged last block
@@ -127,6 +130,49 @@ def test_attention_kernel_matches_plain_version(cuda_device, shape, dtype):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == shape
+    want = xla_attention(q, k, v)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _qkv_layout(shape, dtype, device, layout, seed=0):
+    """q, k, v [B, N, H, D] as `layout` says: "views", strided views of one
+    [B, N, 3, H, D] projection (token stride 3·H·D, head stride D, as the
+    UNet's Attention cuts them); "contiguous", three tensors of their own;
+    "offset", contiguous tensors whose data starts one element past a
+    16-byte boundary (the kernels then read element by element)."""
+    b, n, h, d = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if layout == "views":
+        qkv = torch.randn(b, n, 3, h, d, generator=gen, device=device).to(dtype)
+        return list(qkv.unbind(2))
+    numel = b * n * h * d
+    out = []
+    for _ in range(3):
+        flat = torch.randn(numel + 1, generator=gen, device=device).to(dtype)
+        t = flat[1:] if layout == "offset" else flat[:numel]
+        out.append(t.view(shape))
+    if layout == "offset":
+        assert all(t.data_ptr() % 16 for t in out)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["views", "contiguous", "offset"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 1024, 4, 32), (1, 1000, 2, 32), (2, 300, 2, 32),
+                                   (8, 256, 4, 32)])
+def test_attention_kernel_layouts(cuda_device, shape, dtype, layout):
+    """The kernel against its plain version on the strided qkv views, on
+    contiguous tensors and on tensors off a 16-byte boundary, at token
+    counts that leave the last query and key tiles ragged; the bars of
+    `test_attention_kernel_matches_plain_version`."""
+    q, k, v = _qkv_layout(shape, dtype, cuda_device, layout)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == shape and got.is_contiguous()
     want = xla_attention(q, k, v)
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
@@ -253,7 +299,8 @@ def test_linear_attention_row_alone_equals_row_in_batch(cuda_device):
 # multiple of the 32-channel chunk
 RB_SHAPES = [((2, 256, 256, 32), 32), ((2, 128, 128, 32), 32), ((2, 64, 64, 64), 64),
              ((2, 64, 64, 192), 128), ((2, 128, 128, 96), 64), ((2, 256, 256, 64), 32),
-             ((1, 20, 36, 48), 64), ((3, 12, 40, 8), 128)]
+             ((1, 20, 36, 48), 64), ((3, 12, 40, 8), 128), ((2, 40, 24, 40), 64),
+             ((1, 24, 40, 40), 128)]
 
 
 def bf16_steps(got, want):
@@ -360,6 +407,67 @@ def test_resnet_block_row_alone_equals_row_in_batch(cuda_device):
     assert torch.equal(alone, whole[:1])
 
 
+def _conv_pass_inputs(shape, cout, device, seed=0):
+    """x, w, bias and a pass-2 affine (a, b) for conv3x3_stats."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *sz: torch.randn(*sz, generator=gen, device=device)
+    b, _, _, cin = shape
+    x = (r(*shape) * 0.5).to(torch.bfloat16)
+    w = (r(9, cout, cin) * (2.0 / (9 * cin)) ** 0.5).to(torch.bfloat16)
+    return x, w, r(cout) * 0.1, r(b, cin) * 0.5 + 1.0, r(b, cin) * 0.3
+
+
+def _check_conv_pass(x, w, bias, a=None, b=None):
+    """One conv3x3_stats launch against its plain version: h within one bf16
+    step, the sums within 1e-5 relative norm per row (`RB_TOL`)."""
+    before = RB.conv3x3_stats.launches
+    got = RB.conv3x3_stats(x, w, bias, a, b)
+    torch.cuda.synchronize()
+    assert RB.conv3x3_stats.launches == before + 1
+    plain = RB.conv_stats_reference(x, w, bias, a, b)
+    assert got[0].shape == plain[0].shape and got[1].shape == plain[1].shape
+    assert bf16_steps(got[0], plain[0]) <= 1.0
+    err = stats_errors(*got, plain)
+    assert max(err.values()) <= 1e-5, err
+    return got
+
+
+# conv3x3_stats' shared-memory plans and grids: 64 output channels a block
+# with the weights resident (128 -> 128), 32 with the weights resident
+# (192 -> 128 in pass 1; any Cout 32) and streamed with the input (192 ->
+# 128 with the prologue, 384 -> 128), more tiles than blocks (4 x 16 x 16
+# tiles) and fewer (one tile; four)
+CONV_PLANS = [((2, 64, 64, 128), 128), ((2, 64, 64, 192), 128), ((1, 16, 32, 384), 128),
+              ((4, 128, 128, 32), 64), ((1, 8, 16, 32), 32), ((2, 16, 32, 64), 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("shape,cout", CONV_PLANS)
+def test_conv3x3_stats_plans_and_grids(cuda_device, shape, cout, prologue):
+    x, w, bias, a, b = _conv_pass_inputs(shape, cout, cuda_device)
+    if prologue:
+        _check_conv_pass(x, w, bias, a, b)
+    else:
+        _check_conv_pass(x, w, bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cout", [((8, 64, 64, 192), 128), ((8, 256, 256, 32), 32),
+                                        ((8, 40, 24, 40), 64)])
+def test_conv3x3_stats_row_alone_equals_row_in_batch(cuda_device, shape, cout):
+    """Each tile's sums come from its own block in a fixed order, whatever
+    grid the batch gives: row 0 alone equals row 0 of the batch, bit for
+    bit, in both passes."""
+    x, w, bias, a, b = _conv_pass_inputs(shape, cout, cuda_device, seed=5)
+    for args in ((), (a, b)):
+        whole = RB.conv3x3_stats(x, w, bias, *args)
+        alone = RB.conv3x3_stats(x[:1].clone(), w, bias, *(t[:1].clone() for t in args))
+        torch.cuda.synchronize()
+        for got, want in zip(alone, whole):
+            assert torch.equal(got, want[:1])
+
+
 @pytest.mark.cuda
 def test_resnet_block_module_launches_the_kernels(cuda_device):
     """Inside the gate the module launches conv3x3_stats twice and the
@@ -394,6 +502,9 @@ def test_resnet_block_kernels_reject_what_they_cannot_take(cuda_device):
         RB.conv3x3_stats(x[..., :12].contiguous(), w[:, :, :12].contiguous(), bias)
     with pytest.raises(ValueError, match="C out"):
         RB.conv3x3_stats(x, w[:, :24].contiguous(), bias[:24].contiguous())
+    off = torch.zeros(x.numel() + 8, dtype=torch.bfloat16, device=cuda_device)[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        RB.conv3x3_stats(off[:x.numel()].view(x.shape), w, bias)
     a = torch.zeros(1, 32, device=cuda_device)
     with pytest.raises(ValueError, match="C out"):
         RB.epilogue(x[..., :16].contiguous(), x[..., :16].contiguous(), a[:, :16].contiguous(),
