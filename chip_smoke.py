@@ -26,9 +26,10 @@ Phases, each printed on its own line with the elapsed seconds:
    recorded by hooks): full attention [8,1024,4,32] in bf16 and f32 (and
    `scaled_dot_product_attention` timed beside it, and the time its
    exponentials need on the special-function units), the linear-attention
-   kv and q kernels at the six linear-attention sites (and their times at
-   batch 4 and 8 beside those of the block size the port took from the
-   batch before), the fused ResnetBlock's conv3x3_stats (pass 1, pass 2)
+   kv and q kernels at the six linear-attention sites (each bound by the
+   largest of its bytes, tensor operations and exponentials; the merge and
+   fold between them; kv, q and the whole function at batch 4 and 8), the
+   fused ResnetBlock's conv3x3_stats (pass 1, pass 2)
    and epilogue at the six shapes of its 13 blocks (up3's two blocks and
    the final block share one), each pass held against its plain
    version and three emulated faults held above the bars, the whole fused
@@ -170,11 +171,10 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 # reference (bf16 rounding points differ between the streaming and unfused
 # forms): atol 0.04 / rtol 0.05 and correlation > 0.999
 LINATT_TOL = dict(atol=0.04, rtol=0.05)
-# the kv partials, per block, each against its own size (see `kv_errors`):
+# the kv kernel's merged rows, each against its own size (see `kv_errors`):
 # m one bf16 step, l 1e-3 and G 5e-3 relative norm, where a sound kernel
-# reads l ≤ 1e-4 and G ≤ 1.3e-3 at these sites and at the card-only tests'
-# inputs (NVIDIA H100 80GB HBM3, 700 W), and a missed running-max rescale
-# of l or G on one sub-tile reads above 1e-2
+# reads l ≤ 1e-6 and G ≤ 5e-4 at these sites (NVIDIA H100 80GB HBM3, 700 W)
+# and a block's partial dropped or merged twice moves a row by its share
 KV_TOL = dict(m=2**-7, l=1e-3, g=5e-3)
 # the fused ResnetBlock's passes against their plain versions on the same
 # inputs.  h1, h2: one bf16 step (`bf16_steps`: float32 sums in another
@@ -727,56 +727,52 @@ def attention_kernel_phase(seen, expected, dtypes, label) -> dict:
 
 
 def kv_errors(got, want) -> dict:
-    """The kv kernel's partials (m, l, G) against the plain version's, each
-    measured against its own size, block by block.
+    """The kv kernel's merged rows (m, l, G) against the plain version's,
+    each measured against its own size, row by row.
 
     m: the relative difference; both are the max of bf16-rounded k, which
     may round one step apart where float32 sums in another order land on a
     rounding boundary (2^-7 relative at most).  l and G are first put on the
-    plain version's max (times exp(m − m_plain)), then compared per block
-    as relative L2 over l's 128 columns and relative Frobenius over G's
-    C×128.  A norm over the block, not the largest entry: one token whose k
-    rounds a step apart moves one column of G by up to ~2^-7 of a token's
-    share, while a fault (a missed rescale, a block's G scaled) moves the
-    block.  Also the largest |G/l| difference, the number the JSON line
-    reports."""
+    plain version's max (times exp(m − m_plain)), then compared per row as
+    relative L2 over l's 128 columns and relative Frobenius over G's C×128.
+    A norm over the row, not the largest entry: one token whose k rounds a
+    step apart moves one column of G by up to ~2^-7 of a token's share,
+    while a fault (a missed rescale, a block's partial dropped or merged
+    twice) moves the row.  Also the largest |G/l| difference, the number
+    the JSON line reports."""
     (m, l, g), (pm, pl, pg) = got, want
     r = torch.exp(m - pm)
-    l, g = l * r, g * r[:, :, None, :]
+    l, g = l * r, g * r[:, None, :]
     return dict(
         m=((m - pm).abs() / pm.abs().clamp_min(1e-6)).max().item(),
-        l=((l - pl).norm(dim=2) / pl.norm(dim=2)).max().item(),
-        g=((g - pg).norm(dim=(2, 3)) / pg.norm(dim=(2, 3))).max().item(),
-        ctx=(g / l[:, :, None] - pg / pl[:, :, None]).abs().max().item(),
+        l=((l - pl).norm(dim=1) / pl.norm(dim=1)).max().item(),
+        g=((g - pg).norm(dim=(1, 2)) / pg.norm(dim=(1, 2))).max().item(),
+        ctx=(g / l[:, None] - pg / pl[:, None]).abs().max().item(),
     )
-
-
-def _batch_rule(batch: int, n: int) -> int:
-    """The block size the port took from the batch before it took it from
-    the token count alone (264 blocks in all), for timing the two beside
-    each other."""
-    per = -(-n // max(1, -(-264 // batch)))
-    return -(-per // LA.SUBTILE) * LA.SUBTILE
 
 
 def linear_attention_kernel_phase(seen) -> dict:
     """The kv and q kernels against their plain versions, and the whole
     two-pass function against the unfused plain version, at each
     linear-attention site of one 256px UNet call (bf16, the site's own
-    random weights); row 0 alone against row 0 in the batch.  Times summed
-    over the six sites, and kv, q and the two passes with the fold at
-    batch 4 and 8 with the block size from the token count (the port's) and
-    from the batch (before)."""
+    random weights); row 0 alone against row 0 in the batch.  Each pass's
+    bound is the largest of three floors: its bytes, its tensor operations
+    and its exponentials on the special-function units.  Times summed over
+    the six sites, and kv, q and the two passes with the fold at batch 4
+    and 8."""
     if len(seen) != MRI_PER_CALL["linear_attention_kv"]:
         raise RuntimeError(f"{len(seen)} linear-attention sites, expected 6")
     if not all(cl for _, _, cl in seen):
         raise RuntimeError("a linear-attention input is not channels_last: its NHWC view "
                            f"would be a copy ({[(s, cl) for _, s, cl in seen]})")
     gen = torch.Generator(device="cuda").manual_seed(2)
-    tot = {k: dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
-                   ops_ms=0.0, max_abs_err=0.0) for k in ("kv", "q")}
-    whole = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0)
-    sizing = {(bb, rule): [0.0, 0.0, 0.0] for bb in (4, 8) for rule in ("n", "batch")}
+    sfu_per_s = (torch.cuda.get_device_properties(0).multi_processor_count
+                 * SFU_EXP_PER_CLOCK_PER_SM * max_sm_clock_hz())
+    floors = ("bytes", "tensor", "sfu")
+    tot = {k: dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                   **{f"{f}_ms": 0.0 for f in floors}, max_abs_err=0.0) for k in ("kv", "q")}
+    whole = dict(ms=0.0, plain_ms=0.0, merge_fold_ms=0.0, max_abs_err=0.0)
+    sizing = {bb: [0.0, 0.0, 0.0] for bb in (4, 8)}
     for mod, shape, _ in seen:
         b, h, w, c = shape
         n = h * w
@@ -786,16 +782,16 @@ def linear_attention_kernel_phase(seen) -> dict:
                   mod.to_out.weight[:, :, 0, 0].t(), mod.to_out.bias, mod.out_norm.g)
         g_in, w_qkv, w_out, b_out, g_out = (p.detach() for p in params)
         wq, wk, wv = LA.split_qkv(w_qkv)
-        per = LA.tokens_per_block(n)
-        nb = -(-n // per)
+        nb = LA.blocks_per_row(n)
+        per = max(e - s for s, e in LA.block_ranges(n, nb))
 
-        m, l, gram = LA.linear_attention_kv(xr, g_in, wk, per)
+        m, l, gram = LA.linear_attention_kv(xr, g_in, wk, nb)
         torch.cuda.synchronize()
-        kv_err = kv_errors((m, l, gram), LA.kv_partials_reference(xr, g_in, wk, per))
+        kv_err = kv_errors((m, l, gram), LA.kv_reference(xr, g_in, wk, nb))
         err_kv = kv_err["ctx"]
         ok_kv = all(kv_err[k] <= tol for k, tol in KV_TOL.items())
-        wtil = LA.fold(*LA.merge_kv(m, l, gram), wv, w_out)
-        got = LA.linear_attention_q(xr, g_in, wq, wtil, b_out, g_out, per)
+        wtil = LA.fold(l, gram, wv, w_out)
+        got = LA.linear_attention_q(xr, g_in, wq, wtil, b_out, g_out)
         torch.cuda.synchronize()
         want = LA.q_pass_reference(xr, g_in, wq, wtil, b_out, g_out)
         err_q = (got.float() - want.float()).abs().max().item()
@@ -805,7 +801,7 @@ def linear_attention_kernel_phase(seen) -> dict:
         err_full = (full.float() - ref.float()).abs().max().item()
         corr = torch.corrcoef(torch.stack([full.float().ravel(), ref.float().ravel()]))[0, 1]
         ok_full = torch.allclose(full.float(), ref.float(), **LINATT_TOL) and corr > 0.999
-        log(f"256px linear attention {list(shape)} ({nb} blocks of {per} tokens): kv "
+        log(f"256px linear attention {list(shape)}: kv "
             + ", ".join(f"{k} {kv_err[k]:.3g} (tol {KV_TOL[k]:.3g})" for k in KV_TOL)
             + f", G/l max_abs_err {err_kv:.3g} {'ok' if ok_kv else 'FAIL'}; q "
             f"{err_q:.3g} (tol {LINATT_TOL}) {'ok' if ok_q else 'FAIL'}; two-pass vs "
@@ -818,25 +814,19 @@ def linear_attention_kernel_phase(seen) -> dict:
             raise RuntimeError(f"linear attention: row 0 alone differs from row 0 in the "
                                f"batch at {shape}")
 
-        def two_pass(xb_, per_):
-            m_, l_, g_ = LA.linear_attention_kv(xb_, g_in, wk, per_)
-            wt_ = LA.fold(*LA.merge_kv(m_, l_, g_), wv, w_out)
-            return LA.linear_attention_q(xb_, g_in, wq, wt_, b_out, g_out, per_)
-
-        for (bb, rule), acc in sizing.items():
-            xb_ = xr[:bb].contiguous()
-            per_ = LA.tokens_per_block(n) if rule == "n" else _batch_rule(bb, n)
-            wt_ = LA.fold(*LA.merge_kv(*LA.linear_attention_kv(xb_, g_in, wk, per_)), wv, w_out)
+        for bb, acc in sizing.items():
+            xb_, x4_ = xr[:bb].contiguous(), x[:bb].contiguous()
+            wt_ = LA.fold(*LA.linear_attention_kv(xb_, g_in, wk, nb)[1:], wv, w_out)
             for i, fn in enumerate((
-                    lambda: LA.linear_attention_kv(xb_, g_in, wk, per_),
-                    lambda: LA.linear_attention_q(xb_, g_in, wq, wt_, b_out, g_out, per_),
-                    lambda: two_pass(xb_, per_))):
+                    lambda: LA.linear_attention_kv(xb_, g_in, wk, nb),
+                    lambda: LA.linear_attention_q(xb_, g_in, wq, wt_, b_out, g_out),
+                    lambda: LA.linear_attention(x4_, g_in, w_qkv, w_out, b_out, g_out))):
                 acc[i] += cuda_ms(fn, 5, 4)[1]
 
-        kv_eager, kv_ms = cuda_ms(lambda: LA.linear_attention_kv(xr, g_in, wk, per), 5, 4)
-        _, kv_plain = cuda_ms(lambda: LA.kv_partials_reference(xr, g_in, wk, per), 5, 4)
+        kv_eager, kv_ms = cuda_ms(lambda: LA.linear_attention_kv(xr, g_in, wk, nb), 5, 4)
+        _, kv_plain = cuda_ms(lambda: LA.kv_reference(xr, g_in, wk, nb), 5, 4)
         q_eager, q_ms = cuda_ms(
-            lambda: LA.linear_attention_q(xr, g_in, wq, wtil, b_out, g_out, per), 5, 4)
+            lambda: LA.linear_attention_q(xr, g_in, wq, wtil, b_out, g_out), 5, 4)
         _, q_plain = cuda_ms(
             lambda: LA.q_pass_reference(xr, g_in, wq, wtil, b_out, g_out), 5, 4)
         _, f_ms = cuda_ms(lambda: LA.linear_attention(x, g_in, w_qkv, w_out, b_out, g_out),
@@ -844,45 +834,58 @@ def linear_attention_kernel_phase(seen) -> dict:
         _, f_plain = cuda_ms(
             lambda: LA.linear_attention_reference(x, g_in, w_qkv, w_out, b_out, g_out), 5, 4)
         xb = x.numel() * 2
-        bytes_moved = {"kv": xb + 4 * b * nb * (2 * 128 + c * 128) + c * 128 * 2,
-                       "q": 2 * xb + b * 128 * c * 2 + c * 128 * 2}
+        # each input read once, each output written once: kv reads x and Wk
+        # and writes m, l and G per row; q reads x, Wq and each row's W~ and
+        # writes the output
+        bytes_moved = {"kv": xb + c * 128 * 2 + 4 * b * (2 * 128 + c * 128),
+                       "q": 2 * xb + c * 128 * 2 + b * 128 * c * 2}
         flops = 4 * b * n * c * 128  # two [N, C] x [C, 128] products per pass
-        op_ms = 1e3 * flops / BF16_OPS_PER_S
+        sfu_ms = 1e3 * b * n * 128 / sfu_per_s  # one exponential per token and column
         for key, ms, eager, plain, err in (("kv", kv_ms, kv_eager, kv_plain, err_kv),
                                            ("q", q_ms, q_eager, q_plain, err_q)):
-            bd_ms = 1e3 * bytes_moved[key] / HBM_BYTES_PER_S
+            fl = {"bytes": 1e3 * bytes_moved[key] / HBM_BYTES_PER_S,
+                  "tensor": 1e3 * flops / BF16_OPS_PER_S, "sfu": sfu_ms}
             t = tot[key]
             t["ms"] += ms
             t["eager_ms"] += eager
             t["plain_ms"] += plain
-            t["bytes_ms"] += bd_ms
-            t["ops_ms"] += op_ms
-            t["bound_ms"] += max(bd_ms, op_ms)
+            for f in floors:
+                t[f"{f}_ms"] += fl[f]
+            t["bound_ms"] += max(fl.values())
             t["max_abs_err"] = max(t["max_abs_err"], err)
             log(f"  {key} device us/launch: kernel {ms * 1e3:.1f} (eager {eager * 1e3:.1f}) "
-                f"plain {plain * 1e3:.1f} bound {max(bd_ms, op_ms) * 1e3:.1f}")
+                f"plain {plain * 1e3:.1f} bound {max(fl.values()) * 1e3:.1f} ("
+                + ", ".join(f"{f} {fl[f] * 1e3:.1f}" for f in floors)
+                + f"; {max(fl, key=fl.get)})")
         whole["ms"] += f_ms
         whole["plain_ms"] += f_plain
+        whole["merge_fold_ms"] += f_ms - kv_ms - q_ms
         whole["max_abs_err"] = max(whole["max_abs_err"], err_full)
         log(f"  whole function device us: two-pass {f_ms * 1e3:.1f}, unfused plain "
-            f"{f_plain * 1e3:.1f}")
+            f"{f_plain * 1e3:.1f}; merge + fold (two-pass − kv − q) "
+            f"{(f_ms - kv_ms - q_ms) * 1e3:.1f}; launch plan: kv {nb} blocks a row of up to "
+            f"{per} tokens in clusters of {LA.CLUSTER}, the cluster with the row's last "
+            f"block merging; q a persistent grid of two-warpgroup blocks")
     for key in ("kv", "q"):
         t = tot[key]
-        t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations"
+        t["bound_floor"] = max(floors, key=lambda f: t[f"{f}_ms"])
+        t["bound_by"] = "bytes" if t["bound_floor"] == "bytes" else "operations"
         log(f"256px linear attention {key} per UNet call (6 launches): kernel {t['ms']:.4f}ms "
             f"(eager {t['eager_ms']:.4f}) plain {t['plain_ms']:.4f}ms bound "
-            f"{t['bound_ms']:.4f}ms ({t['bound_by']})")
-    log(f"256px linear attention whole per UNet call: two-pass {whole['ms']:.4f}ms, "
-        f"unfused plain {whole['plain_ms']:.4f}ms; row 0 alone = row 0 in the batch at "
-        f"every site")
-    for (bb, rule), (kv_t, q_t, tp_t) in sizing.items():
-        log(f"256px linear attention block size from the {rule:5s} at batch {bb}, per UNet "
-            f"call (device): kv {kv_t:.4f}ms q {q_t:.4f}ms two passes with the fold "
-            f"{tp_t:.4f}ms")
+            f"{t['bound_ms']:.4f}ms (floors: "
+            + ", ".join(f"{f} {t[f'{f}_ms']:.4f}" for f in floors)
+            + f"; bound by {t['bound_floor']})")
+    log(f"256px linear attention whole per UNet call: two-pass {whole['ms']:.4f}ms "
+        f"(merge + fold {whole['merge_fold_ms']:.4f}), unfused plain {whole['plain_ms']:.4f}ms; "
+        f"row 0 alone = row 0 in the batch at every site")
+    for bb, (kv_t, q_t, tp_t) in sizing.items():
+        log(f"256px linear attention at batch {bb}, per UNet call (device): kv {kv_t:.4f}ms "
+            f"q {q_t:.4f}ms two passes with the fold {tp_t:.4f}ms")
     for key, i in (("kv", 0), ("q", 1)):
         for bb in (4, 8):
-            tot[key][f"batch{bb}_ms"] = sizing[(bb, "n")][i]
-            tot[key][f"batch{bb}_batch_rule_ms"] = sizing[(bb, "batch")][i]
+            tot[key][f"batch{bb}_ms"] = sizing[bb][i]
+    for bb in (4, 8):
+        whole[f"batch{bb}_ms"] = sizing[bb][2]
     return dict(kv=tot["kv"], q=tot["q"], whole=whole)
 
 
@@ -1397,8 +1400,11 @@ def main() -> None:
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=None,
             per="256px UNet call, 6 launches (one per site), bf16",
-            **{k: t[k] for k in ("batch4_ms", "batch8_ms", "batch4_batch_rule_ms",
-                                 "batch8_batch_rule_ms")}))
+            **{k: t[k] for k in ("bound_floor", "bytes_ms", "tensor_ms", "sfu_ms",
+                                 "batch4_ms", "batch8_ms")},
+            two_pass_ms=lin["whole"]["ms"], merge_fold_ms=lin["whole"]["merge_fold_ms"],
+            two_pass_batch4_ms=lin["whole"]["batch4_ms"],
+            two_pass_batch8_ms=lin["whole"]["batch8_ms"]))
     rb, whole = mri["rb"], mri["rb"]["whole"]
     block = dict(block_ms=whole["ms"], block_plain_ms=whole["plain_ms"],
                  block_unfused_ms=whole["unfused_ms"], block_bound_ms=whole["bound_ms"],

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels, as inline
-// PTX: asynchronous copies (cp.async with zero fill) and the warpgroup
-// matrix multiply (wgmma) with its shared-memory descriptors and fences.
+// PTX: asynchronous copies (cp.async with zero fill), the warpgroup matrix
+// multiply (wgmma) with its shared-memory descriptors and fences, named
+// barriers, and thread block clusters (rank, barrier, distributed shared
+// memory reads).
 // Header only; every function is __device__ __forceinline__.
 //
 // wgmma shared-memory operands use the canonical layout without swizzle
@@ -11,10 +13,11 @@
 // along M or N.  This holds for both majors of a 16-bit B operand: K-major
 // (a core matrix's rows run along N, each row 8 consecutive k) and MN-major
 // (rows run along K, each row 8 consecutive n), selected by the
-// instruction's trans-b flag; A is K-major.  An A from registers has the
-// m16n8k16 fragment layout for each warp's 16 rows (warp w of the
-// warpgroup holds rows 16 w .. 16 w + 15).  The accumulator of an m64nN product is, per
-// warp and lane (g = lane / 4, t = lane % 4), d[4 j + e] = element
+// instruction's trans-b flag, and for an A in shared memory (trans-a: an
+// MN-major A's rows run along K, each row 8 consecutive m).  An A from
+// registers has the m16n8k16 fragment layout for each warp's 16 rows (warp
+// w of the warpgroup holds rows 16 w .. 16 w + 15).  The accumulator of an
+// m64nN product is, per warp and lane (g = lane / 4, t = lane % 4), d[4 j + e] = element
 // (16 w + g + 8 (e / 2), 8 j + 2 t + e % 2) for j < N / 8.
 
 #pragma once
@@ -60,6 +63,16 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint3
   return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// The same descriptor built from a 32-bit shared-memory address and the
+// strides' part, smem_desc_strides(lbo, sbo), computed once outside a loop.
+__host__ __device__ constexpr uint64_t smem_desc_strides(uint32_t lbo, uint32_t sbo) {
+  return (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
+}
+__device__ __forceinline__ uint64_t smem_desc_at(uint32_t addr, uint64_t strides) {
+  return strides | ((addr & 0x3FFFF) >> 4);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -156,6 +169,28 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
   wgmma_m64n64k16_ss<TA, TB>(d, a, b, acc);
 }
 
+// As wgmma_m64n32k16, at n64.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t b, int acc = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %37;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(TB), "r"(acc));
+}
+
 // As wgmma_m64n32k16, at n128.
 template <int TB>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
@@ -183,6 +218,88 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t 
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(TB), "r"(acc));
+}
+
+// As wgmma_m64n32k16_ss, at n128.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a, uint64_t b,
+                                                    int acc = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %68, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %66, %67;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "n"(TA), "n"(TB), "r"(acc));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+  wgmma_m64n128k16_ss<TA, TB>(d, a, b, acc);
+}
+
+// m64nNk16 with a from registers, N by the accumulator's size (32, 64 or 128).
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                         int acc) {
+  wgmma_m64n32k16<TB>(d, a, b, acc);
+}
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                         int acc) {
+  wgmma_m64n64k16<TB>(d, a, b, acc);
+}
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                         int acc) {
+  wgmma_m64n128k16<TB>(d, a, b, acc);
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads, a
+// multiple of 32: one warpgroup waits for its own warps only.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Thread block clusters (a kernel declared with __cluster_dims__).
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives and waits: memory
+// accesses before it (shared, distributed shared and global) are seen by
+// the cluster's threads after it (release, acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The 32-bit word at p's place in the shared memory of the cluster's block
+// `rank` (distributed shared memory); p points into this block's.
+__device__ __forceinline__ uint32_t ld_shared_cluster(const void* p, uint32_t rank) {
+  uint32_t remote, v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.u32 %0, [%1];\n" : "=r"(v) : "r"(remote) : "memory");
+  return v;
 }
 
 }  // namespace hopper

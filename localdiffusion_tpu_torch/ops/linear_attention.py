@@ -5,13 +5,16 @@ Port of `localdiffusion_tpu/ops/pallas_linear_attention.py`
 (`linear_attention_fused`: `_kv_kernel`, the XLA fold, `_q_kernel`).  The
 kernels are `csrc/linear_attention.cu` (see the source for the design):
 
-  * `linear_attention_kv` — pass 1, per block of `per_block` tokens of a
-    row: RMSNorm → k projection → per-column max m, exp-sum l and Gram
-    G = Σ xnᵀ·exp(k − m), written as partials;
-  * `merge_kv` + `fold` — PyTorch on [B, C, 128] numbers, as the JAX package
-    does this step in XLA: the partials merged by the log-sum-exp rule, then
-    ctxᵀ = Wvᵀ·G / l under the cross-head mask, folded with the output
-    projection into one [128, C] weight per row;
+  * `linear_attention_kv` — pass 1: RMSNorm → k projection → per column
+    the row's max m, exp-sum l and Gram G = Σ xnᵀ·exp(k − m), one merged
+    (m, l, G) per row as the TPU kernel returns it.  Inside, each of
+    `blocks_per_row(N)` blocks takes a share of the row's 64-token tiles
+    and writes its partial to a scratch buffer; the thread-block cluster
+    (`CLUSTER` blocks) holding the row's last block merges them by the
+    log-sum-exp rule in block order (a per-row counter, left at zero);
+  * `fold` — PyTorch on [B, C, 128] numbers, as the JAX package does this
+    step in XLA: ctxᵀ = Wvᵀ·G / l under the cross-head mask, folded with
+    the output projection into one [128, C] weight per row;
   * `linear_attention_q` — pass 2: RMSNorm → q projection → per-head
     softmax → ·W̃ + b → RMSNorm out.
 
@@ -19,10 +22,10 @@ kernels are `csrc/linear_attention.cu` (see the source for the design):
 gate (`supports`: 4 heads of 32, C ∈ {32, 64, 128}, bf16, h·w ≥ 4096) and
 raises outside it; a CPU tensor gets the plain version,
 `linear_attention_reference`, the unfused math of the JAX package's
-`LinearAttention`.  Each kernel wrapper also has its own plain version
-(`kv_partials_reference`, `q_pass_reference`) for CPU tensors, so
-`linear_attention_two_pass` runs the kernels' algorithm end to end on the
-CPU.
+`LinearAttention`.  Each kernel wrapper also has its own plain version for
+CPU tensors (`kv_reference`: the blocks' partials, `kv_partials_reference`,
+merged by `merge_kv`; `q_pass_reference`), so `linear_attention_two_pass`
+runs the kernels' algorithm end to end on the CPU.
 """
 
 from __future__ import annotations
@@ -36,8 +39,10 @@ HEADS, DIM_HEAD = 4, 32
 HIDDEN = HEADS * DIM_HEAD
 CHANNELS = (32, 64, 128)
 MIN_HW = 4096  # the JAX package engages its kernel at this many pixels
-SUBTILE = 64  # tokens per sub-tile inside a kernel block (csrc: kTok)
-BLOCKS_PER_ROW = 64  # two blocks per SM of an H100 (132 SMs) at batch 4
+TILE = 64  # tokens per tile inside a kernel block (csrc: kTok)
+CLUSTER = 2  # kv blocks that merge a row together (csrc: kCluster)
+BLOCK_STEP = 8  # kv blocks per row are a multiple of this (csrc: kBlockStep)
+MAX_BLOCKS = 64  # kv blocks per row at most (csrc: kMaxBlocks)
 
 
 def supports(x_shape, heads: int, dim_head: int, dtype) -> bool:
@@ -52,14 +57,24 @@ def supports(x_shape, heads: int, dim_head: int, dtype) -> bool:
     return w % r == 0 and (h * (w // r)) % 8 == 0
 
 
-def tokens_per_block(n: int) -> int:
-    """Tokens each kernel block takes, from the row's token count alone (as
-    the JAX package takes its tile from h·w alone): about `BLOCKS_PER_ROW`
-    blocks a row, in whole sub-tiles.  Each block rounds exp(k − m) against
-    its own max, so a block size that followed the batch would make a
-    row's output depend on the rows beside it."""
-    per = -(-n // BLOCKS_PER_ROW)
-    return -(-per // SUBTILE) * SUBTILE
+def blocks_per_row(n: int) -> int:
+    """The kv kernel's blocks per row, from the row's token count alone (as
+    the JAX package takes its tile from h·w alone): 16 below 32,768 tokens,
+    32 from there (the fastest of 8, 16 and 32 at the 256px chain's sites
+    at batch 8 on an H100).  Each block rounds exp(k − m) against its own
+    running max, so a split that followed the batch would make a row's
+    output depend on the rows beside it."""
+    return 32 if n >= 32768 else 16
+
+
+def block_ranges(n: int, nb: int) -> list:
+    """The token range [start, end) of each of a row's `nb` kv blocks: the
+    row's ceil(n / 64) tiles split as evenly as whole tiles allow (block p
+    takes tiles p·T // nb up to (p + 1)·T // nb), the last tile cut at n.
+    A block may be empty when the row has fewer tiles than blocks."""
+    tiles = -(-n // TILE)
+    return [(min(n, TILE * (p * tiles // nb)), min(n, TILE * ((p + 1) * tiles // nb)))
+            for p in range(nb)]
 
 
 def _rms(x, g, dtype):
@@ -100,23 +115,44 @@ def linear_attention_reference(x, g_in, w_qkv, w_out, b_out, g_out,
 # pass 1
 # ---------------------------------------------------------------------------
 
-def kv_partials_reference(x, g_in, wk, per_block):
-    """Plain pass 1: x [B, N, C] bf16, wk [C, 128] bf16 → per block of
-    `per_block` tokens m, l [B, nb, 128] and G [B, nb, C, 128], float32."""
+def kv_partials_reference(x, g_in, wk, nb):
+    """The kv blocks' partials: x [B, N, C] bf16, wk [C, 128] bf16 → for
+    each of the `nb` blocks of `block_ranges` m, l [B, nb, 128] and
+    G [B, nb, C, 128], float32, relative to the block's own max (an empty
+    block: m = −inf, l = G = 0)."""
     b, n, c = x.shape
-    nb = -(-n // per_block)
     xn = _rms(x, g_in, torch.bfloat16).float()
     k = (xn @ wk.float()).to(torch.bfloat16).float()
-    pad = nb * per_block - n
-    if pad:
-        xn = torch.cat([xn, xn.new_zeros(b, pad, c)], dim=1)
-        k = torch.cat([k, k.new_full((b, pad, k.shape[-1]), -math.inf)], dim=1)
-    k = k.reshape(b, nb, per_block, -1)
-    m = k.amax(dim=2)
-    e = torch.exp(k - m[:, :, None])
-    gram = torch.einsum("btnc,btnd->btcd", xn.reshape(b, nb, per_block, c),
-                        e.to(torch.bfloat16).float())
-    return m, e.sum(dim=2), gram
+    m = torch.full((b, nb, HIDDEN), -math.inf, dtype=torch.float32, device=x.device)
+    l = torch.zeros((b, nb, HIDDEN), dtype=torch.float32, device=x.device)
+    gram = torch.zeros((b, nb, c, HIDDEN), dtype=torch.float32, device=x.device)
+    for p, (s, e) in enumerate(block_ranges(n, nb)):
+        if s == e:
+            continue
+        m[:, p] = k[:, s:e].amax(dim=1)
+        ex = torch.exp(k[:, s:e] - m[:, p, None])
+        l[:, p] = ex.sum(dim=1)
+        gram[:, p] = torch.einsum("bnc,bnd->bcd", xn[:, s:e], ex.to(torch.bfloat16).float())
+    return m, l, gram
+
+
+def merge_kv(m, l, gram):
+    """The blocks' partials of a row as one, by the log-sum-exp rule: each
+    block's l and G rescaled by exp(m_block − m_row) and summed.  Returns
+    m, l [B, 128] and G [B, C, 128].  The sums run in float64, so the
+    float32 result does not depend on the rows beside it (PyTorch may reduce
+    in another order for another batch)."""
+    mrow = m.amax(dim=1)
+    w = torch.exp(m - mrow[:, None])  # [B, nb, 128]
+    return (mrow, (l * w).sum(dim=1, dtype=torch.float64).float(),
+            (gram * w[:, :, None, :]).sum(dim=1, dtype=torch.float64).float())
+
+
+def kv_reference(x, g_in, wk, nb):
+    """Plain pass 1: the kv kernel's function, its blocks' partials merged.
+    x [B, N, C] bf16, wk [C, 128] bf16 → m, l [B, 128], G [B, C, 128]
+    float32, l and G relative to m."""
+    return merge_kv(*kv_partials_reference(x, g_in, wk, nb))
 
 
 def _check_rows(x, name="x"):
@@ -141,40 +177,64 @@ def _check_param(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_aligned(**tensors):
+    """The kernels copy and store bf16 data 16 bytes at a time."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} does not start on a 16-byte boundary")
+
+
 def _lib():
     from localdiffusion_tpu_torch.ops import _build
 
     return _build.load("linear_attention")
 
 
-def linear_attention_kv(x, g_in, wk, per_block):
+_counters: dict = {}
+
+
+def _row_counters(device, b):
+    """The kv kernel's per-row counters on `device`, at least `b` of them:
+    zero when made, and every launch leaves them at zero, so one buffer
+    serves every launch on the device (and a CUDA graph's replay)."""
+    cnt = _counters.get(device)
+    if cnt is None or cnt.numel() < b:
+        cnt = torch.zeros(max(b, 64), dtype=torch.int32, device=device)
+        _counters[device] = cnt
+    return cnt
+
+
+def linear_attention_kv(x, g_in, wk, nb):
     """Pass 1 (the kv kernel).  x: [B, N, C] bf16 contiguous; g_in: [C]
-    float32; wk: [C, 128] bf16.  Returns m, l [B, nb, 128] and
-    G [B, nb, C, 128] float32, nb = ceil(N / per_block), each block's numbers
-    relative to its own max.  A CUDA tensor runs the kernel; a CPU tensor
-    runs the plain version."""
+    float32; wk: [C, 128] bf16; nb: blocks per row, a multiple of 8 up to
+    64 (`blocks_per_row(N)`).  Returns m, l [B, 128] and G [B, C, 128]
+    float32, l and G relative to m.  A CUDA tensor runs the kernel; a CPU
+    tensor runs the plain version, `kv_reference`."""
     _check_rows(x)
     b, n, c = x.shape
     _check_param("g_in", g_in, (c,), torch.float32, x.device)
     _check_param("wk", wk, (c, HIDDEN), torch.bfloat16, x.device)
-    if per_block <= 0 or per_block % SUBTILE:
-        raise ValueError(f"per_block {per_block} is not a multiple of {SUBTILE}")
+    if nb < BLOCK_STEP or nb % BLOCK_STEP or nb > MAX_BLOCKS:
+        raise ValueError(f"nb {nb} is not a multiple of {BLOCK_STEP} up to {MAX_BLOCKS}")
     if not x.is_cuda:
         if x.device.type != "cpu":
             raise ValueError(f"no kernel for device {x.device}")
-        return kv_partials_reference(x, g_in, wk, per_block)
-    nb = -(-n // per_block)
-    m = torch.empty((b, nb, HIDDEN), dtype=torch.float32, device=x.device)
+        return kv_reference(x, g_in, wk, nb)
+    _check_aligned(x=x, wk=wk)
+    m = torch.empty((b, HIDDEN), dtype=torch.float32, device=x.device)
     l = torch.empty_like(m)
-    gram = torch.empty((b, nb, c, HIDDEN), dtype=torch.float32, device=x.device)
+    gram = torch.empty((b, c, HIDDEN), dtype=torch.float32, device=x.device)
+    scratch = torch.empty((b, nb, c + 2, HIDDEN), dtype=torch.float32, device=x.device)
     fn = _lib().linear_attention_kv
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
     fn.restype = ci
     with torch.cuda.device(x.device):
+        counter = _row_counters(x.device, b)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), g_in.data_ptr(), wk.data_ptr(), m.data_ptr(),
-                 l.data_ptr(), gram.data_ptr(), b, n, c, per_block, stream)
+        err = fn(x.data_ptr(), g_in.data_ptr(), wk.data_ptr(), scratch.data_ptr(),
+                 counter.data_ptr(), m.data_ptr(), l.data_ptr(), gram.data_ptr(), b, n, c,
+                 nb, stream)
     if err != 0:
         raise RuntimeError(f"linear_attention_kv launch failed: CUDA error {err}")
     linear_attention_kv.launches += 1
@@ -187,17 +247,6 @@ linear_attention_kv.launches = 0
 # ---------------------------------------------------------------------------
 # between the passes
 # ---------------------------------------------------------------------------
-
-def merge_kv(m, l, gram):
-    """The blocks' partials of a row as one: each block's l and G rescaled
-    by exp(m_block − m_row) and summed.  Returns l [B, 128], G [B, C, 128].
-    The sums run in float64, so the float32 result does not depend on the
-    rows beside it (PyTorch may reduce in another order for another
-    batch)."""
-    w = torch.exp(m - m.amax(dim=1, keepdim=True))  # [B, nb, 128]
-    return ((l * w).sum(dim=1, dtype=torch.float64).float(),
-            (gram * w[:, :, None, :]).sum(dim=1, dtype=torch.float64).float())
-
 
 def fold(l, gram, wv, w_out, heads=HEADS, dim_head=DIM_HEAD):
     """The per-row weight of pass 2, W̃ [B, hidden, C] bf16, as the JAX
@@ -238,7 +287,7 @@ def q_pass_reference(x, g_in, wq, wtil, b_out, g_out, dim_head=DIM_HEAD):
     return _rms(out.to(torch.bfloat16), g_out, torch.bfloat16)
 
 
-def linear_attention_q(x, g_in, wq, wtil, b_out, g_out, per_block):
+def linear_attention_q(x, g_in, wq, wtil, b_out, g_out):
     """Pass 2 (the q kernel).  x: [B, N, C] bf16 contiguous; g_in, b_out,
     g_out: [C] float32; wq: [C, 128] bf16; wtil: [B, 128, C] bf16.  Returns
     [B, N, C] bf16.  A CUDA tensor runs the kernel; a CPU tensor runs the
@@ -249,22 +298,21 @@ def linear_attention_q(x, g_in, wq, wtil, b_out, g_out, per_block):
         _check_param(name, t, (c,), torch.float32, x.device)
     _check_param("wq", wq, (c, HIDDEN), torch.bfloat16, x.device)
     _check_param("wtil", wtil, (b, HIDDEN, c), torch.bfloat16, x.device)
-    if per_block <= 0 or per_block % SUBTILE:
-        raise ValueError(f"per_block {per_block} is not a multiple of {SUBTILE}")
     if not x.is_cuda:
         if x.device.type != "cpu":
             raise ValueError(f"no kernel for device {x.device}")
         return q_pass_reference(x, g_in, wq, wtil, b_out, g_out)
+    _check_aligned(x=x, wq=wq, wtil=wtil)
     out = torch.empty_like(x)
     fn = _lib().linear_attention_q
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ctypes.c_float, vp]
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float, vp]
     fn.restype = ci
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), g_in.data_ptr(), wq.data_ptr(), wtil.data_ptr(),
                  b_out.data_ptr(), g_out.data_ptr(), out.data_ptr(), b, n, c,
-                 per_block, _scale(DIM_HEAD), stream)
+                 _scale(DIM_HEAD), stream)
     if err != 0:
         raise RuntimeError(f"linear_attention_q launch failed: CUDA error {err}")
     linear_attention_q.launches += 1
@@ -291,13 +339,12 @@ def linear_attention_two_pass(x, g_in, w_qkv, w_out, b_out, g_out):
     Returns [B, H, W, C] bf16 (without the residual)."""
     b, h, w, c = x.shape
     xr = x.reshape(b, h * w, c)
-    per_block = tokens_per_block(h * w)
     wq, wk, wv = split_qkv(w_qkv)
     g_in = g_in.float().contiguous()
-    m, l, gram = linear_attention_kv(xr, g_in, wk, per_block)
-    wtil = fold(*merge_kv(m, l, gram), wv, w_out)
+    _, l, gram = linear_attention_kv(xr, g_in, wk, blocks_per_row(h * w))
+    wtil = fold(l, gram, wv, w_out)
     out = linear_attention_q(xr, g_in, wq, wtil, b_out.float().contiguous(),
-                             g_out.float().contiguous(), per_block)
+                             g_out.float().contiguous())
     return out.reshape(b, h, w, c)
 
 

@@ -3,7 +3,9 @@ GroupNorm+FiLM+SiLU at the flagship's and the 256px chain's shapes (the
 single-pass kernel, and past the row gate the tiled stats/apply pair at the
 s2d-stem and 256px chains' large blocks), full attention (on strided,
 contiguous and unaligned inputs, ragged token counts), the two
-linear-attention passes and the fused ResnetBlock's conv3x3_stats (each of
+linear-attention passes (the kv kernel's launch plans and its in-kernel
+merge, the q kernel's persistent grid, repeated and graph-replayed
+launches) and the fused ResnetBlock's conv3x3_stats (each of
 its shared-memory plans, persistent grids with more and fewer tiles than
 blocks) and epilogue at the 256px chain's shapes, the inputs each wrapper
 refuses, and a row alone against the same row in a batch.
@@ -93,10 +95,11 @@ def test_groupnorm_kernel_rejects_what_it_cannot_take(cuda_device):
 # kernel takes 128 query rows and 128 keys a tile, the f32 kernel 32 and 64)
 ATTN_SHAPES = [(8, 1024, 4, 32), (2, 300, 2, 32), (1, 257, 3, 32), (1, 1000, 2, 32)]
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
-# the six linear-attention sites of a 256px UNet call at batch 8, and one
-# with a ragged last block
+# the six linear-attention sites of a 256px UNet call at batch 8, one whose
+# blocks take uneven shares of tiles (72x72: 81 tiles over 16 blocks), and
+# one whose token count leaves the last 64-token tile ragged (72x76: 5,472)
 LINATT_SHAPES = [(8, 256, 256, 32), (8, 128, 128, 32), (8, 64, 64, 64),
-                 (8, 64, 64, 128), (8, 128, 128, 64), (2, 72, 72, 32)]
+                 (8, 64, 64, 128), (8, 128, 128, 64), (2, 72, 72, 32), (1, 72, 76, 32)]
 # the 256px Block shapes (batch 8), bf16
 MRI_GN_SHAPES = [(8, 256, 256, 32), (8, 128, 128, 32), (8, 128, 128, 64),
                  (8, 64, 64, 64), (8, 64, 64, 128), (8, 32, 32, 128), (8, 32, 32, 256)]
@@ -201,40 +204,45 @@ def _linatt_inputs(shape, device, seed=0):
 
 
 def _kv_errors(got, want):
-    """The kv kernel's partials against the plain version's, block by block:
+    """The kv kernel's merged rows against the plain version's, row by row:
     m relative (both are the max of bf16-rounded k, at most one rounding
-    step apart); then, with the kernel's partials put on the plain
-    version's max, l as relative L2 over its 128 columns and G as relative
-    Frobenius over its C×128 (a norm over the block: one token whose k
-    rounds a step apart moves one column, a fault moves the block)."""
+    step apart); then, with the kernel's l and G put on the plain version's
+    max, l as relative L2 over its 128 columns and G as relative Frobenius
+    over its C×128 (a norm over the row: one token whose k rounds a step
+    apart moves one column, a fault moves the row)."""
     (m, l, g), (pm, pl, pg) = got, want
     r = torch.exp(m - pm)
-    l, g = l * r, g * r[:, :, None, :]
+    l, g = l * r, g * r[:, None, :]
     return dict(
         m=((m - pm).abs() / pm.abs().clamp_min(1e-6)).max().item(),
-        l=((l - pl).norm(dim=2) / pl.norm(dim=2)).max().item(),
-        g=((g - pg).norm(dim=(2, 3)) / pg.norm(dim=(2, 3))).max().item(),
+        l=((l - pl).norm(dim=1) / pl.norm(dim=1)).max().item(),
+        g=((g - pg).norm(dim=(1, 2)) / pg.norm(dim=(1, 2))).max().item(),
     )
+
+
+def _kv_ok(err):
+    return err["m"] <= 2**-7 and err["l"] <= 1e-3 and err["g"] <= 5e-3
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", LINATT_SHAPES)
 def test_linear_attention_kernels_match_plain_versions(cuda_device, shape):
-    """Each pass against its plain version on the same inputs (kv, per
-    block: m within 2^-7 relative, l within 1e-3 and G within 5e-3 relative
-    norm; q: the JAX bar atol 0.04 / rtol 0.05), and the two-pass function
-    against the unfused plain version at the JAX bar plus correlation
-    > 0.999."""
+    """Each pass against its plain version on the same inputs (kv, the
+    merged row: m within 2^-7 relative, l within 1e-3 and G within 5e-3
+    relative norm; q: the JAX bar atol 0.04 / rtol 0.05), and the two-pass
+    function against the unfused plain version at the JAX bar plus
+    correlation > 0.999."""
     b, h, w, c = shape
     x, (g_in, w_qkv, w_out, b_out, g_out) = _linatt_inputs(shape, cuda_device)
     xr = x.reshape(b, h * w, c)
     wq, wk, wv = LA.split_qkv(w_qkv)
-    per = LA.tokens_per_block(h * w)
-    m, l, gram = LA.linear_attention_kv(xr, g_in, wk, per)
-    err = _kv_errors((m, l, gram), LA.kv_partials_reference(xr, g_in, wk, per))
-    assert err["m"] <= 2**-7 and err["l"] <= 1e-3 and err["g"] <= 5e-3, err
-    wtil = LA.fold(*LA.merge_kv(m, l, gram), wv, w_out)
-    got = LA.linear_attention_q(xr, g_in, wq, wtil, b_out, g_out, per)
+    nb = LA.blocks_per_row(h * w)
+    m, l, gram = LA.linear_attention_kv(xr, g_in, wk, nb)
+    assert m.shape == l.shape == (b, LA.HIDDEN) and gram.shape == (b, c, LA.HIDDEN)
+    err = _kv_errors((m, l, gram), LA.kv_reference(xr, g_in, wk, nb))
+    assert _kv_ok(err), err
+    wtil = LA.fold(l, gram, wv, w_out)
+    got = LA.linear_attention_q(xr, g_in, wq, wtil, b_out, g_out)
     want = LA.q_pass_reference(xr, g_in, wq, wtil, b_out, g_out)
     torch.testing.assert_close(got.float(), want.float(), atol=0.04, rtol=0.05)
 
@@ -249,6 +257,74 @@ def test_linear_attention_kernels_match_plain_versions(cuda_device, shape):
     assert corr > 0.999
 
 
+# the kv kernel's launch plans, (B, N, C, nb): blocks without tokens and
+# blocks of one tile (256 tokens over 16 blocks), one cluster a row (8
+# blocks), a row that spans many clusters with several tiles a block, a
+# ragged last tile (5,472 tokens), and the widest channels at the most
+# blocks a row
+KV_PLANS = [(2, 256, 32, 16), (3, 4096, 64, 8), (2, 65536, 32, 32), (1, 5472, 32, 16),
+            (2, 4096, 128, 64), (4, 16384, 64, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,nb", KV_PLANS)
+def test_kv_kernel_launch_plans(cuda_device, b, n, c, nb):
+    """Each plan's merged rows against the plain version's at the bars
+    above, and a second launch equal to the first bit for bit (the per-row
+    counters were left at zero, the merge runs in block order)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n + c)
+    x = (torch.randn(b, n, c, generator=gen, device=cuda_device) * 1.5).to(torch.bfloat16)
+    g_in = torch.randn(c, generator=gen, device=cuda_device) * 0.2 + 1.0
+    wk = (torch.randn(c, LA.HIDDEN, generator=gen, device=cuda_device) * 0.1).to(torch.bfloat16)
+    first = LA.linear_attention_kv(x, g_in, wk, nb)
+    err = _kv_errors(first, LA.kv_reference(x, g_in, wk, nb))
+    assert _kv_ok(err), err
+    again = LA.linear_attention_kv(x, g_in, wk, nb)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, f) for a, f in zip(again, first))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 5, 200])
+def test_q_kernel_at_any_grid(cuda_device, b):
+    """The q kernel's persistent grid gives rows many blocks (batch 1), a
+    few (5) or one each (200 rows of 4,096 tokens, more rows than the card
+    holds blocks), against the plain version at the JAX bar."""
+    shape = (b, 64, 64, 32)
+    x, (g_in, w_qkv, w_out, b_out, g_out) = _linatt_inputs(shape, cuda_device, seed=b)
+    xr = x.reshape(b, 4096, 32)
+    wq, wk, wv = LA.split_qkv(w_qkv)
+    _, l, gram = LA.linear_attention_kv(xr, g_in, wk, LA.blocks_per_row(4096))
+    wtil = LA.fold(l, gram, wv, w_out)
+    got = LA.linear_attention_q(xr, g_in, wq, wtil, b_out, g_out)
+    want = LA.q_pass_reference(xr, g_in, wq, wtil, b_out, g_out)
+    torch.testing.assert_close(got.float(), want.float(), atol=0.04, rtol=0.05)
+
+
+@pytest.mark.cuda
+def test_linear_attention_repeated_launches_are_equal(cuda_device):
+    """Launches in a row, with another batch's launch between them and in a
+    CUDA graph's replays, give equal results: the kv kernel leaves its
+    per-row counters at zero."""
+    x, params = _linatt_inputs((4, 64, 64, 64), cuda_device)
+    first = LA.linear_attention(x, *params)
+    LA.linear_attention(x[:3].contiguous(), *params)
+    second = LA.linear_attention(x, *params)
+    static = x.clone()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        LA.linear_attention(static, *params)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        out = LA.linear_attention(static, *params)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(second, first) and torch.equal(out, first)
+
+
 @pytest.mark.cuda
 def test_linear_attention_rejects_what_it_cannot_take(cuda_device):
     x, params = _linatt_inputs((2, 64, 64, 32), cuda_device)
@@ -259,8 +335,20 @@ def test_linear_attention_rejects_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         LA.linear_attention(x.transpose(1, 2), *params)
     wq, wk, _ = LA.split_qkv(params[1])
+    xr = x.reshape(2, -1, 32)
     with pytest.raises(TypeError):
-        LA.linear_attention_kv(x.reshape(2, -1, 32), params[0], wk.float(), 64)
+        LA.linear_attention_kv(xr, params[0], wk.float(), 16)
+    with pytest.raises(ValueError, match="multiple"):
+        LA.linear_attention_kv(xr, params[0], wk, 12)
+    # data off a 16-byte boundary (the kernels copy 16 bytes at a time)
+    off = torch.empty(xr.numel() + 1, dtype=torch.bfloat16, device=cuda_device)[1:]
+    off = off.view_as(xr).copy_(xr)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        LA.linear_attention_kv(off, params[0], wk, 16)
+    wtil = torch.zeros(2, LA.HIDDEN, 32, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        LA.linear_attention_q(off, params[0], wq, wtil, params[3], params[4])
 
 
 @pytest.mark.cuda
@@ -281,14 +369,17 @@ def test_groupnorm_kernel_at_the_256px_shapes(cuda_device, shape, film):
 
 
 @pytest.mark.cuda
-def test_linear_attention_row_alone_equals_row_in_batch(cuda_device):
-    """The kernels' blocks come from the token count alone: row 0 by itself
-    gives, bit for bit, what it gives inside a batch of 8."""
-    x, params = _linatt_inputs((8, 128, 128, 32), cuda_device)
+@pytest.mark.parametrize("shape", [(8, 128, 128, 32), (8, 64, 64, 128)])
+def test_linear_attention_row_alone_equals_row_in_batch(cuda_device, shape):
+    """The kernels' blocks come from the token count alone and the kv merge
+    runs in block order: row 0 by itself (batch 1), and rows 0-3 as a batch
+    of 4, give, bit for bit, what they give inside a batch of 8."""
+    x, params = _linatt_inputs(shape, cuda_device)
     whole = LA.linear_attention(x, *params)
     alone = LA.linear_attention(x[:1].clone(), *params)
+    four = LA.linear_attention(x[:4].clone(), *params)
     torch.cuda.synchronize()
-    assert torch.equal(alone, whole[:1])
+    assert torch.equal(alone, whole[:1]) and torch.equal(four, whole[:4])
 
 
 # ---------------------------------------------------------------------------

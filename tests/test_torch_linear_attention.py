@@ -8,8 +8,9 @@ points in the fused and unfused forms):
   * the plain version, `linear_attention_reference` (the unfused math),
     against `linear_attention_folded_reference`;
   * `linear_attention_two_pass` on the CPU — the CUDA kernels' algorithm
-    (per-block partials, log-sum-exp merge, fold, pass 2) run through their
-    plain versions — against `linear_attention_fused` in interpret mode;
+    (per-block partials merged per row by the log-sum-exp rule, fold,
+    pass 2) run through their plain versions — against
+    `linear_attention_fused` in interpret mode;
   * the `LinearAttention` module against the JAX module, on both sides of
     the 4096-pixel gate.
 """
@@ -87,8 +88,8 @@ def test_two_pass_algorithm_matches_the_pallas_kernels(shape):
     x = _x(shape, seed=c)
     want = linear_attention_fused(jnp.asarray(x).astype(jnp.bfloat16), *_to_jax(p),
                                   HEADS, DIM_HEAD, False, True)  # interpret
-    per_block = LA.tokens_per_block(h * w)
-    assert -(-h * w // per_block) >= 2  # the partials really are merged
+    ranges = LA.block_ranges(h * w, LA.blocks_per_row(h * w))
+    assert sum(e > s for s, e in ranges) >= 2  # the partials really are merged
     got = LA.linear_attention_two_pass(torch.as_tensor(x).bfloat16(), *_to_torch(p))
     _assert_bar(got, want)
 
@@ -102,27 +103,68 @@ def test_merged_partials_equal_one_block():
     x = torch.as_tensor(_x((2, n, c), seed=5)).bfloat16()
     wq, wk, _ = LA.split_qkv(torch.as_tensor(p["w_qkv"]))
     g_in = torch.as_tensor(p["g_in"])
-    l1, g1 = LA.merge_kv(*LA.linear_attention_kv(x, g_in, wk, 384))
-    m5, l5, g5 = LA.linear_attention_kv(x, g_in, wk, 64)
+    m1, l1, g1 = LA.kv_reference(x, g_in, wk, 1)
+    m5, l5, g5 = LA.kv_partials_reference(x, g_in, wk, 5)  # one 64-token tile a block
     assert m5.shape == (2, 5, HIDDEN) and g5.shape == (2, 5, c, HIDDEN)
-    l2, g2 = LA.merge_kv(m5, l5, g5)
+    m2, l2, g2 = LA.merge_kv(m5, l5, g5)
     # both relative to the row's max, so directly comparable
+    torch.testing.assert_close(m2, m1, rtol=0, atol=0)
     torch.testing.assert_close(l2, l1, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(g2, g1, rtol=1e-2, atol=1e-2 * float(g1.abs().max()))
 
 
 def test_block_size_comes_from_the_token_count_alone():
-    """About 64 blocks a row in whole 64-token sub-tiles, whatever the
-    batch: 1,024 tokens at 256², 256 at 128², 64 at 64²."""
-    assert [LA.tokens_per_block(s * s) for s in (256, 128, 64)] == [1024, 256, 64]
-    assert LA.tokens_per_block(96) == 64 and LA.tokens_per_block(72 * 72) == 128
+    """The kv kernel's blocks per row follow the token count alone,
+    whatever the batch: 32 at 256², 16 at 128² and 64², multiples of 8;
+    the tiles are split as evenly as whole tiles
+    allow (2,048 tokens a block at 256², 1,024 at 128², 256 at 64²)."""
+    assert [LA.blocks_per_row(s * s) for s in (256, 128, 64)] == [32, 16, 16]
+    assert all(LA.blocks_per_row(s * s) % LA.BLOCK_STEP == 0 for s in (256, 128, 64))
+    for s, per in ((256, 2048), (128, 1024), (64, 256)):
+        ranges = LA.block_ranges(s * s, LA.blocks_per_row(s * s))
+        assert all(e - b == per for b, e in ranges)
+    # 72x76 = 5,472 tokens, 85.5 tiles: 86 tiles over 16 blocks, the last cut
+    ranges = LA.block_ranges(72 * 76, 16)
+    assert ranges[0] == (0, 320) and ranges[-1] == (5120, 5472)
+    assert LA.block_ranges(96, 16)[-1] == (64, 96)
+
+
+@pytest.mark.parametrize("n,nb", [(4096, 16), (16384, 32), (65536, 32), (5472, 16),
+                                  (5184, 16), (96, 16), (320, 8)])
+def test_block_ranges_tile_the_row(n, nb):
+    """The blocks' ranges cover [0, n) in order, without overlap, each a
+    whole number of 64-token tiles except the one that ends at n, and their
+    sizes differ by at most one tile."""
+    ranges = LA.block_ranges(n, nb)
+    assert len(ranges) == nb and ranges[0][0] == 0 and ranges[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(s % LA.TILE == 0 and (e % LA.TILE == 0 or e == n) for s, e in ranges)
+    tiles = [-(-(e - s) // LA.TILE) for s, e in ranges]
+    assert max(tiles) - min(tiles) <= 1
+
+
+def test_kv_plain_version_row_alone_equals_row_in_a_batch():
+    """The kv plain version's merged (m, l, G) of row 0 alone equals, bit
+    for bit, row 0's inside a batch of 4 (the split follows n alone, the
+    merge sums in float64)."""
+    c, n = 64, 4096
+    p = _params(c, seed=7)
+    x = torch.as_tensor(_x((4, n, c), seed=3)).bfloat16()
+    _, wk, _ = LA.split_qkv(torch.as_tensor(p["w_qkv"]))
+    g_in = torch.as_tensor(p["g_in"])
+    nb = LA.blocks_per_row(n)
+    whole = LA.linear_attention_kv(x, g_in, wk, nb)
+    alone = LA.linear_attention_kv(x[:1].clone(), g_in, wk, nb)
+    for a, w in zip(alone, whole):
+        assert torch.equal(a, w[:1])
 
 
 def test_row_alone_equals_row_in_a_batch():
     """Through the kernels' algorithm (`linear_attention_two_pass` on the
-    CPU: per-block partials, merge, fold, pass 2), row 0 alone gives, bit
-    for bit, what it gives inside a batch of 8 at [8, 64, 64, 64].  With
-    the block size taken from the batch it differed by rel. L2 1.1e-3."""
+    CPU: per-block partials merged per row, fold, pass 2), row 0 alone
+    gives, bit for bit, what it gives inside a batch of 8 at
+    [8, 64, 64, 64].  With the block size taken from the batch it differed
+    by rel. L2 1.1e-3."""
     shape = (8, 64, 64, 64)
     p = _params(shape[-1], seed=6)
     x = torch.as_tensor(_x(shape, seed=8)).bfloat16()
@@ -172,11 +214,12 @@ def test_kernel_wrappers_check_their_inputs():
     g = torch.ones(c)
     wk = torch.zeros(c, HIDDEN, dtype=torch.bfloat16)
     with pytest.raises(TypeError):
-        LA.linear_attention_kv(x.float(), g, wk, 64)
+        LA.linear_attention_kv(x.float(), g, wk, 16)
     with pytest.raises(ValueError, match="not in"):
-        LA.linear_attention_kv(torch.zeros(1, 128, 48, dtype=torch.bfloat16), g, wk, 64)
-    with pytest.raises(ValueError, match="multiple"):
-        LA.linear_attention_kv(x, g, wk, 96)
+        LA.linear_attention_kv(torch.zeros(1, 128, 48, dtype=torch.bfloat16), g, wk, 16)
+    for nb in (12, 0, 72):
+        with pytest.raises(ValueError, match="multiple"):
+            LA.linear_attention_kv(x, g, wk, nb)
     with pytest.raises(ValueError, match="shape"):
         LA.linear_attention_q(x, g, wk, torch.zeros(2, HIDDEN, c, dtype=torch.bfloat16),
-                              g, g, 64)
+                              g, g)
