@@ -13,7 +13,9 @@ Phases, each printed on its own line with the elapsed seconds:
    at each shape the 28px flagship UNet gives it (batch 64, branched pair
    of 128), float32 and bfloat16, with CUDA-event times (replayed from a
    CUDA graph, so host overhead is left out) of the kernel, the plain
-   version, `F.group_norm` alone and the memory bound;
+   version, `F.group_norm` alone and the memory bound, per site with its
+   launch plan (blocks a row); row 0 alone against row 0 in the batch, bit
+   for bit;
 4. flagship main path: with every launch count at 0, `translate` on the
    flagship (seeded random weights, T=50, f32) at batch 64 with the manual
    mask, then an `InferenceServer` answering three requests; the counts
@@ -38,9 +40,11 @@ Phases, each printed on its own line with the elapsed seconds:
    14 Block shapes outside the fused gate (the single-pass kernel at
    32x32x128, the tiled stats/apply pair past the row gate at 32x32x256,
    each pass held on its own), all in bf16; a row alone against the same
-   row in the batch, bit for bit, for linear attention, the fused block
-   and the tiled pair; errors against tolerances, times and bounds, summed
-   per UNet call; one whole UNet call at batch 8, eager (host included);
+   row in the batch, bit for bit, for linear attention, the fused block,
+   its epilogue, the single-pass GroupNorm and the tiled pair; errors
+   against tolerances, times and bounds, summed per UNet call and per site
+   (the epilogue's six, the single-pass GroupNorm's with its plan); one
+   whole UNet call at batch 8, eager (host included);
 8. 256px main path: with every count at 0, `translate` on the 256px chain
    (full width, seeded random weights, T=250, bf16, branched, the JAX
    package's default fused-ResnetBlock layout) at batch 4 with a given
@@ -393,6 +397,7 @@ def gn_kernel_phase(launches, dtypes, time_dtype, label, iters=(20, 10)) -> dict
     zero = lambda: dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
                         ops_ms=0.0, group_norm_ms=0.0, launches=0, max_abs_err=0.0)
     parts = {k: zero() for k in ("single", "stats", "apply", "pair")}
+    parts["single"]["by_site"] = []
     worst_partials = 0.0
     for (shape, film), n in sorted(counts.items()):
         tiled = G.large_block(shape)
@@ -405,6 +410,17 @@ def gn_kernel_phase(launches, dtypes, time_dtype, label, iters=(20, 10)) -> dict
                                 tiled)
             max_err[dtype] = max(max_err[dtype], err)
             extra = ""
+            if not tiled:
+                plan = G.gn_plan(hh, ww, c, 8, x.element_size())
+                alone = groupnorm_film_silu(x[:1].clone(), g, bt,
+                                            *(t[:1].clone() if t is not None else None
+                                              for t in (s, h)), groups=8)
+                torch.cuda.synchronize()
+                batch_free = torch.equal(alone, got[:1])
+                ok = ok and batch_free
+                extra = (f"; {plan['k']} blocks a row of {plan['pixels']} px "
+                         f"({'resident' if plan['resident'] else 'streamed'}), row 0 alone "
+                         f"{'= row 0 in the batch' if batch_free else 'DIFFERS'}")
             if tiled:
                 partials = G.gn_tiled_stats(x)
                 applied = G.gn_tiled_apply(x, partials, g, bt, s, h, groups=8)
@@ -448,6 +464,11 @@ def gn_kernel_phase(launches, dtypes, time_dtype, label, iters=(20, 10)) -> dict
                 rows = {"single": (k_ms, k_eager, p_ms, 2 * x.numel() * esize + param_bytes,
                                    GN_OPS_PER_ELEMENT * x.numel())}
                 parts["single"]["group_norm_ms"] += n * l_ms
+                parts["single"]["by_site"].append(dict(
+                    shape=list(shape), film=film, launches=n, k=plan["k"],
+                    pixels=plan["pixels"], resident=plan["resident"], ms=k_ms, plain_ms=p_ms,
+                    bound_ms=max(1e3 * rows["single"][3] / HBM_BYTES_PER_S,
+                                 1e3 * rows["single"][4] / FP32_OPS_PER_S)))
             else:
                 pb = partials.numel() * 4
                 apply_ops = (GN_APPLY_OPS_PER_ELEMENT + (2 if film else 0)) * x.numel()
@@ -979,6 +1000,7 @@ def resnet_block_kernel_phase(seen) -> dict:
     tot = {k: dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                    bytes_ms=0.0, ops_ms=0.0, max_abs_err=0.0) for k in ("conv", "epi")}
     tot["conv"].update(pass1_ms=0.0, pass2_ms=0.0, by_shape=[])
+    tot["epi"]["by_site"] = []
     whole = dict(ms=0.0, plain_ms=0.0, unfused_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
                  ops_ms=0.0, max_rel_l2=0.0)
     worst = dict(h_steps=0.0, stats=0.0, epi=0.0)
@@ -1014,6 +1036,8 @@ def resnet_block_kernel_phase(seen) -> dict:
             epi_err = (out.float() - want.float()).abs().max().item()
             ok_epi = torch.allclose(out.float(), want.float(), atol=RB_TOL["epi_atol"],
                                     rtol=RB_TOL["epi_rtol"])
+            epi_alone = RB.epilogue(h2[:1].clone(), x[:1].clone(), a2[:1].clone(),
+                                    c2[:1].clone(), w_res, b_res)
             full = RB.resnet_block_fused(x, mod, ss)
             ref = RB.resnet_block_fused_plain(x, mod, ss)
             alone = RB.resnet_block_fused(x[:1].clone(), mod, tuple(t[:1].clone() for t in ss))
@@ -1029,14 +1053,14 @@ def resnet_block_kernel_phase(seen) -> dict:
         steps = max(r[0] for r in readings.values())
         stats = max(max(r[1].values()) for r in readings.values())
         ok_pass = steps <= RB_TOL["h_steps"] and stats <= RB_TOL["stats"]
-        batch_free = torch.equal(alone, full[:1])
+        batch_free = torch.equal(alone, full[:1]) and torch.equal(epi_alone, out[:1])
         log(f"256px fused block {list(shape)} -> {cout} (x{count}): "
             + "; ".join(f"{t} h {r[0]:.3g} steps, sums "
                         + " ".join(f"{k} {v:.3g}" for k, v in r[1].items())
                         for t, r in readings.items())
             + f" (bars {RB_TOL['h_steps']:g} step, {RB_TOL['stats']:g}); epilogue max_abs_err "
             f"{epi_err:.3g} {'ok' if ok_epi else 'FAIL'}; block vs plain rel L2 {rel:.3g} corr "
-            f"{corr:.6f} {'ok' if ok_block else 'FAIL'}; row 0 alone "
+            f"{corr:.6f} {'ok' if ok_block else 'FAIL'}; row 0 alone (epilogue, whole block) "
             f"{'= row 0 in the batch' if batch_free else 'DIFFERS'}")
         if not (ok_pass and ok_epi and ok_block and batch_free):
             raise RuntimeError(f"the fused ResnetBlock's kernels disagree at {shape}")
@@ -1106,12 +1130,21 @@ def resnet_block_kernel_phase(seen) -> dict:
             whole[k2] += count * v
         cb1, cb2 = (bound(conv_bytes(ci, aff), conv_ops(ci), BF16_OPS_PER_S)[0]
                     for ci, aff in ((cin, False), (cout, True)))
+        plan = RB.epilogue_plan(b, hh * ww, cout, cin, w_res is not None,
+                                torch.cuda.get_device_properties(0).multi_processor_count)
+        tot["epi"]["by_site"].append(dict(
+            shape=list(shape), cout=cout, count=count, res_conv=w_res is not None, ms=e_ms,
+            eager_ms=e_eager, plain_ms=e_plain,
+            bound_ms=bound(epi_bytes, res_ops, BF16_OPS_PER_S)[0],
+            **{k: plan[k] for k in ("per", "blocks", "smem")}))
         log(f"  device us/launch: pass 1 {p1_ms * 1e3:.1f} (eager {p1_eager * 1e3:.1f}, plain "
             f"{p1_plain * 1e3:.1f}, cuDNN conv {p1_lib * 1e3:.1f}, bound {cb1 * 1e3:.1f}); "
             f"pass 2 {p2_ms * 1e3:.1f} (eager {p2_eager * 1e3:.1f}, plain {p2_plain * 1e3:.1f}, "
             f"cuDNN conv {p2_lib * 1e3:.1f}, bound {cb2 * 1e3:.1f}); epilogue {e_ms * 1e3:.1f} "
-            f"(plain {e_plain * 1e3:.1f}, bound "
-            f"{bound(epi_bytes, res_ops, BF16_OPS_PER_S)[0] * 1e3:.1f}); whole block fused "
+            f"(eager {e_eager * 1e3:.1f}, plain {e_plain * 1e3:.1f}, bound "
+            f"{bound(epi_bytes, res_ops, BF16_OPS_PER_S)[0] * 1e3:.1f}; {plan['blocks']} "
+            f"blocks, up to {plan['per']} items a {'warpgroup' if w_res is not None else 'thread'}"
+            f"); whole block fused "
             f"{f_ms * 1e3:.1f}, plain {f_plain * 1e3:.1f}, unfused {u_ms * 1e3:.1f}, bound "
             f"{max(wb_ms, wo_ms) * 1e3:.1f}")
     for label, reading in faults.items():
@@ -1361,7 +1394,9 @@ def main() -> None:
              launches_by_phase=launches["groupnorm_film_silu"],
              group_norm_ms=gn["single"]["group_norm_ms"],
              flagship=_row(flag["gn"]["single"]), stem=_row(sgn["single"]),
-             stem_group_norm_ms=sgn["single"]["group_norm_ms"]),
+             stem_group_norm_ms=sgn["single"]["group_norm_ms"],
+             by_site={label: ph["gn"]["single"]["by_site"]
+                      for label, ph in (("256px", mri), ("stem", stem), ("flagship", flag))}),
     ]
     for name, key, src_line in (("gn_tiled_stats", "stats", 231),
                                 ("gn_tiled_apply", "apply", 251)):
@@ -1424,7 +1459,7 @@ def main() -> None:
             **({"pass1_ms": t["pass1_ms"], "pass2_ms": t["pass2_ms"],
                 "eager_ms": t["eager_ms"], "by_shape": t["by_shape"],
                 "unet_call_eager_ms": rb["unet_call_eager_ms"]} if key == "conv"
-               else {}), **block))
+               else {"by_site": t["by_site"]}), **block))
     if any(k["launches"] < 1 for k in kernels):
         raise RuntimeError(f"a kernel never launched on the main paths: {launches}")
     log("end to end: " + "; ".join(f"{label} {json.dumps(ph['perf'])}"

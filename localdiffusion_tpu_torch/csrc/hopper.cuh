@@ -293,6 +293,16 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
+// cluster_sync in two halves: arrive (release) as soon as this thread's
+// part is done, wait (acquire) only where it needs the others'; the work
+// between the two overlaps the other blocks' arrival.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
 // The 32-bit word at p's place in the shared memory of the cluster's block
 // `rank` (distributed shared memory); p points into this block's.
 __device__ __forceinline__ uint32_t ld_shared_cluster(const void* p, uint32_t rank) {

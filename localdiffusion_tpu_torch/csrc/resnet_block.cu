@@ -63,7 +63,27 @@
 //     fixed order).
 // cp.async rather than TMA: the prologue needs a per-pixel in-image test
 // anyway, and one code path serves the resident and the streamed weights.
-// The epilogue kernel uses mma.sync m16n8k16 for its 1x1 res_conv.
+//
+// The epilogue is bound by device memory at every 256px site: it reads h
+// and x and writes out once (the 1x1 res_conv, at most 192 -> 128 channels,
+// does ~1.5 flops a byte), and its exact SiLU costs ~25 instructions an
+// output.  What limits it is how many bytes each SM keeps in flight while
+// its warps do that arithmetic.  A ring of cp.async stages through shared
+// memory (block-wide with a barrier an item, or per thread) was built and
+// measured slower on the card than loads straight into registers, so both
+// kernels load into registers, 16 bytes a thread, and overlap one warp's
+// loads with another's arithmetic:
+//   * the res_conv kernel (epilogue_res_kernel, below) runs the product on
+//     wgmma with A from registers: it permutes K and N so that the wgmma
+//     fragments of x and of the accumulator are contiguous quarters of a
+//     pixel's channels, which each thread loads and stores 16 bytes at a
+//     time; the weights sit in shared memory in that permuted order, once
+//     per block of a persistent grid;
+//   * the identity kernel is a grid-stride walk over 16-byte pieces, at
+//     most two a thread;
+//   * the output is rounded as the plain version rounds it, with
+//     bf16_round(acc + bres), bf16_round(silu(affine(h, a, b))) and their
+//     bf16 sum.
 //
 // Launch contract: the caller passes the current stream; the kernels
 // allocate nothing and each function returns cudaGetLastError().  The
@@ -84,9 +104,7 @@ constexpr int kTileH = 8;      // conv3x3_stats' tile: rows
 constexpr int kTileW = 16;     // and columns (a warpgroup takes 8 of them)
 constexpr int kHaloH = kTileH + 2, kHaloW = kTileW + 2, kHaloPix = kHaloH * kHaloW;
 constexpr int kKC = 32;        // input channels per chunk
-constexpr int kCS = kKC + 8;   // epilogue: elements per row of a shared chunk (bank spread)
 constexpr int kStages = 3;     // conv3x3_stats' input ring
-constexpr int kEpiPix = 128;   // pixels per epilogue block: 16 per warp
 
 __host__ __device__ constexpr int align128(int bytes) { return (bytes + 127) / 128 * 128; }
 constexpr int kPlane = kHaloPix * 16;                         // 8 channels of the halo
@@ -121,60 +139,6 @@ __device__ __forceinline__ float affine(float x, float a, float b) {
 
 __device__ __forceinline__ float silu(float y) {
   return __fmul_rn(y, __frcp_rn(__fadd_rn(1.f, expf(-y))));  // __frcp_rn(d) = __fdiv_rn(1, d)
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void st_pair(bf16* p, float lo, float hi) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
-}
-
-// c += a b for one 16x8x16 tile (bf16 in, float32 accumulate).  Fragments
-// (lane = 4 g + t): a = {(g, 2t..), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..)}
-// of a row-major 16x16 tile, b = {(k 2t.., n g), (k 2t+8.., n g)} of a 16x8
-// tile, c = {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}.
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc[j] += [16 pixels from `a`, row stride kCS] x the chunk's weights `wt`
-// [COUT][kCS] (output channel n in row n), over the chunk's 32 channels.
-template <int COUT>
-__device__ __forceinline__ void mma_chunk(float (*acc)[4], const bf16* a, const bf16* wt) {
-  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int k = 0; k < kKC; k += 16) {
-    uint32_t fa[4];
-    const bf16* p = a + g * kCS + k + 2 * t;
-    fa[0] = ld32(p);
-    fa[1] = ld32(p + 8 * kCS);
-    fa[2] = ld32(p + 8);
-    fa[3] = ld32(p + 8 * kCS + 8);
-#pragma unroll
-    for (int j = 0; j < COUT / 8; ++j) {
-      const bf16* q = wt + (8 * j + g) * kCS + k + 2 * t;
-      mma16816(acc[j], fa, ld32(q), ld32(q + 8));
-    }
-  }
-}
-
-// Rows [0, nrows) of a row-major [*, cin] bf16 matrix, channels [c0, c0 + 32)
-// (zero past cin), into dst [nrows][kCS].
-__device__ __forceinline__ void stage_rows(const bf16* __restrict__ src, int nrows, int cin,
-                                           int c0, bf16* dst) {
-  for (int i = threadIdx.x; i < nrows * 4; i += kThreads) {
-    const int r = i >> 2, ch = c0 + (i & 3) * 8;
-    uint4 u = make_uint4(0, 0, 0, 0);
-    if (ch < cin) u = *reinterpret_cast<const uint4*>(src + static_cast<long long>(r) * cin + ch);
-    *reinterpret_cast<uint4*>(dst + r * kCS + (i & 3) * 8) = u;
-  }
 }
 
 struct ConvArgs {
@@ -502,79 +466,195 @@ conv3x3_stats_kernel(const ConvArgs p, int per) {
   cp_async_wait<0>();
 }
 
-template <int C, bool RES>
-__global__ void __launch_bounds__(kThreads)
-epilogue_kernel(const bf16* __restrict__ h, const bf16* __restrict__ x,
-                const float* __restrict__ pa, const float* __restrict__ pb,
-                const bf16* __restrict__ wres, const float* __restrict__ bres,
-                bf16* __restrict__ out, int hw, int cin) {
-  const int row = blockIdx.y, p0 = blockIdx.x * kEpiPix;
-  const int npix = min(kEpiPix, hw - p0);
-  const float* ar = pa + static_cast<long long>(row) * C;
-  const float* br = pb + static_cast<long long>(row) * C;
-  const long long base = static_cast<long long>(row) * hw + p0;  // first pixel
+// The epilogue with the 1x1 res_conv.  Items of 64 pixels of one row (the
+// last of a row ragged), one warpgroup's M.  A block's two warpgroups take
+// two items, or at C = 128 the two halves of one item's output channels
+// (SPLIT = 2: half the accumulator and of h a thread, so two blocks fit an
+// SM); the blocks of the persistent grid walk the items b, b + G, ..., so
+// that neighbouring blocks read neighbouring pixels at once.  Per item:
+//   * x, h: 16-byte loads into registers, issued together.  Thread (g, t)
+//     of warp w takes the item's pixels 16 w + g and 16 w + g + 8, and of
+//     each a contiguous quarter of the channels: x channels [t KP / 4,
+//     (t + 1) KP / 4) (KP = cin rounded up to 32, zeros past cin), h and out
+//     channels [t NW / 4, (t + 1) NW / 4) of its warpgroup's NW = C / SPLIT;
+//   * the product on wgmma, m64 nNW k16, A from those registers, B the
+//     weights in shared memory (resident for the block).  The contraction
+//     runs over a permuted K and writes a permuted N, so that the m16n8k16
+//     fragments of A and of the accumulator are exactly the thread's
+//     contiguous quarters: K index 16 s + 8 u + 2 t + e is x channel
+//     t KP / 4 + 4 s + 2 u + e, accumulator column 8 j + 2 t + e is output
+//     channel t NW / 4 + 2 j + e of the half.  The weights are laid out that
+//     way once per block, in the canonical K-major B layout (core matrices
+//     of 8 columns x 8 K indices, 128 bytes apart along N, kWLbo along K),
+//     one B per half;
+//   * the thread's outputs, bf16(bf16(silu(h a + b)) + bf16(acc + bres)),
+//     go out 16 bytes at a time.
+// No shared memory holds x, h or out, so no barrier orders the items; the
+// SM overlaps one warpgroup's loads with another's arithmetic.
+struct EpiArgs {
+  const bf16* h;       // [rows, hw, C]
+  const bf16* x;       // [rows, hw, cin]
+  const float* pa;     // [rows, C]
+  const float* pb;
+  const bf16* wres;    // [C, cin] or null (identity)
+  const float* bres;   // [C] or null
+  bf16* out;           // [rows, hw, C]
+  int rows, hw, cin;
+  int tiles;           // res_conv items a row: ceil(hw / 64)
+  int items;           // rows * tiles
+};
 
-  if (!RES) {  // identity: cin == C, eight channels per thread, 16-byte accesses
-    const bf16* hb = h + base * C;
-    const bf16* xb = x + base * C;
-    bf16* ob = out + base * C;
-    for (int i = threadIdx.x; i < npix * C / 8; i += kThreads) {
-      const int c = (i * 8) % C;
-      uint4 hu = *reinterpret_cast<const uint4*>(hb + i * 8);
-      const uint4 xu = *reinterpret_cast<const uint4*>(xb + i * 8);
-      __nv_bfloat162* hv = reinterpret_cast<__nv_bfloat162*>(&hu);
-      const __nv_bfloat162* xv = reinterpret_cast<const __nv_bfloat162*>(&xu);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 f = __bfloat1622float2(hv[j]);
-        const float2 r = __bfloat1622float2(xv[j]);
-        const float y0 = bf16_round(silu(affine(f.x, ar[c + 2 * j], br[c + 2 * j])));
-        const float y1 = bf16_round(silu(affine(f.y, ar[c + 2 * j + 1], br[c + 2 * j + 1])));
-        hv[j] = __floats2bfloat162_rn(y0 + r.x, y1 + r.y);
-      }
-      *reinterpret_cast<uint4*>(ob + i * 8) = hu;
-    }
-    return;
-  }
+constexpr int kEpiRows = 64;  // pixels of a res_conv item
 
-  // res_conv: [128 pixels, Cin] x [Cin, C] on the tensor cores, by chunks of
-  // 32 input channels; warp w takes pixels 16 w ..
-  __shared__ __align__(16) bf16 xs[kEpiPix * kCS];
-  __shared__ __align__(16) bf16 ws[C * kCS];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-  float acc[C / 8][4];
+// blocks an SM the res_conv kernel is built for (its registers allow them)
+// at NW output channels a warpgroup and NK = KP / 32; mirrored by
+// ops/resnet_block.py::epilogue_res_blocks
+__host__ __device__ constexpr int epi_res_blocks(int nw, int nk) {
+  return nw == 32 && nk <= 2 ? 3 : (nk <= 6 ? 2 : 1);
+}
+
+// bf16(bf16(silu(h a + b)) + r) for two channels packed in a word
+__device__ __forceinline__ uint32_t epi_pair(uint32_t hw2, float a0, float a1, float b0, float b1,
+                                             float r0, float r1) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hw2));
+  const float y0 = bf16_round(silu(affine(f.x, a0, b0)));
+  const float y1 = bf16_round(silu(affine(f.y, a1, b1)));
+  const __nv_bfloat162 o = __floats2bfloat162_rn(y0 + r0, y1 + r1);
+  return *reinterpret_cast<const uint32_t*>(&o);
+}
+
+// NK = KP / 32: 16-byte pieces of x a thread loads for each of its pixels.
+template <int C, int NK, int SPLIT>
+__global__ void __launch_bounds__(kThreads, epi_res_blocks(C / SPLIT, NK))
+epilogue_res_kernel(const EpiArgs p) {
+  constexpr int KP = 32 * NK, NW = C / SPLIT;
+  constexpr int QX = KP / 4, QC = NW / 4;  // channels of x, of h and out, a thread holds
+  constexpr int NH = QC / 8;               // 16-byte pieces of h a pixel
+  constexpr int kWLbo = (NW / 8) * 128, kHalf = KP * NW * 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int wg = warp / 4;
+
+  // the weights, permuted (see above), from 16-byte pieces W[o][ci .. ci + 7]:
+  // x channel ci + 2 q is K index 16 s + 8 u + 2 t'' with ci + 2 q = t'' QX +
+  // 4 s + 2 u; output channel o = hf NW + t' QC + 2 j + e is column
+  // 8 j + 2 t' + e of half hf
+  for (int i = tid; i < C * (KP / 8); i += kThreads) {
+    const int o = i / (KP / 8), ci = (i % (KP / 8)) * 8;
+    const bf16* src = p.wres + static_cast<long long>(o) * p.cin + ci;
+    const uint4 v =
+        ci < p.cin ? __ldg(reinterpret_cast<const uint4*>(src)) : make_uint4(0, 0, 0, 0);
+    const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
+    const int hf = o / NW, oo = o % NW;
+    const int n = 8 * ((oo % QC) / 2) + 2 * (oo / QC) + (oo & 1);
+    unsigned char* col = smem + hf * kHalf + (n >> 3) * 128 + (n & 7) * 16;
 #pragma unroll
-  for (int j = 0; j < C / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  const bf16* xb = x + base * cin;
-  for (int c0 = 0; c0 < cin; c0 += kKC) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kEpiPix * 4; i += kThreads) {
-      const int r = i >> 2, ch = c0 + (i & 3) * 8;
-      uint4 u = make_uint4(0, 0, 0, 0);
-      if (ch < cin && r < npix)
-        u = *reinterpret_cast<const uint4*>(xb + static_cast<long long>(r) * cin + ch);
-      *reinterpret_cast<uint4*>(xs + r * kCS + (i & 3) * 8) = u;
+    for (int q = 0; q < 4; ++q) {
+      const int rem = ci % QX + 2 * q;
+      const int k = 16 * (rem / 4) + 8 * ((rem / 2) & 1) + 2 * (ci / QX);
+      *reinterpret_cast<uint32_t*>(col + (k >> 3) * kWLbo + (k & 7) * 2) = w4[q];
     }
-    stage_rows(wres, C, cin, c0, ws);
-    __syncthreads();
-    mma_chunk<C>(acc, xs + 16 * warp * kCS, ws);
   }
-  const int q0 = 16 * warp + g;  // this thread's two pixels: q0, q0 + 8
+  fence_proxy_async();
+  __syncthreads();
+  const int hf = SPLIT == 2 ? wg : 0;
+  const uint64_t b_desc = smem_desc(smem + hf * kHalf, kWLbo, 128);
+  const int c0 = hf * NW + t * QC;  // this thread's first output channel
+
+  float acc[NW / 2];
 #pragma unroll
-  for (int j = 0; j < C / 8; ++j) {
-    const int col = 8 * j + 2 * t;
+  for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
+  const int per_block = SPLIT == 2 ? 1 : 2;  // items a block takes at a time
+  const int G = gridDim.x * per_block;
+  const int q0 = 16 * (warp % 4) + g;  // this thread's pixels in an item: q0, q0 + 8
+#pragma unroll 1
+  for (int it = blockIdx.x * per_block + (SPLIT == 2 ? 0 : wg); it < p.items; it += G) {
+    const int row = it / p.tiles, p0 = (it - row * p.tiles) * kEpiRows;
+    const int npix = min(kEpiRows, p.hw - p0);
+    const long long pix = static_cast<long long>(row) * p.hw + p0 + q0;
+    const bool in0 = q0 < npix, in1 = q0 + 8 < npix;
+    const uint4 zero = make_uint4(0, 0, 0, 0);
+    uint4 xa[NK], xb[NK], ha[NH], hb[NH];
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int q = q0 + 8 * half;
-      if (q >= npix) continue;
-      const long long idx = (base + q) * C + col;
-      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(h + idx));
-      const float y0 = bf16_round(silu(affine(f.x, ar[col], br[col])));
-      const float y1 = bf16_round(silu(affine(f.y, ar[col + 1], br[col + 1])));
-      const float r0 = bf16_round(acc[j][2 * half] + bres[col]);
-      const float r1 = bf16_round(acc[j][2 * half + 1] + bres[col + 1]);
-      st_pair(out + idx, y0 + r0, y1 + r1);
+    for (int m = 0; m < NK; ++m) {
+      const int ci = t * QX + 8 * m;
+      const bool ok = ci < p.cin;
+      const bf16* src = p.x + pix * p.cin + ci;
+      xa[m] = in0 && ok ? __ldg(reinterpret_cast<const uint4*>(src)) : zero;
+      xb[m] = in1 && ok ? __ldg(reinterpret_cast<const uint4*>(src + 8 * p.cin)) : zero;
     }
+#pragma unroll
+    for (int m = 0; m < NH; ++m) {
+      ha[m] = in0 ? __ldg(reinterpret_cast<const uint4*>(p.h + pix * C + c0 + 8 * m)) : zero;
+      hb[m] = in1 ? __ldg(reinterpret_cast<const uint4*>(p.h + (pix + 8) * C + c0 + 8 * m)) : zero;
+    }
+    const uint32_t* wa = reinterpret_cast<const uint32_t*>(xa);
+    const uint32_t* wb = reinterpret_cast<const uint32_t*>(xb);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < KP / 16; ++s) {
+      const uint32_t frag[4] = {wa[2 * s], wb[2 * s], wa[2 * s + 1], wb[2 * s + 1]};
+      wgmma_rs<0>(acc, frag, b_desc + ((2 * s * kWLbo) >> 4), s > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(acc);
+    const uint32_t* hwa = reinterpret_cast<const uint32_t*>(ha);
+    const uint32_t* hwb = reinterpret_cast<const uint32_t*>(hb);
+    uint4 oa[NH], ob[NH];
+    uint32_t* owa = reinterpret_cast<uint32_t*>(oa);
+    uint32_t* owb = reinterpret_cast<uint32_t*>(ob);
+    const float* ar = p.pa + static_cast<long long>(row) * C + c0;
+    const float* br = p.pb + static_cast<long long>(row) * C + c0;
+#pragma unroll
+    for (int q = 0; q < QC; q += 4) {  // channels c0 + q .. c0 + q + 3: words q / 2, q / 2 + 1
+      const float4 av = __ldg(reinterpret_cast<const float4*>(ar + q));
+      const float4 bv = __ldg(reinterpret_cast<const float4*>(br + q));
+      const float4 rv = __ldg(reinterpret_cast<const float4*>(p.bres + c0 + q));
+      const int j = q / 2;
+      owa[j] = epi_pair(hwa[j], av.x, av.y, bv.x, bv.y, bf16_round(acc[4 * j] + rv.x),
+                        bf16_round(acc[4 * j + 1] + rv.y));
+      owb[j] = epi_pair(hwb[j], av.x, av.y, bv.x, bv.y, bf16_round(acc[4 * j + 2] + rv.x),
+                        bf16_round(acc[4 * j + 3] + rv.y));
+      owa[j + 1] = epi_pair(hwa[j + 1], av.z, av.w, bv.z, bv.w,
+                            bf16_round(acc[4 * j + 4] + rv.z), bf16_round(acc[4 * j + 5] + rv.w));
+      owb[j + 1] = epi_pair(hwb[j + 1], av.z, av.w, bv.z, bv.w,
+                            bf16_round(acc[4 * j + 6] + rv.z), bf16_round(acc[4 * j + 7] + rv.w));
+    }
+#pragma unroll
+    for (int m = 0; m < NH; ++m) {
+      if (in0) *reinterpret_cast<uint4*>(p.out + pix * C + c0 + 8 * m) = oa[m];
+      if (in1) *reinterpret_cast<uint4*>(p.out + (pix + 8) * C + c0 + 8 * m) = ob[m];
+    }
+  }
+}
+
+// The identity epilogue: a grid-stride walk over the 16-byte pieces of the
+// [rows, hw, C] tensors, eight channels each, with a and b from the L1
+// cache (they are [rows, C]).
+template <int C>
+__global__ void __launch_bounds__(kThreads, 5)
+epilogue_identity_kernel(const EpiArgs p) {
+  const int n = p.rows * p.hw * (C / 8), per_row = p.hw * (C / 8);
+  const uint4* h4 = reinterpret_cast<const uint4*>(p.h);
+  const uint4* x4 = reinterpret_cast<const uint4*>(p.x);
+#pragma unroll 1
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += gridDim.x * kThreads) {
+    const uint4 hu = __ldg(h4 + i), xu = __ldg(x4 + i);
+    const int c = (i % (C / 8)) * 8;
+    const float4* a4 = reinterpret_cast<const float4*>(p.pa + (i / per_row) * C + c);
+    const float4* b4 = reinterpret_cast<const float4*>(p.pb + (i / per_row) * C + c);
+    const float4 a0 = __ldg(a4), a1 = __ldg(a4 + 1), b0 = __ldg(b4), b1 = __ldg(b4 + 1);
+    const __nv_bfloat162* xv = reinterpret_cast<const __nv_bfloat162*>(&xu);
+    const uint32_t* hv = reinterpret_cast<const uint32_t*>(&hu);
+    const float2 r0 = __bfloat1622float2(xv[0]), r1 = __bfloat1622float2(xv[1]);
+    const float2 r2 = __bfloat1622float2(xv[2]), r3 = __bfloat1622float2(xv[3]);
+    uint4 o;
+    o.x = epi_pair(hv[0], a0.x, a0.y, b0.x, b0.y, r0.x, r0.y);
+    o.y = epi_pair(hv[1], a0.z, a0.w, b0.z, b0.w, r1.x, r1.y);
+    o.z = epi_pair(hv[2], a1.x, a1.y, b1.x, b1.y, r2.x, r2.y);
+    o.w = epi_pair(hv[3], a1.z, a1.w, b1.z, b1.w, r3.x, r3.y);
+    reinterpret_cast<uint4*>(p.out)[i] = o;
   }
 }
 
@@ -625,16 +705,35 @@ int pick_conv(const ConvArgs& a, cudaStream_t st) {
   return pick_plan<32, PRO>(a, per_sm / (PRO ? 2 : 1) - reserved, sms, st);
 }
 
-template <int C>
-int launch_epilogue(const bf16* h, const bf16* x, const float* a, const float* b,
-                    const bf16* wres, const float* bres, bf16* out, int rows, int hw,
-                    int cin, cudaStream_t st) {
-  const dim3 grid((hw + kEpiPix - 1) / kEpiPix, rows);
-  if (wres != nullptr)
-    epilogue_kernel<C, true><<<grid, kThreads, 0, st>>>(h, x, a, b, wres, bres, out, hw, cin);
-  else
-    epilogue_kernel<C, false><<<grid, kThreads, 0, st>>>(h, x, a, b, wres, bres, out, hw, cin);
+template <int C, int NK>
+int launch_epilogue_res(const EpiArgs& a, int blocks, cudaStream_t st) {
+  constexpr int SPLIT = C == 128 ? 2 : 1;
+  auto kern = epilogue_res_kernel<C, NK, SPLIT>;
+  const int smem = 32 * NK * C * 2;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<blocks, kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int C>
+int pick_epilogue(const EpiArgs& a, int blocks, cudaStream_t st) {
+  if (a.wres == nullptr) {
+    epilogue_identity_kernel<C><<<blocks, kThreads, 0, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  switch ((a.cin + 31) / 32) {
+    case 1: return launch_epilogue_res<C, 1>(a, blocks, st);
+    case 2: return launch_epilogue_res<C, 2>(a, blocks, st);
+    case 3: return launch_epilogue_res<C, 3>(a, blocks, st);
+    case 4: return launch_epilogue_res<C, 4>(a, blocks, st);
+    case 5: return launch_epilogue_res<C, 5>(a, blocks, st);
+    case 6: return launch_epilogue_res<C, 6>(a, blocks, st);
+    case 7: return launch_epilogue_res<C, 7>(a, blocks, st);
+    case 8: return launch_epilogue_res<C, 8>(a, blocks, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -675,25 +774,35 @@ extern "C" int conv3x3_stats(const void* x, const void* w, const void* bias, con
 // h [rows, hw, c] bf16, x [rows, hw, cin] bf16, a, b [rows, c] float;
 // wres [c, cin] bf16 and bres [c] float for the 1x1 res_conv, or both null
 // for the identity (cin == c).  Writes out [rows, hw, c] bf16.  c in
-// {32, 64, 128}, cin a multiple of 8.
+// {32, 64, 128}; cin a multiple of 8, at most 256 with the res_conv; every
+// pointer 16-byte aligned.  `blocks`: the persistent grid (the wrapper's
+// `epilogue_plan`).
 extern "C" int epilogue(const void* h, const void* x, const void* a, const void* b,
                         const void* wres, const void* bres, void* out, int rows, int hw,
-                        int cin, int c, void* stream) {
+                        int cin, int c, int blocks, void* stream) {
   if (cin <= 0 || cin % 8 != 0 || (wres == nullptr) != (bres == nullptr) ||
-      (wres == nullptr && cin != c))
+      (wres == nullptr && cin != c) || (wres != nullptr && cin > 256) || rows < 1 || hw < 1 ||
+      blocks < 1 ||
+      static_cast<long long>(rows) * hw * c / 8 >= (1LL << 31) - 1LL * blocks * kThreads)
     return static_cast<int>(cudaErrorInvalidValue);
+  EpiArgs args;
+  args.h = static_cast<const bf16*>(h);
+  args.x = static_cast<const bf16*>(x);
+  args.pa = static_cast<const float*>(a);
+  args.pb = static_cast<const float*>(b);
+  args.wres = static_cast<const bf16*>(wres);
+  args.bres = static_cast<const float*>(bres);
+  args.out = static_cast<bf16*>(out);
+  args.rows = rows;
+  args.hw = hw;
+  args.cin = cin;
+  args.tiles = (hw + kEpiRows - 1) / kEpiRows;
+  args.items = rows * args.tiles;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* hp = static_cast<const bf16*>(h);
-  const bf16* xp = static_cast<const bf16*>(x);
-  const float* ap = static_cast<const float*>(a);
-  const float* bp = static_cast<const float*>(b);
-  const bf16* wp = static_cast<const bf16*>(wres);
-  const float* rp = static_cast<const float*>(bres);
-  bf16* op = static_cast<bf16*>(out);
   switch (c) {
-    case 32: return launch_epilogue<32>(hp, xp, ap, bp, wp, rp, op, rows, hw, cin, st);
-    case 64: return launch_epilogue<64>(hp, xp, ap, bp, wp, rp, op, rows, hw, cin, st);
-    case 128: return launch_epilogue<128>(hp, xp, ap, bp, wp, rp, op, rows, hw, cin, st);
+    case 32: return pick_epilogue<32>(args, blocks, st);
+    case 64: return pick_epilogue<64>(args, blocks, st);
+    case 128: return pick_epilogue<128>(args, blocks, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -6,8 +6,13 @@
 dtype) goes to the single-pass kernel, a larger one to the tiled pair.
 
   * single pass, `csrc/groupnorm_film_silu.cu` (replaces `_gn_kernel`): one
-    launch with one thread block per (row, group); its launches are counted
-    on `groupnorm_film_silu.launches`;
+    launch, one thread-block cluster of k blocks per row.  The TPU kernel
+    keeps a row in VMEM; here each block keeps its slice of the row in
+    shared memory, so x is read from device memory once, and the blocks
+    fold the group statistics (the mean, then the centred squares) through
+    distributed shared memory.  `gn_plan` picks k, the slice and its shared
+    memory from h, w, c, the groups and the dtype alone, never from the
+    batch; its launches are counted on `groupnorm_film_silu.launches`;
   * tiled pair, `csrc/groupnorm_tiled.cu` (replaces `_stats_kernel` +
     `_apply_kernel`, `_gn_tiled_impl`): `gn_tiled_stats` writes each (row,
     tile)'s per-channel float32 sum and sum of squares, `gn_tiled_apply`
@@ -34,6 +39,68 @@ MAX_BLOCK_BYTES = 512 * 1024
 # elements (pixels × channels) of one tile of the tiled pair's kernels
 TILE_ELEMS = 8192
 MAX_GROUPS = 64  # csrc/groupnorm_tiled.cu: kMaxGroups
+# the single-pass kernel's launch plan (csrc/groupnorm_film_silu.cu)
+GN_THREADS = 256  # kThreads
+GN_MAX_CLUSTER = 16  # kMaxCluster: blocks a row; above 8 a non-portable cluster
+# Rows of at least GN_SPLIT_ROW bytes (the 256px and stem sites, 8 rows a
+# launch) are cut 8 ways, past 512 KiB 16 ways, so that a launch puts its
+# rows on 64 to 128 SMs; smaller rows (the flagship's, 128 rows a launch)
+# into slices of at most GN_SLICE_BYTES: more clusters of more blocks cost
+# there more than they spread.
+GN_SPLIT_ROW = 128 * 1024
+GN_SLICE_BYTES = 64 * 1024
+# Hopper: the most dynamic shared memory one block may take (227 KB), and a
+# resident slice's limit, half of it, so that two blocks fit an SM and a
+# cluster of 16 needs no more than 8 SMs of one GPC
+SMEM_PER_BLOCK = 232448
+GN_RESIDENT_SMEM = SMEM_PER_BLOCK // 2
+
+
+def _align128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def gn_chunks(c: int, esize: int) -> int:
+    """16-byte chunks in one pixel's c channels of esize bytes."""
+    return c * esize // 16
+
+
+def gn_smem(pixels: int, c: int, groups: int, esize: int, resident: bool) -> int:
+    """Dynamic shared memory of one single-pass block: its slice of
+    `pixels` pixels if resident, the threads' per-channel sums (one row of c
+    floats per set of threads holding the same channels) and the group
+    partials and statistics (csrc: gn_work_bytes)."""
+    slice_bytes = _align128(pixels * c * esize) if resident else 0
+    return slice_bytes + 4 * ((GN_THREADS // gn_chunks(c, esize)) * c + 4 * groups)
+
+
+def gn_plan(h: int, w: int, c: int, groups: int, esize: int) -> dict:
+    """The single-pass kernel's plan for an [*, h, w, c] input of esize-byte
+    elements: k blocks a row (see GN_SPLIT_ROW; at most h·w), the pixels a
+    block, whether the slice stays in shared memory (within
+    `GN_RESIDENT_SMEM`) or is streamed, and the block's shared memory.  It
+    depends on neither the batch nor the device: k fixes the order of the
+    group sums, so a row gives the same result alone or in a batch."""
+    hw = h * w
+    row = hw * c * esize
+    if row >= GN_SPLIT_ROW:
+        k = 8 if row <= MAX_BLOCK_BYTES else GN_MAX_CLUSTER
+    else:
+        k = 1
+        while row > k * GN_SLICE_BYTES:
+            k *= 2
+    k = min(k, hw)
+    pixels = -(-hw // k)
+    resident = gn_smem(pixels, c, groups, esize, True) <= GN_RESIDENT_SMEM
+    return dict(k=k, pixels=pixels, resident=resident,
+                smem=gn_smem(pixels, c, groups, esize, resident))
+
+
+def gn_plan_of(shape, groups: int, dtype) -> dict:
+    """`gn_plan` for an NHWC input of this shape and dtype: the batch is
+    not read."""
+    _, h, w, c = shape
+    return gn_plan(h, w, c, groups, torch.empty((), dtype=dtype).element_size())
 
 
 def large_block(shape) -> bool:
@@ -194,14 +261,26 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(x, gamma, beta, scale, shift, groups, eps):
-    fn = _fn("groupnorm_film_silu", "gn_film_silu",
-             [_VP] * 6 + [_CI] * 4 + [_CF, _CI, _VP])
+def _launch(x, gamma, beta, scale, shift, groups, eps, plan=None):
+    """The single-pass kernel on x with `gn_plan`'s plan, or with `plan`
+    (k, pixels, resident, smem) where a test asks for another."""
     b, h, w, c = x.shape
+    esize = x.element_size()
+    if (c * esize) % 16 or gn_chunks(c, esize) > GN_THREADS:
+        raise ValueError(f"the single-pass kernel reads 16-byte chunks of a pixel's channels: "
+                         f"C·{esize} bytes must be a multiple of 16 and at most "
+                         f"{16 * GN_THREADS}, got C={c}")
+    if x.data_ptr() % 16:
+        raise ValueError("the single-pass kernel reads x in 16-byte pieces: it must start on "
+                         "a 16-byte boundary")
+    plan = plan or gn_plan_of(x.shape, groups, x.dtype)
+    fn = _fn("groupnorm_film_silu", "gn_film_silu",
+             [_VP] * 6 + [_CI] * 4 + [_CF] + [_CI] * 5 + [_VP])
     out = torch.empty_like(x)
     _call(fn, "gn_film_silu", x, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
           _ptr(scale), _ptr(shift), out.data_ptr(), b, h * w, c, groups, float(eps),
-          _DTYPE_CODES[x.dtype])
+          _DTYPE_CODES[x.dtype], plan["k"], plan["pixels"], int(plan["resident"]),
+          plan["smem"])
     groupnorm_film_silu.launches += 1
     return out
 

@@ -74,6 +74,66 @@ def num_tiles(h: int, w: int) -> int:
     return -(-h // TILE_H) * -(-w // TILE_W)
 
 
+# the epilogue kernels' launch plans (csrc/resnet_block.cu)
+EPI_THREADS = 256
+EPI_ROWS = 64  # pixels of one res_conv item: one warpgroup's M
+EPI_MAX_CIN = 256  # the res_conv kernel holds x in registers: 32·8 channels at most
+EPI_IDENTITY_BLOCKS_PER_SM = 5  # __launch_bounds__ of the identity kernel
+# its grid: at least two waves of the blocks the SMs hold, and at most two
+# pieces a thread (more blocks read better on the card than longer walks)
+EPI_IDENTITY_WAVES = 2
+EPI_IDENTITY_PER_THREAD = 2
+# Hopper: an SM's shared memory (228 KB) and what each block reserves of it
+SMEM_PER_SM = 233472
+SMEM_RESERVED = 1024
+
+
+def epilogue_split(c: int) -> int:
+    """Warpgroups sharing one res_conv item, each taking c / split output
+    channels: 2 at c = 128 (csrc: SPLIT)."""
+    return 2 if c == 128 else 1
+
+
+def epilogue_res_blocks(c: int, cin: int) -> int:
+    """Blocks an SM the res_conv kernel is built for at c output and cin
+    input channels (csrc: epi_res_blocks, its __launch_bounds__)."""
+    nw, nk = c // epilogue_split(c), -(-cin // 32)
+    return 3 if nw == 32 and nk <= 2 else (2 if nk <= 6 else 1)
+
+
+def epilogue_smem(c: int, cin: int, res: bool) -> int:
+    """Dynamic shared memory of one epilogue block: with the res_conv the
+    weights, cin rounded up to 32 × c bf16, resident for the block; the
+    identity kernel takes none."""
+    return 32 * -(-cin // 32) * c * 2 if res else 0
+
+
+def epilogue_plan(rows: int, hw: int, c: int, cin: int, res: bool, sms: int) -> dict:
+    """The epilogue's grid on `sms` SMs.  res_conv: items of 64 pixels of
+    one row (`tiles` a row), two a block at a time (one at c = 128, whose
+    two warpgroups share it), one persistent wave of the blocks an SM holds
+    (its registers and shared memory), `per` items at most a warpgroup.
+    Identity: the 16-byte pieces of the output, at most
+    `EPI_IDENTITY_PER_THREAD` (`per`) a thread, in at least
+    `EPI_IDENTITY_WAVES` waves.  A pixel's output does not depend on the
+    plan."""
+    smem = epilogue_smem(c, cin, res)
+    if res:
+        per_sm = min(epilogue_res_blocks(c, cin), SMEM_PER_SM // (smem + SMEM_RESERVED))
+        tiles = -(-hw // EPI_ROWS)
+        items = rows * tiles
+        units = EPI_THREADS // 128 // epilogue_split(c)
+        most = sms * per_sm
+    else:
+        per_sm, tiles = EPI_IDENTITY_BLOCKS_PER_SM, 0
+        items, units = rows * hw * c // 8, EPI_THREADS
+        most = max(EPI_IDENTITY_WAVES * sms * per_sm,
+                   -(-items // (units * EPI_IDENTITY_PER_THREAD)))
+    blocks = min(-(-items // units), most)
+    return dict(smem=smem, blocks_per_sm=per_sm, tiles=tiles, items=items, blocks=blocks,
+                per=-(-items // (blocks * units)))
+
+
 def gn_affine(s, ss, gamma, beta, scale, shift, groups: int, n: int, eps: float = 1e-5):
     """The tiles' per-channel sums s, ss [B, tiles, C] → the per-(row,
     channel) affine a, b [B, C] of GroupNorm ⊕ FiLM, float32: `_gn_affine`
@@ -252,8 +312,9 @@ conv3x3_stats.launches = 0
 
 def epilogue(h2, x, a, b, w_res=None, b_res=None):
     """Pass 3; arguments and result as `epilogue_reference`.  A CUDA tensor
-    runs the kernel (C in 32/64/128, Cin a multiple of 8, or it raises); a
-    CPU tensor runs the plain version."""
+    runs the kernel (C in 32/64/128, Cin a multiple of 8 and with a res_conv
+    at most 256, every tensor on a 16-byte boundary, or it raises) with
+    `epilogue_plan`'s grid; a CPU tensor runs the plain version."""
     _check_nhwc(h2, "h2")
     _check_nhwc(x)
     bsz, hh, ww, c = h2.shape
@@ -274,18 +335,35 @@ def epilogue(h2, x, a, b, w_res=None, b_res=None):
         _check_param("b_res", b_res, (c,), torch.float32, x.device)
     if not _runs_kernel(x):
         return epilogue_reference(h2, x, a, b, w_res, b_res)
+    return _launch_epilogue(h2, x, a, b, w_res, b_res)
+
+
+def _launch_epilogue(h2, x, a, b, w_res, b_res, plan=None):
+    """The epilogue kernel with `epilogue_plan`'s grid, or with `plan`
+    (its `blocks`) where a test asks for another."""
+    bsz, hh, ww, c = h2.shape
+    cin = x.shape[3]
     _kernel_channels("epilogue", c, cin)
+    for name, t in (("h2", h2), ("x", x), ("a", a), ("b", b), ("w_res", w_res), ("b_res", b_res)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"the epilogue kernel reads {name} in 16-byte pieces: it must "
+                             f"start on a 16-byte boundary")
+    if w_res is not None and cin > EPI_MAX_CIN:
+        raise ValueError(f"the epilogue kernel takes C in at most {EPI_MAX_CIN} with a res_conv, "
+                         f"got {cin}")
+    plan = plan or epilogue_plan(bsz, hh * ww, c, cin, w_res is not None,
+                                 torch.cuda.get_device_properties(x.device).multi_processor_count)
     out = torch.empty_like(h2)
     fn = _lib().epilogue
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp] + [ci] * 5 + [vp]
     fn.restype = ci
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(h2.data_ptr(), x.data_ptr(), a.data_ptr(), b.data_ptr(),
                  w_res.data_ptr() if w_res is not None else None,
                  b_res.data_ptr() if b_res is not None else None,
-                 out.data_ptr(), bsz, hh * ww, cin, c, stream)
+                 out.data_ptr(), bsz, hh * ww, cin, c, plan["blocks"], stream)
     if err != 0:
         raise RuntimeError(f"epilogue launch failed: CUDA error {err}")
     epilogue.launches += 1

@@ -11,7 +11,7 @@ import pytest
 from localdiffusion_tpu_torch.ops import _build
 
 SOURCES = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-HOPPER_USERS = ["flash_attention", "linear_attention", "resnet_block"]
+HOPPER_USERS = ["flash_attention", "groupnorm_film_silu", "linear_attention", "resnet_block"]
 
 
 @pytest.fixture

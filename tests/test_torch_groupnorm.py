@@ -79,3 +79,96 @@ def test_wrapper_rejects_bad_inputs():
         groupnorm_film_silu(x, g, b, s, None)
     with pytest.raises(TypeError, match="gamma must be float32"):
         groupnorm_film_silu(x, g.double(), b, s, h)
+
+
+# ---------------------------------------------------------------------------
+# the single-pass kernel's launch plan (pure Python; the kernel runs on the
+# card, tests/test_torch_kernels_cuda.py)
+# ---------------------------------------------------------------------------
+
+def _gn_sites(cfg, dtype, size, full, batch):
+    """Every GroupNormFilmSiLU input of one UNet call of `cfg` at a `full`
+    px input and `batch` rows, as {NHWC shape: count}: the UNet runs once on
+    the CPU at `size` px (it is fully convolutional, so each site's H and W
+    scale by full / size)."""
+    from localdiffusion_tpu_torch.models.blocks import GroupNormFilmSiLU
+    from localdiffusion_tpu_torch.models.unet import UNet
+
+    unet = UNet(cfg.model, dtype).eval()
+    seen = []
+    hook = lambda _m, args: seen.append(tuple(args[0].shape))
+    handles = [m.register_forward_pre_hook(hook) for m in unet.modules()
+               if isinstance(m, GroupNormFilmSiLU)]
+    x = torch.zeros(1, size, size, 1)
+    with torch.no_grad():
+        unet(x, x, torch.tensor([5]))
+    for h in handles:
+        h.remove()
+    f = full // size
+    out = {}
+    for _, c, h, w in seen:
+        key = (batch, h * f, w * f, c)
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+# per configuration: (config, compute dtype, CPU input size, full size, UNet
+# batch in chip_smoke.py), and the single-pass sites' k (blocks a row) by
+# shape: the flagship's rows of at most 100 KB take 1 or 2 blocks, the
+# stem's and the 256px chain's rows of 128 to 512 KiB take 8
+GN_CONFIGS = {
+    "flagship": ("flagship_config", torch.float32, 28, 28, 128,
+                 {(7, 7, 64): 1, (7, 7, 128): 1, (14, 14, 32): 1, (14, 14, 64): 1,
+                  (28, 28, 32): 2}),
+    "256px": ("mri256_config", torch.bfloat16, 64, 256, 8, {(32, 32, 128): 8}),
+    "stem": ("stem256_config", torch.float32, 64, 256, 8,
+             {(16, 16, 128): 8, (16, 16, 256): 8, (32, 32, 64): 8, (32, 32, 128): 8,
+              (64, 64, 32): 8}),
+}
+
+
+@pytest.mark.parametrize("name", list(GN_CONFIGS))
+def test_single_pass_plan_at_every_site(name):
+    """At every single-pass site of the configuration (below the row gate)
+    the plan keeps the slice resident within a block's 227 KB, its k blocks
+    cover the row's pixels, and k is the one the plan documents; at another
+    batch the plan is the same (it never reads the batch)."""
+    from localdiffusion_tpu_torch import config as tcfg
+    from localdiffusion_tpu_torch.ops import groupnorm as G
+
+    cfg_fn, dtype, size, full, batch, want_k = GN_CONFIGS[name]
+    sites = _gn_sites(getattr(tcfg, cfg_fn)(), dtype, size, full, batch)
+    single = {s: n for s, n in sites.items() if not G.large_block(s)}
+    assert {s[1:]: G.gn_plan_of(s, 8, dtype)["k"] for s in single} == want_k
+    esize = torch.empty((), dtype=dtype).element_size()
+    for shape in single:
+        _, h, w, c = shape
+        plan = G.gn_plan_of(shape, 8, dtype)
+        assert plan["resident"] and plan["smem"] <= G.SMEM_PER_BLOCK
+        assert plan["smem"] == G.gn_smem(plan["pixels"], c, 8, esize, True)
+        assert 1 <= plan["k"] <= G.GN_MAX_CLUSTER
+        assert plan["k"] * plan["pixels"] >= h * w > (plan["k"] - 1) * plan["pixels"]
+        for b in (1, 3, batch, 2 * batch):
+            assert G.gn_plan_of((b, h, w, c), 8, dtype) == plan
+
+
+@pytest.mark.parametrize("shape,dtype,k,resident", [
+    ((8, 256, 256, 32), torch.bfloat16, 16, False),  # 4 MiB a row
+    ((8, 256, 256, 32), torch.float32, 16, False),
+    ((8, 128, 128, 64), torch.bfloat16, 16, False),
+    ((8, 128, 128, 32), torch.bfloat16, 16, True),
+    ((8, 64, 64, 128), torch.bfloat16, 16, True),
+    ((3, 25, 19, 64), torch.float32, 2, True),
+])
+def test_single_pass_plan_past_the_gate(shape, dtype, k, resident):
+    """`groupnorm_film_silu_single_pass` takes any row: past 512 KiB the
+    plan splits it 16 ways, and a slice over the resident limit (half a
+    block's shared memory) is streamed, with only the reduction buffers in
+    shared memory."""
+    from localdiffusion_tpu_torch.ops import groupnorm as G
+
+    plan = G.gn_plan_of(shape, 8, dtype)
+    assert (plan["k"], plan["resident"]) == (k, resident)
+    assert plan["smem"] <= (G.GN_RESIDENT_SMEM if resident else G.SMEM_PER_BLOCK)
+    esize = torch.empty((), dtype=dtype).element_size()
+    assert plan["smem"] == G.gn_smem(plan["pixels"], shape[3], 8, esize, resident)

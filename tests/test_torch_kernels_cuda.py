@@ -7,7 +7,9 @@ linear-attention passes (the kv kernel's launch plans and its in-kernel
 merge, the q kernel's persistent grid, repeated and graph-replayed
 launches) and the fused ResnetBlock's conv3x3_stats (each of
 its shared-memory plans, persistent grids with more and fewer tiles than
-blocks) and epilogue at the 256px chain's shapes, the inputs each wrapper
+blocks) and epilogue at the 256px chain's shapes (its persistent grids,
+ragged last items), the single-pass GroupNorm's cluster plans (every
+cluster size, resident and streamed slices), the inputs each wrapper
 refuses, and a row alone against the same row in a batch.
 
 Every test here needs an NVIDIA GPU and nvcc (the kernels have no CPU mode)
@@ -368,6 +370,60 @@ def test_groupnorm_kernel_at_the_256px_shapes(cuda_device, shape, film):
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
 
 
+# the single-pass kernel's plans (`gn_plan`) at the sites of the three
+# configurations: the flagship's five at batch 128 (k = 8, 2, 4, 1, 2 in
+# f32), the stem's 64x64x32 ... 16x16x128 and the 256px chain's 32x32x128
+# at batch 8 (k = 16, 16, 8, 16), and a row past the resident limit (the
+# streamed branch)
+GN_PLAN_SHAPES = [(128, 28, 28, 32), (128, 14, 14, 32), (128, 14, 14, 64), (128, 7, 7, 64),
+                  (128, 7, 7, 128), (8, 64, 64, 32), (8, 32, 32, 64), (8, 16, 16, 128),
+                  (8, 32, 32, 128), (8, 256, 256, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GN_PLAN_SHAPES)
+def test_single_pass_groupnorm_row_alone_equals_row_in_batch(cuda_device, shape, dtype):
+    """The plan comes from h, w, c, the groups and the dtype alone and fixes
+    the order of every sum: row 0 by itself, and rows 0-3 as a batch of 4,
+    give bit for bit what they give inside the whole batch (with FiLM), and
+    the batch is within `GN_TOL` of the plain version."""
+    x, g, b, s, h = _inputs(shape, True, dtype, cuda_device)
+    whole = groupnorm_film_silu_single_pass(x, g, b, s, h, groups=8)
+    alone = groupnorm_film_silu_single_pass(x[:1].clone(), g, b, s[:1].clone(), h[:1].clone(),
+                                            groups=8)
+    four = groupnorm_film_silu_single_pass(x[:4].clone(), g, b, s[:4].clone(), h[:4].clone(),
+                                           groups=8)
+    torch.cuda.synchronize()
+    assert torch.equal(alone, whole[:1]) and torch.equal(four, whole[:4])
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    want = groupnorm_film_silu_reference(x, g, b, s, h, groups=8)
+    torch.testing.assert_close(whole.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_single_pass_groupnorm_cluster_sizes(cuda_device, dtype, k):
+    """Every cluster size the plans use (16 a non-portable cluster), with
+    the last block's slice ragged (475 pixels), resident and streamed: each
+    within `GN_TOL` of the plain version, and the streamed branch equal to
+    the resident one bit for bit (the same sums in the same order)."""
+    shape = (3, 25, 19, 64)
+    x, g, b, s, h = _inputs(shape, True, dtype, cuda_device)
+    esize, pixels = x.element_size(), -(-25 * 19 // k)
+    got = {}
+    for resident in (True, False):
+        plan = dict(k=k, pixels=pixels, resident=resident,
+                    smem=G.gn_smem(pixels, 64, 8, esize, resident))
+        got[resident] = G._launch(x, g, b, s, h, 8, 1e-5, plan)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    want = groupnorm_film_silu_reference(x, g, b, s, h, groups=8)
+    torch.testing.assert_close(got[True].float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(got[True], got[False])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 128, 128, 32), (8, 64, 64, 128)])
 def test_linear_attention_row_alone_equals_row_in_batch(cuda_device, shape):
@@ -496,6 +552,65 @@ def test_resnet_block_row_alone_equals_row_in_batch(cuda_device):
         alone = RB.resnet_block_fused(x[:1].clone(), mod, tuple(t[:1].clone() for t in ss))
     torch.cuda.synchronize()
     assert torch.equal(alone, whole[:1])
+
+
+def _epi_inputs(shape, c, device, seed=0):
+    """h2, x, a, b and, where Cin ≠ C, a res_conv (w_res, b_res) for the
+    epilogue, seeded."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *sz: torch.randn(*sz, generator=gen, device=device)
+    bsz, hh, ww, cin = shape
+    x = (r(*shape) * 0.5).to(torch.bfloat16)
+    h2 = (r(bsz, hh, ww, c) * 2.0).to(torch.bfloat16)
+    a, b = r(bsz, c) * 0.5 + 1.0, r(bsz, c) * 0.3
+    wr = br = None
+    if cin != c:
+        wr = (r(c, cin) * cin**-0.5).to(torch.bfloat16)
+        br = r(c) * 0.1
+    return h2, x, a, b, wr, br
+
+
+# the epilogue at the six shapes of the 256px chain's 13 fused blocks (batch
+# 8; the last three with the res_conv), and ragged ones: 720 and 480 pixels
+# (the last 64-pixel item of a row holds 16 and 32), Cin 48 and 8 (K
+# rounded up to 32 with zeros)
+EPI_SITES = [((8, 256, 256, 32), 32), ((8, 128, 128, 32), 32), ((8, 64, 64, 64), 64),
+             ((8, 64, 64, 192), 128), ((8, 128, 128, 96), 64), ((8, 256, 256, 64), 32),
+             ((3, 20, 36, 48), 64), ((2, 12, 40, 8), 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,c", EPI_SITES)
+def test_epilogue_row_alone_equals_row_in_batch(cuda_device, shape, c):
+    """A pixel's output depends on nothing but its own inputs, whatever run
+    of items its block walks: row 0 alone gives bit for bit what it gives
+    in the batch, and the batch is within one bf16 step of its terms of
+    the plain version (atol 2^-6, rtol 2^-7, `RB_TOL`)."""
+    h2, x, a, b, wr, br = _epi_inputs(shape, c, cuda_device)
+    before = RB.epilogue.launches
+    whole = RB.epilogue(h2, x, a, b, wr, br)
+    alone = RB.epilogue(h2[:1].clone(), x[:1].clone(), a[:1].clone(), b[:1].clone(), wr, br)
+    torch.cuda.synchronize()
+    assert RB.epilogue.launches == before + 2
+    assert torch.equal(alone, whole[:1])
+    want = RB.epilogue_reference(h2, x, a, b, wr, br)
+    torch.testing.assert_close(whole.float(), want.float(), atol=2**-6, rtol=2**-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [1, 3, 1000])
+@pytest.mark.parametrize("shape,c", [((3, 20, 36, 48), 64), ((2, 30, 30, 32), 32),
+                                     ((2, 12, 40, 96), 128), ((1, 10, 30, 256), 32)])
+def test_epilogue_plans(cuda_device, shape, c, blocks):
+    """Persistent grids of 1, 3 and 1000 blocks (each warpgroup or thread
+    walking many items, or fewer items than blocks), ragged last items, Cin
+    up to the kernel's 256: the output equals the default grid's bit for
+    bit."""
+    h2, x, a, b, wr, br = _epi_inputs(shape, c, cuda_device, seed=7)
+    got = RB._launch_epilogue(h2, x, a, b, wr, br, dict(blocks=blocks))
+    want = RB.epilogue(h2, x, a, b, wr, br)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def _conv_pass_inputs(shape, cout, device, seed=0):

@@ -455,3 +455,61 @@ def test_wrappers_check_their_inputs():
         RB.epilogue(x, torch.zeros(1, 8, 16, 64, dtype=torch.bfloat16), a, a)
     with pytest.raises(TypeError, match="w_res"):
         RB.epilogue(x, x, a, a, torch.zeros(32, 32), torch.zeros(32))
+
+
+# ---------------------------------------------------------------------------
+# the epilogue kernel's launch plan (pure Python; the kernel runs on the
+# card, tests/test_torch_kernels_cuda.py)
+# ---------------------------------------------------------------------------
+
+# the 256px chain's six epilogue sites (FUSED_256's shapes with their
+# dim_out), and ragged ones
+EPI_SITES = [((8, 256, 256, 32), 32), ((8, 128, 128, 32), 32), ((8, 64, 64, 64), 64),
+             ((8, 64, 64, 192), 128), ((8, 128, 128, 96), 64), ((8, 256, 256, 64), 32),
+             ((3, 20, 36, 48), 64), ((2, 12, 40, 8), 128), ((1, 10, 30, 256), 32)]
+
+
+def _items_walked(plan, c, res):
+    """The items each unit of the kernel's grid walks, as the kernel walks
+    them (csrc: epilogue_res_kernel, epilogue_identity_kernel): res_conv,
+    block b's units (warpgroups, or one pair of them at c = 128) take
+    b·units + u, then every G = blocks·units items after; identity, thread
+    i of the grid takes the pieces i, i + blocks·256, ..."""
+    units = (RB.EPI_THREADS // 128 // RB.epilogue_split(c)) if res else RB.EPI_THREADS
+    step = plan["blocks"] * units
+    return [range(first, plan["items"], step) for first in range(step)]
+
+
+@pytest.mark.parametrize("shape,c", EPI_SITES)
+def test_epilogue_plan_covers_every_item_once(shape, c):
+    """The grid fits the card (the res_conv's one persistent wave of the
+    blocks an SM holds, its weights within a block's shared memory; the
+    identity kernel's pieces at most two a thread), walks every item once,
+    and no unit walks more than `per` of them."""
+    bsz, hh, ww, cin = shape
+    res = cin != c
+    for sms in (132, 7):
+        plan = RB.epilogue_plan(bsz, hh * ww, c, cin, res, sms)
+        assert plan["smem"] <= RB.SMEM_PER_SM - RB.SMEM_RESERVED
+        if res:
+            assert plan["blocks"] <= sms * plan["blocks_per_sm"]
+            assert plan["smem"] == 32 * -(-cin // 32) * c * 2
+            assert plan["tiles"] == -(-hh * ww // RB.EPI_ROWS)
+            assert plan["items"] == bsz * plan["tiles"]
+        else:
+            assert plan["per"] <= RB.EPI_IDENTITY_PER_THREAD
+            assert plan["items"] == bsz * hh * ww * c // 8
+        walked = _items_walked(plan, c, res)
+        flat = sorted(i for w in walked for i in w)
+        assert flat == list(range(plan["items"]))
+        assert max(len(w) for w in walked) == plan["per"]
+
+
+def test_epilogue_blocks_per_sm_follow_the_kernels_registers():
+    """The res_conv kernel's __launch_bounds__ (csrc: epi_res_blocks): three
+    blocks an SM at 32 channels a warpgroup and Cin up to 64, two up to
+    192 (at C = 128 each warpgroup takes 64), one past it."""
+    assert [RB.epilogue_res_blocks(32, cin) for cin in (64, 96, 192, 256)] == [3, 2, 2, 1]
+    assert [RB.epilogue_res_blocks(64, cin) for cin in (32, 96, 192, 224)] == [2, 2, 2, 1]
+    assert [RB.epilogue_res_blocks(128, cin) for cin in (64, 192, 256)] == [2, 2, 1]
+    assert [RB.epilogue_split(c) for c in (32, 64, 128)] == [1, 1, 2]
