@@ -39,9 +39,11 @@ Phases, each printed on its own line with the elapsed seconds:
    convolutions, the GroupNorm kernels, the adds), the GroupNorm op at the
    14 Block shapes outside the fused gate (the single-pass kernel at
    32x32x128, the tiled stats/apply pair past the row gate at 32x32x256,
-   each pass held on its own), all in bf16; a row alone against the same
-   row in the batch, bit for bit, for linear attention, the fused block,
-   its epilogue, the single-pass GroupNorm and the tiled pair; errors
+   each pass held on its own and timed both with L2 flushed before each
+   call and replayed from a CUDA graph), all in bf16; a row alone
+   against the same row in the batch, bit for bit, for linear attention,
+   the fused block, its epilogue, the single-pass GroupNorm and the tiled
+   pair (its row sums and its output); errors
    against tolerances, times and bounds, summed per UNet call and per site
    (the epilogue's six, the single-pass GroupNorm's with its plan); one
    whole UNet call at batch 8, eager (host included);
@@ -159,11 +161,13 @@ GN_APPLY_OPS_PER_ELEMENT = 8  # normalize+affine 3, SiLU 5; FiLM adds 2
 GN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # the tiled pair vs its plain version: float32 3e-5, the JAX package's bar
 # for its tiled kernel (tests/test_pallas_kernels.py); bfloat16 one output
-# step.  Its partials, per row, relative norm against the plain partials of
-# the same tiles: 1e-5, where float32 sums in another order read ~1e-7 and
-# one dropped tile of 16 or more reads above 1e-2
+# step.  Its row sums [B, 2, C], per row, relative norm against the plain
+# sums: 1e-5, where a sound kernel reads 0 but for a rare tie (both sum in
+# float64 and round once) and one dropped slice of 8 reads above 1e-2
 GN_TILED_F32_TOL = 3e-5
 GN_PARTIALS_TOL = 1e-5
+# read between the timed calls of `cold_ms`: five times the card's 50 MiB L2
+L2_FLUSH_BYTES = 256 * 2**20
 # attention kernel vs plain version: float32, summation order.  bfloat16: both
 # round the probabilities to bf16 before P·V, but the kernel rounds the
 # unnormalised exp(s − m) against a running max and divides by l after the
@@ -259,6 +263,28 @@ def cuda_ms(fn, iters: int = 20, reps: int = 10) -> tuple:
     end.record()
     torch.cuda.synchronize()
     return eager, start.elapsed_time(end) / (iters * reps)
+
+
+def cold_ms(fn, iters: int = 20, reps: int = 10) -> float:
+    """Device ms of fn() with its inputs out of L2, as a bound on device
+    memory assumes: each call after a sum over `L2_FLUSH_BYTES` (reads, so
+    L2 is left holding clean lines of it), captured in a CUDA graph and
+    replayed (`cuda_ms`), less the same graph of the sums alone (the mean of
+    one replay before and one after).  What fn writes may stay in L2, as it
+    does on the main path."""
+    flush = torch.ones(L2_FLUSH_BYTES // 4, device="cuda")
+    sink = torch.empty((), device="cuda")
+
+    def alone():
+        torch.sum(flush, 0, out=sink)
+
+    def both():
+        torch.sum(flush, 0, out=sink)
+        fn()
+
+    before = cuda_ms(alone, iters, reps)[1]
+    t = cuda_ms(both, iters, reps)[1]
+    return t - (before + cuda_ms(alone, iters, reps)[1]) / 2
 
 
 def bound(bytes_moved: float, ops: float, ops_per_s: float) -> tuple:
@@ -381,24 +407,30 @@ def _gn_close(got, want, tiled) -> tuple:
 def gn_kernel_phase(launches, dtypes, time_dtype, label, iters=(20, 10)) -> dict:
     """The GN op at each (shape, FiLM) of one UNet call: below the row gate
     the single-pass kernel, past it the tiled pair, each against its plain
-    version.  For the pair also each pass on its own: the stats pass's
-    partials per row against the plain partials at the same tiles (relative
-    norm <= `GN_PARTIALS_TOL`, which one dropped tile fails), the apply pass
-    against its plain version on the kernel's partials, and row 0 alone
-    against row 0 in the batch, bit for bit.  Times summed over the call's
-    launches, in `time_dtype`: each kernel, its plain version, the memory
-    and operation bounds; per op (single pass, tiled pair) also
-    `F.group_norm` alone."""
+    version.  For the pair also each pass on its own: the stats pass's row
+    sums per row against the plain sums of the same slices (relative norm <=
+    `GN_PARTIALS_TOL`, which one dropped slice fails), the apply pass against
+    its plain version on the kernel's sums, and row 0 alone against row 0 in
+    the batch, bit for bit, in the sums and the output.  Times summed over
+    the call's launches, in `time_dtype`: each kernel, its plain version,
+    the memory and operation bounds; per op (single pass, tiled pair) also
+    `F.group_norm` alone.  A kernel's `ms` is a CUDA-graph replay, where a
+    row that fits in L2 stays there between calls; for the tiled passes,
+    whose rows reach 16 MiB and whose apply would read x from L2 below its
+    device-memory bound, `ms` is `cold_ms` (L2 flushed before each call)
+    and the replay is `warm_ms`."""
     counts = {}
     for key in launches:
         counts[key] = counts.get(key, 0) + 1
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_err = {dt: 0.0 for dt in dtypes}
-    zero = lambda: dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
-                        ops_ms=0.0, group_norm_ms=0.0, launches=0, max_abs_err=0.0)
+    zero = lambda: dict(ms=0.0, warm_ms=0.0, eager_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                        bytes_ms=0.0, ops_ms=0.0, group_norm_ms=0.0, launches=0,
+                        max_abs_err=0.0)
     parts = {k: zero() for k in ("single", "stats", "apply", "pair")}
-    parts["single"]["by_site"] = []
-    worst_partials = 0.0
+    for key in ("single", "stats", "apply"):
+        parts[key]["by_site"] = []
+    worst_sums = 0.0
     for (shape, film), n in sorted(counts.items()):
         tiled = G.large_block(shape)
         b, hh, ww, c = shape
@@ -422,28 +454,32 @@ def gn_kernel_phase(launches, dtypes, time_dtype, label, iters=(20, 10)) -> dict
                          f"({'resident' if plan['resident'] else 'streamed'}), row 0 alone "
                          f"{'= row 0 in the batch' if batch_free else 'DIFFERS'}")
             if tiled:
-                partials = G.gn_tiled_stats(x)
-                applied = G.gn_tiled_apply(x, partials, g, bt, s, h, groups=8)
+                tplan = G.gn_tiled_plan(hh, ww, c, dtype)
+                sums = G.gn_tiled_stats(x)
+                applied = G.gn_tiled_apply(x, sums, g, bt, s, h, groups=8)
                 alone = groupnorm_film_silu(x[:1].clone(), g, bt,
                                             *(t[:1].clone() if t is not None else None
                                               for t in (s, h)), groups=8)
+                sums_alone = G.gn_tiled_stats(x[:1].clone())
                 torch.cuda.synchronize()
-                plain_p = G.tiled_partials_reference(x, G.stats_tile(hh * ww, c))
-                rel = ((partials - plain_p).flatten(1).norm(dim=1)
-                       / plain_p.flatten(1).norm(dim=1)).max().item()
-                p_err = (partials - plain_p).abs().max().item()
+                plain_sums = G.tiled_stats_reference(x)
+                rel = ((sums - plain_sums).flatten(1).norm(dim=1)
+                       / plain_sums.flatten(1).norm(dim=1)).max().item()
+                p_err = (sums - plain_sums).abs().max().item()
                 a_err, a_ok = _gn_close(applied, G.tiled_apply_reference(
-                    x, partials, g, bt, s, h, groups=8), True)
-                batch_free = torch.equal(alone, got[:1])
-                worst_partials = max(worst_partials, rel)
+                    x, sums, g, bt, s, h, groups=8), True)
+                batch_free = torch.equal(alone, got[:1]) and torch.equal(sums_alone, sums[:1])
+                worst_sums = max(worst_sums, rel)
                 if dtype == time_dtype:
                     parts["stats"]["max_abs_err"] = max(parts["stats"]["max_abs_err"], p_err)
                     parts["apply"]["max_abs_err"] = max(parts["apply"]["max_abs_err"], a_err)
                 ok = ok and rel <= GN_PARTIALS_TOL and a_ok and batch_free
-                extra = (f"; {partials.shape[1]} tiles of {G.stats_tile(hh * ww, c)} px, "
-                         f"partials rel {rel:.3g} per row (tol {GN_PARTIALS_TOL:g}), apply "
+                extra = (f"; stats a cluster of {tplan['k']} blocks a row of "
+                         f"{tplan['pixels']} px, apply tiles of {tplan['apply_pixels']} px; "
+                         f"row sums rel {rel:.3g} per row (tol {GN_PARTIALS_TOL:g}), apply "
                          f"on them {a_err:.3g}, row 0 alone "
-                         f"{'= row 0 in the batch' if batch_free else 'DIFFERS'}")
+                         f"{'= row 0 in the batch' if batch_free else 'DIFFERS'} "
+                         "(sums and output)")
             log(f"{label} GN {list(shape)} film={film} {str(dtype)[6:]} "
                 f"{'tiled pair' if tiled else 'single pass'}: max_abs_err {err:.3g}{extra} "
                 f"{'ok' if ok else 'FAIL'}")
@@ -463,6 +499,7 @@ def gn_kernel_phase(launches, dtypes, time_dtype, label, iters=(20, 10)) -> dict
                                                                         groups=8), *iters)
                 rows = {"single": (k_ms, k_eager, p_ms, 2 * x.numel() * esize + param_bytes,
                                    GN_OPS_PER_ELEMENT * x.numel())}
+                warm = {"single": k_ms}
                 parts["single"]["group_norm_ms"] += n * l_ms
                 parts["single"]["by_site"].append(dict(
                     shape=list(shape), film=film, launches=n, k=plan["k"],
@@ -470,15 +507,13 @@ def gn_kernel_phase(launches, dtypes, time_dtype, label, iters=(20, 10)) -> dict
                     bound_ms=max(1e3 * rows["single"][3] / HBM_BYTES_PER_S,
                                  1e3 * rows["single"][4] / FP32_OPS_PER_S)))
             else:
-                pb = partials.numel() * 4
+                pb = sums.numel() * 4
                 apply_ops = (GN_APPLY_OPS_PER_ELEMENT + (2 if film else 0)) * x.numel()
                 timed = {
-                    "stats": (lambda: G.gn_tiled_stats(x), lambda: G.tiled_partials_reference(
-                        x, G.stats_tile(hh * ww, c)), x.numel() * esize + pb,
-                              GN_STATS_OPS_PER_ELEMENT * x.numel()),
-                    "apply": (lambda: G.gn_tiled_apply(x, partials, g, bt, s, h, groups=8),
-                              lambda: G.tiled_apply_reference(x, partials, g, bt, s, h,
-                                                              groups=8),
+                    "stats": (lambda: G.gn_tiled_stats(x), lambda: G.tiled_stats_reference(x),
+                              x.numel() * esize + pb, GN_STATS_OPS_PER_ELEMENT * x.numel()),
+                    "apply": (lambda: G.gn_tiled_apply(x, sums, g, bt, s, h, groups=8),
+                              lambda: G.tiled_apply_reference(x, sums, g, bt, s, h, groups=8),
                               2 * x.numel() * esize + pb + param_bytes, apply_ops),
                     "pair": (lambda: groupnorm_film_silu(x, g, bt, s, h, groups=8),
                              lambda: G.groupnorm_film_silu_plain(x, g, bt, s, h, groups=8),
@@ -486,25 +521,39 @@ def gn_kernel_phase(launches, dtypes, time_dtype, label, iters=(20, 10)) -> dict
                              (GN_STATS_OPS_PER_ELEMENT + GN_APPLY_OPS_PER_ELEMENT
                               + (2 if film else 0)) * x.numel()),
                 }
-                rows = {}
+                rows, warm = {}, {}
                 for key, (fn, plain_fn, nbytes, ops) in timed.items():
-                    k_eager, k_ms = cuda_ms(fn, *iters)
+                    k_eager, warm[key] = cuda_ms(fn, *iters)
                     _, p_ms = cuda_ms(plain_fn, *iters)
-                    rows[key] = (k_ms, k_eager, p_ms, nbytes, ops)
+                    rows[key] = (cold_ms(fn), k_eager, p_ms, nbytes, ops)
                 parts["pair"]["group_norm_ms"] += n * l_ms
                 parts["pair"]["max_abs_err"] = max(parts["pair"]["max_abs_err"], err)
+                parts["stats"]["by_site"].append(dict(
+                    shape=list(shape), film=film, launches=n, k=tplan["k"],
+                    pixels=tplan["pixels"], ms=rows["stats"][0], warm_ms=warm["stats"],
+                    bound_ms=max(rows["stats"][3] / HBM_BYTES_PER_S,
+                                 rows["stats"][4] / FP32_OPS_PER_S) * 1e3))
+                parts["apply"]["by_site"].append(dict(
+                    shape=list(shape), film=film, launches=n,
+                    apply_pixels=tplan["apply_pixels"], ms=rows["apply"][0],
+                    warm_ms=warm["apply"],
+                    bound_ms=max(rows["apply"][3] / HBM_BYTES_PER_S,
+                                 rows["apply"][4] / FP32_OPS_PER_S) * 1e3))
             if not tiled:
                 parts["single"]["max_abs_err"] = max(parts["single"]["max_abs_err"], err)
             for key, (k_ms, k_eager, p_ms, nbytes, ops) in rows.items():
                 b_ms, o_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / FP32_OPS_PER_S
                 t = parts[key]
-                for k2, v in (("ms", k_ms), ("eager_ms", k_eager), ("plain_ms", p_ms),
+                for k2, v in (("ms", k_ms), ("warm_ms", warm[key]), ("eager_ms", k_eager),
+                              ("plain_ms", p_ms),
                               ("bound_ms", max(b_ms, o_ms)), ("bytes_ms", b_ms),
                               ("ops_ms", o_ms)):
                     t[k2] += n * v
                 t["launches"] += n
             log(f"  device us/launch, x{n} per UNet call: "
-                + "; ".join(f"{key} {r[0] * 1e3:.2f} (eager {r[1] * 1e3:.2f}, plain "
+                + "; ".join(f"{key} {r[0] * 1e3:.2f} ("
+                            + (f"L2 flushed; replayed {warm[key] * 1e3:.2f}, " if tiled else "")
+                            + f"eager {r[1] * 1e3:.2f}, plain "
                             f"{r[2] * 1e3:.2f}, bound "
                             f"{max(r[3] / HBM_BYTES_PER_S, r[4] / FP32_OPS_PER_S) * 1e6:.2f})"
                             for key, r in rows.items())
@@ -512,14 +561,16 @@ def gn_kernel_phase(launches, dtypes, time_dtype, label, iters=(20, 10)) -> dict
     for t in parts.values():
         t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations"
     log(f"{label} GN per UNet call ({len(launches)} ops, {str(time_dtype)[6:]}, device): "
-        + "; ".join(f"{key} x{t['launches']} {t['ms']:.4f}ms (eager {t['eager_ms']:.4f}) plain "
+        + "; ".join(f"{key} x{t['launches']} {t['ms']:.4f}ms ("
+                    + (f"replayed {t['warm_ms']:.4f}, " if key != "single" else "")
+                    + f"eager {t['eager_ms']:.4f}) plain "
                     f"{t['plain_ms']:.4f} bound {t['bound_ms']:.4f} ({t['bound_by']})"
                     + (f" F.group_norm {t['group_norm_ms']:.4f}" if key in ("single", "pair")
                        else "")
                     for key, t in parts.items() if t["launches"])
         + "; max_abs_err " + " ".join(f"{str(dt)[6:]} {e:.3g}" for dt, e in max_err.items())
-        + f"; partials worst rel {worst_partials:.3g}")
-    return dict(parts, max_abs_err=max_err[time_dtype], worst_partials=worst_partials,
+        + f"; row sums worst rel {worst_sums:.3g}")
+    return dict(parts, max_abs_err=max_err[time_dtype], worst_sums=worst_sums,
                 max_abs_err_by_dtype={str(dt)[6:]: e for dt, e in max_err.items()})
 
 
@@ -1366,10 +1417,12 @@ def stem256() -> dict:
     return dict(attn=attn, gn=gn, counts=counts, perf=perf, checks=checks, **prof)
 
 
-def _row(t: dict) -> dict:
-    """A GN part's numbers under the kernels line's keys."""
+def _row(t: dict, warm: bool = False) -> dict:
+    """A GN part's numbers under the kernels line's keys (and the replayed
+    time of a tiled pass, `warm_ms`)."""
     return dict(ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                bound_by=t["bound_by"], max_abs_err=t["max_abs_err"])
+                bound_by=t["bound_by"], max_abs_err=t["max_abs_err"],
+                **({"warm_ms": t["warm_ms"]} if warm else {}))
 
 
 def main() -> None:
@@ -1403,13 +1456,17 @@ def main() -> None:
         kernels.append(dict(
             name=name, route="cuda", source="localdiffusion_tpu_torch/csrc/groupnorm_tiled.cu",
             replaces=f"localdiffusion_tpu/ops/pallas_groupnorm.py:{src_line}",
-            launches=total[name], **_row(sgn[key]), library_ms=None,
+            launches=total[name], **_row(sgn[key], True), library_ms=None,
             per="stem UNet call, 14 launches (128x128x32 and 64x64x64, batch 8), f32; "
                 "library: none computes the pass (the whole op's F.group_norm alone beside)",
-            launches_by_phase=launches[name], mri256=_row(gn[key]),
-            pair_stem=dict(_row(sgn["pair"]), group_norm_ms=sgn["pair"]["group_norm_ms"]),
-            pair_256px=dict(_row(gn["pair"]), group_norm_ms=gn["pair"]["group_norm_ms"]),
-            partials_worst_rel=max(sgn["worst_partials"], gn["worst_partials"])))
+            timing="ms: cold_ms, L2 flushed by a read before each call (x from device "
+                   "memory, as bound_ms assumes); warm_ms and plain_ms: CUDA-graph replay, "
+                   "x left in L2 by the call before",
+            launches_by_phase=launches[name], mri256=_row(gn[key], True),
+            pair_stem=dict(_row(sgn["pair"], True), group_norm_ms=sgn["pair"]["group_norm_ms"]),
+            pair_256px=dict(_row(gn["pair"], True), group_norm_ms=gn["pair"]["group_norm_ms"]),
+            sums_worst_rel=max(sgn["worst_sums"], gn["worst_sums"]),
+            by_site={"256px": gn[key]["by_site"], "stem": sgn[key]["by_site"]}))
     sattn = stem["attn"]["float32"]
     kernels.append(dict(
         name="flash_attention", route="cuda",

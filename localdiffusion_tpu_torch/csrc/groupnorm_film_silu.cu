@@ -49,55 +49,16 @@
 // and cluster-size attributes are set before every launch: they belong to
 // the device that is current at the call.
 
-#include "hopper.cuh"
+#include "groupnorm_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace gn;
 using namespace hopper;
 
 constexpr int kThreads = 256;
-constexpr int kMaxCluster = 16;  // non-portable above 8
 
 __host__ __device__ constexpr int align128(int bytes) { return (bytes + 127) / 128 * 128; }
-
-// values of T in 16 bytes
-template <typename T>
-struct Vec;
-template <>
-struct Vec<float> {
-  static constexpr int n = 4;
-};
-template <>
-struct Vec<bf16> {
-  static constexpr int n = 8;
-};
-
-__device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
-  f[0] = __uint_as_float(u.x);
-  f[1] = __uint_as_float(u.y);
-  f[2] = __uint_as_float(u.z);
-  f[3] = __uint_as_float(u.w);
-}
-__device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-__device__ __forceinline__ uint4 pack(const float (&f)[4]) {
-  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
-                    __float_as_uint(f[3]));
-}
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ uint4 pack(const float (&f)[8]) {
-  return make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]), pack2(f[4], f[5]), pack2(f[6], f[7]));
-}
 
 struct GnArgs {
   const void* x;       // [rows, hw, c]
@@ -272,27 +233,7 @@ gn_film_silu_kernel(const GnArgs p) {
 
 template <typename E, bool RES>
 int launch(const GnArgs& a, int rows, int smem, cudaStream_t st) {
-  auto kern = gn_film_silu_kernel<E, RES>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess && a.k > 8)
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(rows * a.k);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = a.k;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  // a lone block is a cluster of one without the attribute, and launches sooner
-  cfg.numAttrs = a.k > 1 ? 1 : 0;
-  e = cudaLaunchKernelEx(&cfg, kern, a);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  return launch_clusters(gn_film_silu_kernel<E, RES>, a, rows * a.k, kThreads, a.k, smem, st);
 }
 
 }  // namespace

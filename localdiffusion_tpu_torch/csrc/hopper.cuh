@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels, as inline
 // PTX: asynchronous copies (cp.async with zero fill), the warpgroup matrix
 // multiply (wgmma) with its shared-memory descriptors and fences, named
-// barriers, and thread block clusters (rank, barrier, distributed shared
-// memory reads).
+// barriers, thread block clusters (rank, barrier, distributed shared
+// memory reads and writes), and programmatic dependent launch.
 // Header only; every function is __device__ __forceinline__.
 //
 // wgmma shared-memory operands use the canonical layout without swizzle
@@ -310,6 +310,35 @@ __device__ __forceinline__ uint32_t ld_shared_cluster(const void* p, uint32_t ra
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(p)), "r"(rank));
   asm volatile("ld.shared::cluster.u32 %0, [%1];\n" : "=r"(v) : "r"(remote) : "memory");
   return v;
+}
+
+// Store v at p's place in the shared memory of the cluster's block `rank`.
+// A block's shared memory exists once the block has started: store only
+// after a cluster barrier (cluster_arrive_relaxed early, cluster_wait before
+// the first store, is enough), and make the stores seen with another.
+__device__ __forceinline__ void st_shared_cluster(void* p, uint32_t rank, double v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(p)), "r"(rank));
+  asm volatile("st.shared::cluster.f64 [%0], %1;\n" ::"r"(remote), "d"(v) : "memory");
+}
+
+// Arrive at the cluster barrier without ordering memory: only that this
+// thread has started.  Pair it with cluster_wait.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+// Programmatic dependent launch.  In a kernel launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization, griddep_wait blocks
+// until the kernel before it in the stream has completed and its memory is
+// visible (a no-op in a kernel launched without it); what comes before it
+// may overlap that kernel's tail.  griddep_launch_dependents lets such a
+// kernel after this one start once every block of this one has called it.
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 }  // namespace hopper

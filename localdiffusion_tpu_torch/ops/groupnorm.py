@@ -14,11 +14,15 @@ dtype) goes to the single-pass kernel, a larger one to the tiled pair.
     memory from h, w, c, the groups and the dtype alone, never from the
     batch; its launches are counted on `groupnorm_film_silu.launches`;
   * tiled pair, `csrc/groupnorm_tiled.cu` (replaces `_stats_kernel` +
-    `_apply_kernel`, `_gn_tiled_impl`): `gn_tiled_stats` writes each (row,
-    tile)'s per-channel float32 sum and sum of squares, `gn_tiled_apply`
-    folds a row's partials to the group statistics in float64 and
-    normalises, applies γ/β, FiLM and SiLU.  Two launches and no PyTorch op
-    between them.  The tile (`stats_tile`) comes from h·w and c alone, so a
+    `_apply_kernel`, `_gn_tiled_impl`): `gn_tiled_stats` writes each row's
+    per-channel sum and sum of squares, [B, 2, C] float32 as the TPU kernel
+    does, from one thread-block cluster of k blocks a row that sums in
+    float64 and folds its blocks' sums on chip; `gn_tiled_apply` folds a row's sums to the group
+    statistics in float64 and normalises, applies γ/β, FiLM and SiLU,
+    streaming x 16 bytes a thread.  Two launches and no PyTorch op between
+    them; the dispatcher launches the apply as a programmatic dependent of
+    the stats pass, so that it starts while the stats pass ends.  Their
+    plan (`gn_tiled_plan`) comes from h, w, c and the dtype alone, so a
     row's result does not depend on its batch.
 
 Both kernels are bound by device memory; see the sources for the designs.
@@ -36,9 +40,17 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the JAX package's row gate (`_MAX_VMEM_BLOCK_BYTES`): a larger row leaves
 # the single-pass kernel
 MAX_BLOCK_BYTES = 512 * 1024
-# elements (pixels × channels) of one tile of the tiled pair's kernels
-TILE_ELEMS = 8192
 MAX_GROUPS = 64  # csrc/groupnorm_tiled.cu: kMaxGroups
+# the tiled pair's plan (csrc/groupnorm_tiled.cu), from gn_tiled_sweep.py's
+# timings on the card (PERF.md).  The stats pass's blocks a row, a cluster:
+# 8, faster than a non-portable 16 at each of the main paths' tiled sites
+# with x in L2, as the op before leaves it (with L2 flushed, 16 is faster at
+# the stem's f32 rows).  The apply pass's tile: at least GN_APPLY_TILE_BYTES
+# of x, at most GN_APPLY_TILES tiles a row (16 to 32 at those sites, 128 to
+# 256 blocks at batch 8), the fastest of 16 to 64 KiB there.
+GN_TILED_CLUSTER = 8
+GN_APPLY_TILE_BYTES = 32 * 1024
+GN_APPLY_TILES = 32
 # the single-pass kernel's launch plan (csrc/groupnorm_film_silu.cu)
 GN_THREADS = 256  # kThreads
 GN_MAX_CLUSTER = 16  # kMaxCluster: blocks a row; above 8 a non-portable cluster
@@ -144,32 +156,54 @@ def pick_tile(hw: int, c: int, budget: int = MAX_BLOCK_BYTES) -> int:
     return t
 
 
-def stats_tile(hw: int, c: int) -> int:
-    """Pixels in one tile of the CUDA pair: ~`TILE_ELEMS` elements, from h·w
-    and c alone (the last tile of a row may be ragged)."""
-    return max(1, min(hw, TILE_ELEMS // c))
+def gn_tiled_plan(h: int, w: int, c: int, dtype) -> dict:
+    """The tiled pair's plan for an [*, h, w, c] input of this dtype: the
+    stats pass's k blocks a row (a cluster; at most h·w) and `pixels` a block
+    (the last blocks' slices may be shorter or empty), and the apply pass's
+    `apply_pixels` a block (`GN_APPLY_TILE_BYTES` of x, or a
+    `GN_APPLY_TILES`-th of a larger row; the last tile of a row may be
+    ragged).  It reads neither the batch nor the device: k and the slices
+    fix the order of the row's sums, so a row gives the same result alone or
+    in a batch."""
+    hw = h * w
+    pixel_bytes = c * torch.empty((), dtype=dtype).element_size()
+    k = min(GN_TILED_CLUSTER, hw)
+    tile_bytes = max(GN_APPLY_TILE_BYTES, -(-hw * pixel_bytes // GN_APPLY_TILES))
+    return dict(k=k, pixels=-(-hw // k),
+                apply_pixels=max(1, min(hw, tile_bytes // pixel_bytes)))
 
 
-def tiled_partials_reference(x, tile: int):
-    """Per (row, tile of `tile` pixels), the float32 per-channel sum and sum
-    of squares of x [B, H, W, C]: [B, nt, 2, C], nt = ceil(h·w / tile)."""
+def _slice_sums(x, pixels: int):
+    """Per row of x [B, H, W, C], the per-channel sum and sum of squares:
+    float64 sums over each slice of `pixels` pixels, the slices folded in
+    float64 and rounded once to float32: [B, 2, C].  In float64 the sums of
+    a row are within ~1e-12 of the exact ones, so the rounded result is the
+    same whatever the slices (and is the kernel's)."""
     b, h, w, c = x.shape
     hw = h * w
-    nt = -(-hw // tile)
-    xf = torch.nn.functional.pad(x.reshape(b, hw, c).float(), (0, 0, 0, nt * tile - hw))
-    xf = xf.reshape(b, nt, tile, c)
-    return torch.stack([xf.sum(dim=2), (xf * xf).sum(dim=2)], dim=2)
+    n = -(-hw // pixels)
+    xd = torch.nn.functional.pad(x.reshape(b, hw, c).double(), (0, 0, 0, n * pixels - hw))
+    xd = xd.reshape(b, n, pixels, c)
+    part = torch.stack([xd.sum(dim=2), (xd * xd).sum(dim=2)], dim=1)  # [B, 2, n, C]
+    return part.sum(dim=2).float()
 
 
-def tiled_apply_reference(x, partials, gamma, beta, scale=None, shift=None, groups=8,
-                          eps=1e-5):
-    """The apply pass: the partials [B, nt, 2, C] folded to each group's mean
-    and 1/std in float64 (var = E[x²] − mean² clamped at 0, then eps, then
+def tiled_stats_reference(x):
+    """The stats pass's plain version: per row of x [B, H, W, C], the
+    per-channel sum and sum of squares [B, 2, C] float32, as float64 sums of
+    `gn_tiled_plan`'s slices folded in float64 and rounded once."""
+    _, h, w, c = x.shape
+    return _slice_sums(x, gn_tiled_plan(h, w, c, x.dtype)["pixels"])
+
+
+def tiled_apply_reference(x, sums, gamma, beta, scale=None, shift=None, groups=8, eps=1e-5):
+    """The apply pass: the row sums [B, 2, C] folded to each group's mean and
+    1/std in float64 (var = E[x²] − mean² clamped at 0, then eps, then
     1/sqrt), rounded to float32, then the normalisation, γ/β, FiLM and SiLU
     in float32; the output in x's type."""
     b, h, w, c = x.shape
     cg = c // groups
-    sums = partials.double().sum(dim=1).reshape(b, 2, groups, cg).sum(dim=3)  # [B, 2, G]
+    sums = sums.double().reshape(b, 2, groups, cg).sum(dim=3)  # [B, 2, G]
     n = float(h * w * cg)
     mean = sums[:, 0] / n
     var = (sums[:, 1] / n - mean * mean).clamp(min=0.0)
@@ -185,13 +219,13 @@ def tiled_apply_reference(x, partials, gamma, beta, scale=None, shift=None, grou
 def groupnorm_film_silu_tiled_reference(x, gamma, beta, scale=None, shift=None,
                                         groups=8, eps=1e-5):
     """Plain tiled GroupNorm + FiLM + SiLU, a transcription of
-    `_gn_tiled_impl` in the JAX package: `pick_tile`, per-(row, tile)
-    per-channel sums, the group fold and the apply.  The fold is the CUDA
-    pair's, in float64 (JAX folds in float32, where E[x²] − mean² can go
-    below 0)."""
+    `_gn_tiled_impl` in the JAX package: the row sums over `pick_tile`'s
+    tiles, the group fold and the apply.  The tiles' sums and the fold are
+    the CUDA pair's, in float64 (JAX adds the tiles and folds in float32,
+    where E[x²] − mean² can go below 0)."""
     _, h, w, c = x.shape
-    partials = tiled_partials_reference(x, pick_tile(h * w, c))
-    return tiled_apply_reference(x, partials, gamma, beta, scale, shift, groups, eps)
+    sums = _slice_sums(x, pick_tile(h * w, c))
+    return tiled_apply_reference(x, sums, gamma, beta, scale, shift, groups, eps)
 
 
 def groupnorm_film_silu_plain(x, gamma, beta, scale=None, shift=None, groups=8, eps=1e-5):
@@ -261,18 +295,26 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _check_chunks(x, kernel: str):
+    """Raise unless `kernel` (the single pass, the tiled pair) can read x
+    [B, H, W, C]: a thread reads 16-byte chunks of a pixel's channels, so
+    C·esize must be a multiple of 16, at most one chunk a thread, and x on a
+    16-byte boundary."""
+    c, esize = x.shape[-1], x.element_size()
+    if (c * esize) % 16 or gn_chunks(c, esize) > GN_THREADS:
+        raise ValueError(f"the {kernel} reads 16-byte chunks of a pixel's channels: "
+                         f"C·{esize} bytes must be a multiple of 16 and at most "
+                         f"{16 * GN_THREADS}, got C={c}")
+    if x.data_ptr() % 16:
+        raise ValueError(f"the {kernel} reads x in 16-byte pieces: it must start on "
+                         "a 16-byte boundary")
+
+
 def _launch(x, gamma, beta, scale, shift, groups, eps, plan=None):
     """The single-pass kernel on x with `gn_plan`'s plan, or with `plan`
     (k, pixels, resident, smem) where a test asks for another."""
     b, h, w, c = x.shape
-    esize = x.element_size()
-    if (c * esize) % 16 or gn_chunks(c, esize) > GN_THREADS:
-        raise ValueError(f"the single-pass kernel reads 16-byte chunks of a pixel's channels: "
-                         f"C·{esize} bytes must be a multiple of 16 and at most "
-                         f"{16 * GN_THREADS}, got C={c}")
-    if x.data_ptr() % 16:
-        raise ValueError("the single-pass kernel reads x in 16-byte pieces: it must start on "
-                         "a 16-byte boundary")
+    _check_chunks(x, "single-pass kernel")
     plan = plan or gn_plan_of(x.shape, groups, x.dtype)
     fn = _fn("groupnorm_film_silu", "gn_film_silu",
              [_VP] * 6 + [_CI] * 4 + [_CF] + [_CI] * 5 + [_VP])
@@ -296,44 +338,54 @@ def groupnorm_film_silu_single_pass(x, gamma, beta, scale=None, shift=None, grou
     return groupnorm_film_silu_reference(x, gamma, beta, scale, shift, groups, eps)
 
 
-def _tiles(x):
-    """(pixels a tile, tiles a row) of the tiled pair for x [B, H, W, C]."""
-    _, h, w, c = x.shape
-    tile = stats_tile(h * w, c)
-    return tile, -(-(h * w) // tile)
-
-
 def _check_groups(groups):
     if groups > MAX_GROUPS:
         raise ValueError(f"groups={groups} is over the kernel's {MAX_GROUPS}")
 
 
-def _launch_stats(x):
+def _tiled_plan_of(x):
+    _, h, w, c = x.shape
+    return gn_tiled_plan(h, w, c, x.dtype)
+
+
+def _launch_stats(x, plan=None):
+    """The stats pass on x with `gn_tiled_plan`'s plan, or with `plan` (k,
+    pixels) where a test asks for another."""
     b, h, w, c = x.shape
-    tile, nt = _tiles(x)
-    partials = torch.empty((b, nt, 2, c), dtype=torch.float32, device=x.device)
-    fn = _fn("groupnorm_tiled", "gn_tiled_stats", [_VP, _VP] + [_CI] * 5 + [_VP])
-    _call(fn, "gn_tiled_stats", x, x.data_ptr(), partials.data_ptr(), b, h * w, c, tile,
-          _DTYPE_CODES[x.dtype])
+    _check_chunks(x, "tiled pair")
+    plan = plan or _tiled_plan_of(x)
+    sums = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
+    fn = _fn("groupnorm_tiled", "gn_tiled_stats", [_VP, _VP] + [_CI] * 6 + [_VP])
+    _call(fn, "gn_tiled_stats", x, x.data_ptr(), sums.data_ptr(), b, h * w, c, plan["k"],
+          plan["pixels"], _DTYPE_CODES[x.dtype])
     gn_tiled_stats.launches += 1
-    return partials
+    return sums
 
 
-def _launch_apply(x, partials, gamma, beta, scale, shift, groups, eps):
+def _launch_apply(x, sums, gamma, beta, scale, shift, groups, eps, plan=None,
+                  after_stats=False):
+    """The apply pass with `gn_tiled_plan`'s tile, or `plan`'s
+    apply_pixels.  after_stats: launched right after the stats pass that
+    wrote `sums`, with nothing between them on the stream, as the
+    dispatcher does; it then starts while that pass ends (a programmatic
+    dependent launch)."""
     b, h, w, c = x.shape
+    _check_chunks(x, "tiled pair")
+    plan = plan or _tiled_plan_of(x)
     out = torch.empty_like(x)
-    fn = _fn("groupnorm_tiled", "gn_tiled_apply", [_VP] * 7 + [_CI] * 5 + [_CF, _CI, _VP])
-    _call(fn, "gn_tiled_apply", x, x.data_ptr(), partials.data_ptr(), gamma.data_ptr(),
+    fn = _fn("groupnorm_tiled", "gn_tiled_apply",
+             [_VP] * 7 + [_CI] * 5 + [_CF, _CI, _CI, _VP])
+    _call(fn, "gn_tiled_apply", x, x.data_ptr(), sums.data_ptr(), gamma.data_ptr(),
           beta.data_ptr(), _ptr(scale), _ptr(shift), out.data_ptr(), b, h * w, c, groups,
-          _tiles(x)[0], float(eps), _DTYPE_CODES[x.dtype])
+          plan["apply_pixels"], float(eps), _DTYPE_CODES[x.dtype], int(after_stats))
     gn_tiled_apply.launches += 1
     return out
 
 
 def gn_tiled_stats(x):
     """Pass 1 of the tiled pair: x [B, H, W, C] contiguous, float32 or
-    bfloat16 → partials [B, nt, 2, C] float32, per (row, tile of
-    `stats_tile(h·w, c)` pixels) the sum and sum of squares of each channel."""
+    bfloat16 → sums [B, 2, C] float32, per row the sum and sum of squares of
+    each channel (`tiled_stats_reference` on a CPU tensor)."""
     if x.ndim != 4:
         raise ValueError(f"x must be [B, H, W, C], got shape {tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODES:
@@ -341,25 +393,25 @@ def gn_tiled_stats(x):
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     if not _device(x):
-        return tiled_partials_reference(x, _tiles(x)[0])
+        return tiled_stats_reference(x)
     return _launch_stats(x)
 
 
-def gn_tiled_apply(x, partials, gamma, beta, scale=None, shift=None, groups=8, eps=1e-5):
-    """Pass 2 of the tiled pair: the group fold of `partials` (from
+def gn_tiled_apply(x, sums, gamma, beta, scale=None, shift=None, groups=8, eps=1e-5):
+    """Pass 2 of the tiled pair: the group fold of `sums` (from
     `gn_tiled_stats` on the same x) and the normalisation, γ/β, FiLM and
     SiLU; the output in x's type."""
     _check(x, gamma, beta, scale, shift, groups)
     _check_groups(groups)
     b, _, _, c = x.shape
-    want = (b, _tiles(x)[1], 2, c)
-    if (tuple(partials.shape) != want or partials.dtype != torch.float32
-            or not partials.is_contiguous() or partials.device != x.device):
-        raise ValueError(f"partials must be contiguous float32 {want} on {x.device}, "
-                         f"got {partials.dtype} {tuple(partials.shape)} on {partials.device}")
+    want = (b, 2, c)
+    if (tuple(sums.shape) != want or sums.dtype != torch.float32
+            or not sums.is_contiguous() or sums.device != x.device):
+        raise ValueError(f"sums must be contiguous float32 {want} on {x.device}, "
+                         f"got {sums.dtype} {tuple(sums.shape)} on {sums.device}")
     if not _device(x):
-        return tiled_apply_reference(x, partials, gamma, beta, scale, shift, groups, eps)
-    return _launch_apply(x, partials, gamma, beta, scale, shift, groups, eps)
+        return tiled_apply_reference(x, sums, gamma, beta, scale, shift, groups, eps)
+    return _launch_apply(x, sums, gamma, beta, scale, shift, groups, eps)
 
 
 def groupnorm_film_silu(x, gamma, beta, scale=None, shift=None, groups=8, eps=1e-5):
@@ -377,7 +429,9 @@ def groupnorm_film_silu(x, gamma, beta, scale=None, shift=None, groups=8, eps=1e
     if not large_block(x.shape):
         return _launch(x, gamma, beta, scale, shift, groups, eps)
     _check_groups(groups)
-    return _launch_apply(x, _launch_stats(x), gamma, beta, scale, shift, groups, eps)
+    plan = _tiled_plan_of(x)
+    return _launch_apply(x, _launch_stats(x, plan), gamma, beta, scale, shift, groups, eps, plan,
+                         after_stats=True)
 
 
 groupnorm_film_silu.launches = 0

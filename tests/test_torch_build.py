@@ -11,7 +11,10 @@ import pytest
 from localdiffusion_tpu_torch.ops import _build
 
 SOURCES = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-HOPPER_USERS = ["flash_attention", "groupnorm_film_silu", "linear_attention", "resnet_block"]
+HOPPER_USERS = ["flash_attention", "groupnorm_film_silu", "groupnorm_tiled", "linear_attention",
+                "resnet_block"]
+# the GroupNorm sources' shared header, which includes csrc/hopper.cuh
+GN_COMMON_USERS = ["groupnorm_film_silu", "groupnorm_tiled"]
 
 
 @pytest.fixture
@@ -29,6 +32,17 @@ def test_sources_are_the_file_and_its_local_headers(name):
     assert _build.CSRC / f"{name}.cu" in found
     assert all(p.exists() and p.parent == _build.CSRC for p in found)
     assert (_build.CSRC / "hopper.cuh" in found) == (name in HOPPER_USERS)
+    assert (_build.CSRC / "groupnorm_common.cuh" in found) == (name in GN_COMMON_USERS)
+
+
+@pytest.mark.parametrize("name", GN_COMMON_USERS)
+def test_editing_the_groupnorm_header_changes_both_groupnorm_libraries(csrc_copy, name):
+    before = _build.library_path(name)
+    others = {n: _build.library_path(n) for n in SOURCES if n not in GN_COMMON_USERS}
+    header = csrc_copy / "groupnorm_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.library_path(name) != before
+    assert {n: _build.library_path(n) for n in others} == others
 
 
 @pytest.mark.parametrize("name", HOPPER_USERS)

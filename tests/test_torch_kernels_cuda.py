@@ -401,6 +401,60 @@ def test_single_pass_groupnorm_row_alone_equals_row_in_batch(cuda_device, shape,
     torch.testing.assert_close(whole.float(), want.float(), rtol=tol, atol=tol)
 
 
+def single_pass_digests() -> dict:
+    """SHA-256 (first 16 hex digits) of the single-pass kernel's output at
+    each `GN_PLAN_SHAPES` site (batch 2, FiLM) in both dtypes, on inputs
+    made with numpy from seed 0: the kernel's results, bit for bit."""
+    import hashlib
+
+    import numpy as np
+
+    out = {}
+    for shape in GN_PLAN_SHAPES:
+        shape = (2,) + shape[1:]
+        c = shape[3]
+        rng = np.random.default_rng(0)
+        x, g, b, s, h = (torch.as_tensor(a).cuda() for a in (
+            rng.standard_normal(shape, dtype=np.float32) * 1.5 + 0.3,
+            rng.standard_normal(c, dtype=np.float32), rng.standard_normal(c, dtype=np.float32),
+            rng.standard_normal((2, c), dtype=np.float32),
+            rng.standard_normal((2, c), dtype=np.float32)))
+        for dtype in (torch.float32, torch.bfloat16):
+            y = groupnorm_film_silu_single_pass(x.to(dtype), g, b, s, h, groups=8)
+            digest = hashlib.sha256(y.float().cpu().numpy().tobytes()).hexdigest()[:16]
+            out[f"{'x'.join(map(str, shape))} {str(dtype)[6:]}"] = digest
+    return out
+
+
+# `single_pass_digests()` of the single-pass kernel as it was built before
+# its 16-byte and cluster-launch helpers moved into
+# csrc/groupnorm_common.cuh, on an NVIDIA H100 80GB HBM3 with nvcc 12.9
+# (V12.9.86).  They pin the single pass's arithmetic while code it shares
+# is reworked.  Two changes move them with no fault in the program: another
+# compiler, and a change meant to alter the single pass's results (its
+# division, its sum order); take them again then, from a build of the
+# source as it stood before that change
+SINGLE_PASS_DIGESTS = {
+    "2x28x28x32 float32": "2461bbdcc576bd52", "2x28x28x32 bfloat16": "2e184c83de9288bd",
+    "2x14x14x32 float32": "fc3c70fe45cef6b4", "2x14x14x32 bfloat16": "76aec31999b38556",
+    "2x14x14x64 float32": "d02fa6e6f7400289", "2x14x14x64 bfloat16": "4399eeca7039a0ff",
+    "2x7x7x64 float32": "9466e88528f5c396", "2x7x7x64 bfloat16": "c556d14aaef5c084",
+    "2x7x7x128 float32": "2856dc2e52bcc969", "2x7x7x128 bfloat16": "a557383e8dceaedd",
+    "2x64x64x32 float32": "773d0eaad8793d4c", "2x64x64x32 bfloat16": "9a06727dbb7e1c34",
+    "2x32x32x64 float32": "60c3ebc161ab0921", "2x32x32x64 bfloat16": "0ef1f761665292f1",
+    "2x16x16x128 float32": "27bfdef5b2e57d7a", "2x16x16x128 bfloat16": "c5dcecf78d61730d",
+    "2x32x32x128 float32": "81c2327cebc28922", "2x32x32x128 bfloat16": "4152325bbc8e5b33",
+    "2x256x256x32 float32": "358136434535013d", "2x256x256x32 bfloat16": "031227a18de53f8b",
+}
+
+
+@pytest.mark.cuda
+def test_single_pass_groupnorm_is_bit_unchanged(cuda_device):
+    """The single-pass kernel gives, bit for bit, what it gave before its
+    helpers moved into the header it shares with the tiled pair."""
+    assert single_pass_digests() == SINGLE_PASS_DIGESTS
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 2, 4, 8, 16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -726,8 +780,9 @@ def test_resnet_block_kernels_reject_what_they_cannot_take(cuda_device):
 # ---------------------------------------------------------------------------
 # the large blocks of a branched s2d-stem UNet call at batch 8 (f32: 128x128
 # at C=32, 64x64 at C=64) and of the 256px bf16 chain (32x32 at C=256), a
-# ragged last tile, and more channels than a block has threads
-TILED_SHAPES = [(8, 128, 128, 32), (8, 64, 64, 64), (8, 32, 32, 256), (2, 40, 45, 96),
+# row that the plan's slices and tiles leave ragged (1,935 pixels: 8 slices
+# of 242, tiles of 85), and more channels than a block has threads
+TILED_SHAPES = [(8, 128, 128, 32), (8, 64, 64, 64), (8, 32, 32, 256), (2, 43, 45, 96),
                 (1, 24, 24, 512)]
 
 
@@ -736,6 +791,11 @@ def _bf16_steps(got, want):
     got, want = got.float(), want.float()
     _, e = torch.frexp(torch.maximum(got.abs(), want.abs()).clamp_min(1e-30))
     return ((got - want).abs() / torch.ldexp(torch.ones_like(got), e - 8)).max().item()
+
+
+def _rel_per_row(got, want):
+    """Largest relative norm of got − want over the rows of [B, ...]."""
+    return ((got - want).flatten(1).norm(dim=1) / want.flatten(1).norm(dim=1)).max().item()
 
 
 @pytest.mark.cuda
@@ -747,7 +807,11 @@ def test_tiled_groupnorm_matches_plain_version(cuda_device, shape, film, dtype):
     pass once each, and no single-pass kernel.  Against the plain tiled
     version: f32 3e-5 (the JAX bar for its tiled kernel; the sums run in
     another order), bf16 one output step (both round the same float32
-    value once)."""
+    value once: the row sums, summed in float64 on both sides, round to
+    the same floats).  Besides, the output equals, bit for bit, the plain
+    apply on the kernel's own row sums (the apply keeps the plain
+    version's rounding points), and those sums are within 1e-5 relative
+    norm per row of the plain sums."""
     assert G.large_block(shape)
     x, g, b, s, h = _inputs(shape, film, dtype, cuda_device)
     before = (G.groupnorm_film_silu.launches, G.gn_tiled_stats.launches,
@@ -763,41 +827,125 @@ def test_tiled_groupnorm_matches_plain_version(cuda_device, shape, film, dtype):
         torch.testing.assert_close(got, want, rtol=3e-5, atol=3e-5)
     else:
         assert _bf16_steps(got, want) <= 1.0
+    sums = G.gn_tiled_stats(x)
+    assert torch.equal(got, G.tiled_apply_reference(x, sums, g, b, s, h, groups=8))
+    assert _rel_per_row(sums, G.tiled_stats_reference(x)) <= 1e-5
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", TILED_SHAPES)
 def test_tiled_stats_partials_match_plain_per_row(cuda_device, shape, dtype):
-    """The stats pass's per-tile partials against the plain partials at the
-    same tiles: relative norm per row <= 1e-5 (float32 sums in another
-    order read ~1e-7), a bar that one dropped tile of a row fails."""
+    """The stats pass's row sums [B, 2, C] against the plain version's:
+    relative norm per row <= 1e-5 (both sum in float64 and round once, so
+    a sound kernel reads 0 but for a rare tie), a bar that the sums with
+    one block's slice dropped fail."""
     x = _inputs(shape, False, dtype, cuda_device)[0]
     got = G.gn_tiled_stats(x)
     torch.cuda.synchronize()
-    want = G.tiled_partials_reference(x, G.stats_tile(shape[1] * shape[2], shape[3]))
-    assert got.shape == want.shape and got.dtype == torch.float32
+    want = G.tiled_stats_reference(x)
+    assert got.shape == want.shape == (shape[0], 2, shape[3]) and got.dtype == torch.float32
+    assert _rel_per_row(got, want) <= 1e-5
+    plan = G.gn_tiled_plan(*shape[1:], dtype)
+    j = plan["k"] // 2
+    dropped = x.reshape(shape[0], -1, shape[3]).clone()
+    dropped[:, j * plan["pixels"]:(j + 1) * plan["pixels"]] = 0
+    assert _rel_per_row(G.tiled_stats_reference(dropped.view(shape)), want) > 1e-5
 
-    def worst(p):
-        return ((p - want).flatten(1).norm(dim=1) / want.flatten(1).norm(dim=1)).max().item()
 
-    assert worst(got) <= 1e-5
-    dropped = got.clone()
-    dropped[:, got.shape[1] // 2] = 0
-    assert worst(dropped) > 1e-5
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 3, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiled_pair_cluster_sizes(cuda_device, dtype, k):
+    """Every cluster size the plan can choose (k = min(16, h·w); 16 a
+    non-portable cluster), with ragged and empty last slices (1,800 pixels
+    at k = 16: 113 a block), and apply tiles of 1, 7 and the plan's
+    pixels: the sums within 1e-5 relative norm per row of the plain sums of
+    the same slices, the apply on them within the pair's bar of its plain
+    version, every tile giving the same output bit for bit, and so the
+    apply launched as the stats pass's programmatic dependent."""
+    shape = (3, 40, 45, 96)
+    x, g, b, s, h = _inputs(shape, True, dtype, cuda_device)
+    pixels = -(-40 * 45 // k)
+    plan = dict(k=k, pixels=pixels)
+    sums = G._launch_stats(x, plan)
+    outs = [G._launch_apply(x, sums, g, b, s, h, 8, 1e-5, dict(apply_pixels=t))
+            for t in (1, 7, G.gn_tiled_plan(40, 45, 96, dtype)["apply_pixels"])]
+    # the apply as the stats pass's programmatic dependent, as the dispatcher
+    # launches it: the same sums and output
+    again = G._launch_stats(x, plan)
+    outs.append(G._launch_apply(x, again, g, b, s, h, 8, 1e-5, dict(apply_pixels=7),
+                                after_stats=True))
+    torch.cuda.synchronize()
+    assert torch.equal(again, sums)
+    assert _rel_per_row(sums, G._slice_sums(x, pixels)) <= 1e-5
+    want = G.tiled_apply_reference(x, sums, g, b, s, h, groups=8)
+    if dtype == torch.float32:
+        torch.testing.assert_close(outs[0], want, rtol=3e-5, atol=3e-5)
+    else:
+        assert _bf16_steps(outs[0], want) <= 1.0
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+RCP_CHECK = r"""
+#include <cstdio>
+#include "groupnorm_common.cuh"
+// every float z in [1, 2^128): gn::rcp_rn_fast(z) against __frcp_rn(z),
+// mismatches below 2^126 in bad[0], above it in bad[1]
+__global__ void check(unsigned long long* bad) {
+  const unsigned lo = 0x3f800000u, n = 0x7f800000u - lo;
+  for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    const float z = __uint_as_float(lo + i);
+    if (__float_as_uint(gn::rcp_rn_fast(z)) != __float_as_uint(__frcp_rn(z)))
+      atomicAdd(bad + (z >= 0x1p126f), 1ull);
+  }
+}
+int main() {
+  unsigned long long* d;
+  unsigned long long h[2];
+  cudaMalloc(&d, sizeof h);
+  cudaMemset(d, 0, sizeof h);
+  check<<<132 * 16, 256>>>(d);
+  if (cudaMemcpy(h, d, sizeof h, cudaMemcpyDeviceToHost) != cudaSuccess) return 1;
+  printf("%llu %llu\n", h[0], h[1]);
+  return 0;
+}
+"""
+
+
+@pytest.mark.cuda
+def test_fast_reciprocal_is_frcp_rn_on_its_range(cuda_device, tmp_path):
+    """The apply pass's SiLU takes `rcp_rn_fast` (no slow-path branch) for
+    1 + e^-y below 2^126 and __frcp_rn above: the two agree bit for bit on
+    every float of [1, 2^126), so the output is __frcp_rn's, the plain
+    version's reciprocal.  Above 2^126 (a subnormal 1/z) they differ, which
+    is why the kernel leaves that range to __frcp_rn."""
+    import subprocess
+
+    from localdiffusion_tpu_torch.ops import _build
+
+    src, exe = tmp_path / "rcp_check.cu", tmp_path / "rcp_check"
+    src.write_text(RCP_CHECK)
+    subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                    "-O3", "-I", str(_build.CSRC), "-o", str(exe), str(src)], check=True)
+    below, above = map(int, subprocess.run([str(exe)], capture_output=True, text=True,
+                                           check=True).stdout.split())
+    assert below == 0 and above > 0
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(8, 128, 128, 32), (8, 32, 32, 256)])
 def test_tiled_groupnorm_row_alone_equals_row_in_batch(cuda_device, shape, dtype):
-    """The tiles come from h·w and c alone and the fold runs in a fixed
-    order: row 0 alone equals row 0 of the batch of 8, bit for bit."""
+    """The plan comes from h, w, c and the dtype alone and the folds run in
+    a fixed order: row 0 alone equals row 0 of the batch of 8, bit for bit,
+    in the row sums and in the output."""
     x, g, b, s, h = _inputs(shape, True, dtype, cuda_device)
     whole = groupnorm_film_silu(x, g, b, s, h, groups=8)
     alone = groupnorm_film_silu(x[:1].clone(), g, b, s[:1].clone(), h[:1].clone(), groups=8)
+    sums, sums_alone = G.gn_tiled_stats(x), G.gn_tiled_stats(x[:1].clone())
     torch.cuda.synchronize()
-    assert torch.equal(alone, whole[:1])
+    assert torch.equal(alone, whole[:1]) and torch.equal(sums_alone, sums[:1])
 
 
 @pytest.mark.cuda
@@ -812,8 +960,26 @@ def test_tiled_groupnorm_rejects_what_it_cannot_take(cuda_device):
         G.gn_tiled_stats(x.transpose(1, 2))
     with pytest.raises(TypeError):
         G.gn_tiled_stats(x.half())
-    partials = G.gn_tiled_stats(x)
-    with pytest.raises(ValueError, match="partials"):
-        G.gn_tiled_apply(x, partials[:1].contiguous(), g, b, s, h)
-    with pytest.raises(ValueError, match="partials"):
-        G.gn_tiled_apply(x, partials.cpu(), g, b, s, h)
+    sums = G.gn_tiled_stats(x)
+    with pytest.raises(ValueError, match="sums"):
+        G.gn_tiled_apply(x, sums[:1].contiguous(), g, b, s, h)
+    with pytest.raises(ValueError, match="sums"):
+        G.gn_tiled_apply(x, sums.cpu(), g, b, s, h)
+    with pytest.raises(ValueError, match="sums"):  # per-tile partials, [B, tiles, 2, C]
+        G.gn_tiled_apply(x, sums[:, None].contiguous(), g, b, s, h)
+    with pytest.raises(ValueError, match="sums"):
+        G.gn_tiled_apply(x, sums.transpose(1, 2).contiguous(), g, b, s, h)
+    # the kernels read 16-byte chunks: C·esize a multiple of 16, x aligned
+    odd = torch.zeros(1, 128, 128, 12, dtype=torch.bfloat16, device=cuda_device)
+    assert G.large_block(odd.shape)
+    with pytest.raises(ValueError, match="16-byte chunks"):
+        G.gn_tiled_stats(odd)
+    with pytest.raises(ValueError, match="16-byte chunks"):
+        groupnorm_film_silu(odd, torch.ones(12, device=cuda_device),
+                            torch.zeros(12, device=cuda_device), groups=4)
+    off = torch.zeros(x.numel() + 1, device=cuda_device)[1:].view(x.shape)
+    assert off.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        G.gn_tiled_stats(off)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        G.gn_tiled_apply(off, sums, g, b, s, h)
