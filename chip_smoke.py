@@ -55,19 +55,36 @@ Phases, each printed on its own line with the elapsed seconds:
 9. 256px check: the chain against the same chain with every kernel's plain
    version on the card (same noise), and one UNet call against the CPU;
 10. 256px profile: one chain under torch.profiler;
-11. stem kernels: the s2d-stem configuration (`stem256_config()`, the
+11. Stage A (the 256px configuration's detector: PatchCore over the
+    denoiser's down2_block2 and down3_block2 taps at t=5, bf16, the same
+    seeded random weights): (a) a bank at the deployment's size, 200
+    normal synthetic brains → 819,200 patches → a 10% k-center coreset of
+    81,920 × 192, and its ladder fitted on their maps, through
+    `ood.bank.build_bank` (seconds of the taps, k-center and the ladder);
+    (b) Stage A on 2 tumour brains, card against CPU with the same weights
+    and bank in float32 and bf16, and with the kernels against their plain
+    versions on the card; (c) k-center on the card against the CPU on a
+    20,000 × 192 embedding, k = 2,000, one projection: the same rows;
+    (d) with every count at 0, `translate` without a mask on 4 tumour
+    brains (the bank and ladder found by `build_frontend`): Stage A, split
+    into the feature pass, the nearest-neighbour search, the map and the
+    host's ladder and refinement, then the branched bf16 chain, Stage A's
+    launches counted apart from Stage B's; then an `InferenceServer`
+    answering four requests without masks in two batches, the second's
+    Stage A overlapping the first's chain;
+12. stem kernels: the s2d-stem configuration (`stem256_config()`, the
     README's recommended 256px deployment: f32, DDIM-50, plain chain) at
     full width, one UNet call at batch 8 recorded: the GroupNorm op at its
     40 Block shapes (the tiled pair at the 14 past the row gate) and full
     attention at its three 16x16 sites, f32, against their plain versions,
     timed as in phase 7;
-12. stem main path: with every count at 0, the plain DDIM-50 chain at batch
+13. stem main path: with every count at 0, the plain DDIM-50 chain at batch
     4 (detector none), the branched DDIM-50 chain with disc masks, then an
     `InferenceServer` answering three requests; every kernel's launches
     checked per UNet call;
-13. stem check: both chains against the same chains with every kernel's
+14. stem check: both chains against the same chains with every kernel's
     plain version (same noise), and one UNet call against the CPU, f32;
-14. stem profile: the plain chain under torch.profiler.
+15. stem profile: the plain chain under torch.profiler.
 
 The line before the last is one JSON object with the kernels' numbers; the
 last line is the device record.  Any failed check raises, so the exit code
@@ -81,21 +98,32 @@ import json
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from localdiffusion_tpu_torch.config import flagship_config, mri256_config, stem256_config
+from localdiffusion_tpu_torch.data.synthetic import synthetic_brain_translation
 from localdiffusion_tpu_torch.diffusion.gaussian import GaussianDiffusion, build_gd
 from localdiffusion_tpu_torch.diffusion.sampler import ArrayNoise
+from localdiffusion_tpu_torch.factory import build_frontend
 from localdiffusion_tpu_torch.models.blocks import (
     Attention,
     GroupNormFilmSiLU,
     LinearAttention,
     ResnetBlock,
 )
-from localdiffusion_tpu_torch.ood.manual import manual_mask
+from localdiffusion_tpu_torch.ood.bank import build_bank, calibration_images
+from localdiffusion_tpu_torch.ood.features import DenoiserFeatureSource
+from localdiffusion_tpu_torch.ood.frontend import OODFrontend
+from localdiffusion_tpu_torch.ood.patchcore import (
+    PatchCore,
+    kcenter_greedy_indices,
+    random_projection,
+)
+from localdiffusion_tpu_torch.ood.thresholds import manual_mask, near_threshold
 from localdiffusion_tpu_torch.ops import _build
 from localdiffusion_tpu_torch.ops import groupnorm as G
 from localdiffusion_tpu_torch.ops import linear_attention as LA
@@ -209,6 +237,24 @@ CHAIN_TOL = 1e-3
 # >= 0.99 on images in [0, 14.6].
 MRI_UNET_REL, MRI_UNET_CORR, MRI_UNET_F32_TOL = 5e-2, 0.999, 1e-3
 MRI_CHAIN_REL, MRI_CHAIN_CORR = 0.1, 0.99
+# Stage A of the 256px configuration (PatchCore over the denoiser's taps at
+# t=5, down2_block2 ⊕ down3_block2 = 192 channels at 64x64): the bank of 200
+# normal brains, 819,200 patches, a 10% k-center coreset; per detect call the
+# down path to down3_block2 launches down3's 4 single-pass GN (2 unfused
+# blocks at 32x32x128), down0-2's 3 linear-attention sites (kv and q) and 6
+# fused blocks (12 conv3x3_stats, 6 epilogues).  Card vs CPU in float32:
+# maps within 1e-4 relative L2, binary masks equal but for images with a
+# map value within 1e-4 of one of their thresholds; in bf16 (and kernels
+# against plain versions) the one-UNet-call bars above.  k-center: the same
+# rows on the card and the CPU (float64 distances rounded to float32).
+STAGE_A_CALIB, STAGE_A_BANK_SHAPE = 200, (81_920, 192)
+STAGE_A_PER_DETECT = {"groupnorm_film_silu": 4, "linear_attention_kv": 3,
+                      "linear_attention_q": 3, "conv3x3_stats": 12, "epilogue": 6}
+STAGE_A_F32_REL, STAGE_A_NEAR = 1e-4, 1e-4
+KCENTER_CHECK = (20_000, 2_000)  # rows, k
+STAGE_A_SERVE_BATCH = 2  # four requests, two batches: the second's Stage A overlaps
+STAGE_A_WAVE_S = 0.5  # between them: past the first batch's Stage A
+STAGE_A_DIR = Path(__file__).resolve().parent / "build" / "stage_a"
 # s2d stem, float32.  The DDIM-50 chains, kernels vs plain versions (same
 # noise), and one UNet call, card vs CPU: float32 sums in another order
 # (~1e-6 per call) through 50 DDIM updates: relative L2 <= 1e-3, and for
@@ -1337,6 +1383,234 @@ def mri256() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Stage A of the 256px configuration: PatchCore over the denoiser's taps
+# ---------------------------------------------------------------------------
+
+class CountedFrontend:
+    """Wraps a front end: each `detect` is timed on the host clock (the
+    device drained before and after) and its kernel launches are counted
+    apart from Stage B's."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.calls, self.launches, self.seconds = 0, {}, []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def detect(self, lr):
+        torch.cuda.synchronize()
+        before, t0 = read_counts(), time.perf_counter()
+        out = self.inner.detect(lr)
+        torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t0)
+        for k, v in read_counts().items():
+            self.launches[k] = self.launches.get(k, 0) + v - before[k]
+        self.calls += 1
+        return out
+
+
+def _stage_a_frontend(cfg, gd, bank):
+    """A PatchCore front end over `gd`'s taps with the given bank."""
+    src = DenoiserFeatureSource(gd, t=cfg.ood.feature_t)
+    return OODFrontend(cfg, patchcore=PatchCore(cfg.ood, source=src, memory_bank=bank))
+
+
+def _map_agreement(got, want) -> tuple:
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    return rel, float(np.corrcoef(got.ravel(), want.ravel())[0, 1])
+
+
+def stage_a256() -> dict:
+    """(a) a bank at the deployment's size, (b) Stage A on the card against
+    the CPU and against the plain versions, (c) k-center on the card against
+    the CPU, (d) the counted main path: `translate` and the server without
+    masks."""
+    cfg = mri256_config()
+    gd = build_gd(cfg, device="cuda")
+    s = gd.image_size
+    d = cfg.data
+    brains = lambda n, tumor, seed: synthetic_brain_translation(
+        n, s, tumor=tumor, seed=seed, mean_t1=d.mean_t1, std_t1=d.std_t1,
+        mean_flair=d.mean_flair, std_flair=d.std_flair)[1]
+
+    # (a) the bank: 200 normal brains → 819,200 patches → a 10% coreset
+    t0 = time.perf_counter()
+    calib = calibration_images(cfg, STAGE_A_CALIB)
+    data_s = time.perf_counter() - t0
+    STAGE_A_DIR.mkdir(parents=True, exist_ok=True)
+    bank_path = str(STAGE_A_DIR / "memory_bank_mri256_denoiser.npy")
+    built = build_bank(cfg, bank_path, gd=gd, images=calib)
+    bank, secs, lad = built["bank"], built["seconds"], built["ladder"]
+    log(f"Stage A bank: {STAGE_A_CALIB} normal brains at {s}px (made in {data_s:.2f}s), "
+        f"{built['patches']} patches -> {bank.shape} {bank.dtype} ({bank.nbytes / 1e6:.1f} MB); "
+        f"taps {secs['taps']:.3f}s, k-center {secs['kcenter']:.3f}s "
+        f"({bank.shape[0]} steps), ladder fit {secs['ladder']:.3f}s (the calibration maps); "
+        f"ladder gate {lad.gate:.6g}, rungs {[(r.above, r.threshold) for r in lad.rungs]}")
+    if bank.shape != STAGE_A_BANK_SHAPE or not np.all(np.isfinite(bank)):
+        raise RuntimeError(f"Stage A bank {bank.shape}, expected {STAGE_A_BANK_SHAPE}")
+    lcfg = cfg.replace(ood=dataclasses.replace(cfg.ood, ladder_path=built["ladder_path"]))
+
+    # (b) card against CPU (f32, bf16), kernels against plain versions (bf16)
+    lr2 = brains(2, True, 7)
+    checks = {}
+    state = {k: v.cpu() for k, v in gd.model.state_dict().items()}
+    for dtype in ("float32", "bfloat16"):
+        c2 = lcfg.replace(train=dataclasses.replace(lcfg.train, compute_dtype=dtype))
+        card = gd if dtype == "bfloat16" else build_gd(c2, device="cuda")
+        card.model.load_state_dict(state)
+        cpu = build_gd(c2, device="cpu")
+        cpu.model.load_state_dict(state)
+        fe_card, fe_cpu = _stage_a_frontend(c2, card, bank), _stage_a_frontend(c2, cpu, bank)
+        _, b_card, m_card = fe_card.detect(lr2)
+        t0 = time.perf_counter()
+        _, b_cpu, m_cpu = fe_cpu.detect(lr2)
+        cpu_s = time.perf_counter() - t0
+        rel, corr = _map_agreement(m_card, m_cpu)
+        differ = [int((b_card[i] != b_cpu[i]).sum()) for i in range(len(lr2))]
+        if dtype == "float32":
+            near = [near_threshold(m_cpu[i], lad, STAGE_A_NEAR, c2.ood.refine_hi_frac,
+                                   c2.ood.refine_lo_frac) for i in range(len(lr2))]
+            ok = rel <= STAGE_A_F32_REL and all(n == 0 or nr for n, nr in zip(differ, near))
+            bar = (f"map rel L2 <= {STAGE_A_F32_REL:g}; masks equal but where a map value is "
+                   f"within {STAGE_A_NEAR:g} of a threshold (near: {near})")
+        else:
+            ok = rel <= MRI_UNET_REL and corr >= MRI_UNET_CORR
+            bar = f"map rel L2 <= {MRI_UNET_REL:g}, correlation >= {MRI_UNET_CORR:g}"
+        log(f"Stage A check, card vs CPU ({dtype}, batch 2 tumour brains, same weights and "
+            f"bank): map rel L2 {rel:.4g}, correlation {corr:.7f}, max_abs_err "
+            f"{float(np.abs(m_card - m_cpu).max()):.4g} (map max {float(m_cpu.max()):.4g}); "
+            f"binary pixels differing {differ} of {b_cpu[0].size}, OOD share card "
+            f"{float(b_card.mean()):.4f} CPU {float(b_cpu.mean()):.4f} ({bar}) "
+            f"{'ok' if ok else 'FAIL'}; CPU Stage A {cpu_s:.1f}s")
+        if not ok:
+            raise RuntimeError(f"Stage A on the card disagrees with the CPU's ({dtype})")
+        checks[f"card_vs_cpu_{dtype}"] = dict(rel_l2=rel, corr=corr, binary_differ=differ)
+        if dtype == "bfloat16":
+            gd.model.use_plain_kernels(True)
+            try:
+                _, b_plain, m_plain = fe_card.detect(lr2)
+            finally:
+                gd.model.use_plain_kernels(False)
+            rel, corr = _map_agreement(m_card, m_plain)
+            ok = rel <= MRI_UNET_REL and corr >= MRI_UNET_CORR
+            log(f"Stage A check, kernels vs plain versions on the card (bf16): map rel L2 "
+                f"{rel:.4g}, correlation {corr:.7f}, binary pixels differing "
+                f"{[int((b_card[i] != b_plain[i]).sum()) for i in range(len(lr2))]} ({bar}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError("Stage A with the kernels disagrees with the plain versions")
+            checks["kernels_vs_plain_bfloat16"] = dict(rel_l2=rel, corr=corr)
+        else:
+            del card
+        del cpu, fe_cpu
+
+    # (c) k-center, card against CPU, one projection, on the denoiser's own
+    # embedding of five calibration brains
+    n, k = KCENTER_CHECK
+    emb = PatchCore(cfg.ood, source=DenoiserFeatureSource(gd, t=cfg.ood.feature_t)).embed(
+        calib[:5])[:n].contiguous()
+    proj = random_projection(emb.shape[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = kcenter_greedy_indices(emb, k, proj=proj).cpu()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = kcenter_greedy_indices(emb.cpu(), k, proj=proj)
+    cpu_s = time.perf_counter() - t0
+    same = torch.equal(on_card, on_cpu)
+    first = int((on_card != on_cpu).nonzero()[0, 0]) if not same else None
+    log(f"Stage A check, k-center card vs CPU ({n} x {emb.shape[1]}, k {k}, projection "
+        f"seed 0): indices {'identical' if same else f'DIFFER from step {first}'}; "
+        f"card {card_s:.2f}s, CPU {cpu_s:.2f}s")
+    if not same:
+        raise RuntimeError("k-center on the card picks other rows than on the CPU")
+    checks["kcenter_identical"] = True
+
+    # (d) the counted main path: translate and the server, no masks
+    fe, cfg2 = build_frontend(cfg.replace(ood=dataclasses.replace(
+        cfg.ood, memory_bank_path=bank_path)), gd=gd, device="cuda", verbose=False)
+    if cfg2.ood.ladder_path != built["ladder_path"]:
+        raise RuntimeError(f"build_frontend found ladder {cfg2.ood.ladder_path!r}")
+    counted = CountedFrontend(fe)
+    pipe = LocalDiffusionPipeline(cfg2, gd, frontend=counted)
+    lo, hi = pipe.min_max_val
+    lr = brains(MRI_BATCH, True, 11)
+    hr = synthetic_brain_translation(MRI_BATCH, s, tumor=True, seed=11, mean_t1=d.mean_t1,
+                                     std_t1=d.std_t1, mean_flair=d.mean_flair,
+                                     std_flair=d.std_flair)[0]
+    fe.detect(lr)  # warm-up (not counted)
+    calls = gd.diff_cfg.resolved_sampling_timesteps
+    fe.time_stages = True  # the split of a detect that has the card to itself
+    reset_counts()
+    res = pipe.translate(lr, hr=hr, noise=1)
+    total = read_counts()
+    fe.time_stages = False
+    stage_a = dict(counted.launches)
+    stage_b = {k2: v - stage_a[k2] for k2, v in total.items()}
+    split = fe.last_split
+    det_s, chain_s = counted.seconds[-1], float(res["time"])
+    log(f"Stage A main path: translate without a mask, batch {MRI_BATCH} tumour brains: "
+        f"Stage A {det_s * 1e3:.2f}ms wall (device timeline: feature pass "
+        f"{split['features']:.3f}ms, nearest-neighbour search and score {split['nn']:.3f}ms, "
+        f"map {split['map']:.3f}ms; host ladder, refinement and dilation "
+        f"{split['host']:.3f}ms); OOD share {float((res['mask'] == 1).mean()):.4f}, "
+        f"per image {[round(float((m == 1).mean()), 4) for m in res['mask']]}; then the "
+        f"{'branched' if bool(res['branched']) else 'PLAIN'} bf16 chain "
+        f"{chain_s * 1e3:.1f}ms -> {MRI_BATCH / chain_s:.3f} img/s; mse "
+        f"{float(res['mse']):.4f}; launches Stage A {stage_a}, Stage B {stage_b}")
+    if not bool(res["branched"]):
+        raise RuntimeError("Stage A gated no tumour brain: the chain was not branched")
+    if res["anomaly_map"].shape != (MRI_BATCH, s, s, 1):
+        raise RuntimeError(f"anomaly map {res['anomaly_map'].shape}")
+    check_counts(stage_a, STAGE_A_PER_DETECT, 1, "Stage A detect")
+    check_counts(stage_b, MRI_PER_CALL, calls, "Stage A main path, Stage B chain")
+    _check_images("Stage A main path chain", res["pred"], lr.shape, lo, hi)
+    chain_counts = read_counts()
+
+    srv = InferenceServer(pipe, batch_size=STAGE_A_SERVE_BATCH, max_wait_ms=50,
+                          overlap_detect=True)
+    t0 = time.perf_counter()
+    with srv:
+        # two waves: the second batch's Stage A runs while the first samples
+        futs = [srv.submit(x) for x in lr[:STAGE_A_SERVE_BATCH]]
+        time.sleep(STAGE_A_WAVE_S)
+        futs += [srv.submit(x) for x in lr[STAGE_A_SERVE_BATCH:]]
+        outs = [f.result(timeout=600) for f in futs]
+    served_s = time.perf_counter() - t0
+    stats = srv.snapshot_stats()
+    counts = read_counts()
+    served = {k2: v - chain_counts[k2] for k2, v in counts.items()}
+    detects = counted.calls - 1  # less the translate's
+    dispatches = (stats["merged_dispatches"] + stats["plain_dispatches"]
+                  + stats["branched_dispatches"])
+    log(f"Stage A serving: {stats['requests']} requests without masks in {stats['batches']} "
+        f"batches of {STAGE_A_SERVE_BATCH}, {dispatches} dispatch(es), overlap_batches "
+        f"{stats['overlap_batches']}, mean latency {stats['latency_mean_s'] * 1e3:.1f}ms, max "
+        f"{stats['latency_max_s'] * 1e3:.1f}ms ({served_s:.2f}s wall); detects {detects} "
+        f"({', '.join(f'{x * 1e3:.1f}' for x in counted.seconds[1:])} ms); branched flags "
+        f"{[o['branched'] for o in outs]}")
+    if stats["requests"] != len(lr) or detects != stats["batches"]:
+        raise RuntimeError(f"server stats {stats}, {detects} detects")
+    for i, o in enumerate(outs):
+        _check_images(f"Stage A served request {i}", o["pred"], (s, s, 1), lo, hi)
+    # an overlapped detect shares the counters with the other batch's chain,
+    # so the served launches are checked as one sum
+    for name, n in served.items():
+        want = (STAGE_A_PER_DETECT.get(name, 0) * detects
+                + MRI_PER_CALL.get(name, 0) * calls * dispatches)
+        if n != want:
+            raise RuntimeError(f"Stage A serving: {name} launched {n} times, expected {want} "
+                               f"({detects} detects, {dispatches} chains of {calls} calls)")
+    log(f"Stage A main path: launches {counts} (translate's Stage A {stage_a})")
+    perf = dict(stage_a_ms=det_s * 1e3, split_ms=split, chain_s=chain_s,
+                img_per_s=MRI_BATCH / chain_s, serve_latency_mean_s=stats["latency_mean_s"],
+                overlap_batches=stats["overlap_batches"],
+                bank_seconds=dict(secs, data=data_s), bank_shape=list(bank.shape))
+    return dict(counts=counts, perf=perf, checks=checks)
+
+
+# ---------------------------------------------------------------------------
 # the s2d-stem 256px configuration (the README's recommended deployment)
 # ---------------------------------------------------------------------------
 
@@ -1430,9 +1704,10 @@ def main() -> None:
     phase_build()
     flag = flagship()
     mri = mri256()
+    stage_a = stage_a256()
     stem = stem256()
 
-    phases = {"flagship": flag, "256px": mri, "stem": stem}
+    phases = {"flagship": flag, "256px": mri, "stage_a": stage_a, "stem": stem}
     launches = {name: {label: ph["counts"][name] for label, ph in phases.items()}
                 for name in COUNTERS}
     total = {name: sum(v.values()) for name, v in launches.items()}
@@ -1522,8 +1797,9 @@ def main() -> None:
     log("end to end: " + "; ".join(f"{label} {json.dumps(ph['perf'])}"
                                    for label, ph in phases.items())
         + "; busy share " + " ".join(f"{label} {ph['busy_share']:.4f}"
-                                     for label, ph in phases.items())
-        + f"; stem checks {json.dumps(stem['checks'])}")
+                                     for label, ph in phases.items() if "busy_share" in ph)
+        + f"; stem checks {json.dumps(stem['checks'])}; Stage A checks "
+        + json.dumps(stage_a["checks"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

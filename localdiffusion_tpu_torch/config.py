@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -154,8 +154,10 @@ class SamplerConfig:
 
 @dataclass(frozen=True)
 class OODConfig:
-    """Stage-A options.  The port serves the 'manual' and 'none' detectors;
-    the other fields are kept so a configuration file reads unchanged."""
+    """Stage-A options.  The port serves the 'patchcore' detector over the
+    denoiser's own taps (`feature_source='denoiser'`), 'manual' and 'none';
+    the WRN and seg-encoder sources and the 'seg' detector raise.  Every
+    field is kept so a configuration file reads unchanged."""
 
     detector: str = "patchcore"  # patchcore | seg | manual | none
     backbone: str = "wide_resnet50_2"
@@ -180,9 +182,30 @@ class OODConfig:
     refine_lo_frac: float = 0.25
     refine_min_area: int = 0
 
+    def resolved_mask_dilate(self, strides: Dict[str, int]) -> int:
+        """Dilation radius in output pixels; -1 (auto) resolves to one
+        feature cell of the coarsest tap, from the feature source's own
+        `strides` (which know the denoiser's stem factor).  The port's one
+        source, the denoiser, sees the image at its own resolution, so a
+        stride is in output pixels."""
+        if self.mask_dilate >= 0:
+            return self.mask_dilate
+        layers = self.feature_layers or ("down2_block2", "down3_block2")
+        return max(1, int(max(strides[l] for l in layers)))
+
     def __post_init__(self):
         if self.detector not in ("patchcore", "seg", "manual", "none"):
             raise ValueError(f"unknown ood detector {self.detector}")
+        if self.feature_source not in ("wrn", "seg_encoder", "denoiser"):
+            raise ValueError(f"unknown feature_source {self.feature_source}")
+        if self.mask_dilate < -1:
+            raise ValueError("mask_dilate must be >= 0, or -1 for auto")
+        if self.mask_refine not in ("none", "hysteresis"):
+            raise ValueError(f"unknown mask_refine {self.mask_refine}")
+        if self.refine_seed not in ("ladder", "fwhm"):
+            raise ValueError(f"unknown refine_seed {self.refine_seed}")
+        if not 0.0 < self.refine_lo_frac <= self.refine_hi_frac <= 1.0:
+            raise ValueError("need 0 < refine_lo_frac <= refine_hi_frac <= 1")
 
 
 @dataclass(frozen=True)

@@ -129,16 +129,48 @@ class UNet(nn.Module):
         sampler calls this once."""
         return _nhwc(self.cond_model(_nchw(cond).to(self.dtype)))
 
-    def forward(self, x, cond, time, cond_feat=None):
-        cfg = self.cfg
-        f = cfg.stem_space_to_depth
-        factor = cfg.downsample_factor * f
+    def _stem(self, x):
+        """NHWC input → init_conv output (NCHW, channels_last, compute type)."""
+        f = self.cfg.stem_space_to_depth
+        factor = self.cfg.downsample_factor * f
         if x.shape[1] % factor or x.shape[2] % factor:
             raise ValueError(f"input dims {tuple(x.shape[1:3])} must be divisible by {factor}")
         x = _nchw(x.to(self.dtype))
         if f > 1:
             x = F.pixel_unshuffle(x, f)
-        x = self.init_conv(x.contiguous(memory_format=torch.channels_last))
+        return self.init_conv(x.contiguous(memory_format=torch.channels_last))
+
+    def down_taps(self, x, time, names):
+        """The outputs of the named down-path ResnetBlocks
+        (`down{i}_block{j}`, j 1 or 2) for NHWC x at timestep `time`, as
+        {name: NHWC tensor in the compute type}.  It runs the init conv, the
+        time MLP and the down stages, and stops after the deepest tap: the
+        rest of the network does not reach a tap, and the condition enters
+        only after the down path."""
+        n = len(self.in_out)
+        valid = {f"down{i}_block{j}" for i in range(n) for j in (1, 2)}
+        wanted = set(names)
+        if not wanted <= valid:
+            raise ValueError(f"taps {sorted(wanted - valid)} are not down-path blocks "
+                             f"({sorted(valid)})")
+        x = self._stem(x)
+        t = self.time_mlp(time)
+        out = {}
+        for i in range(n):
+            for j in (1, 2):
+                name = f"down{i}_block{j}"
+                x = getattr(self, name)(x, t)
+                if name in wanted:
+                    out[name] = _nhwc(x)
+            if len(out) == len(wanted):
+                break
+            x = getattr(self, f"down{i}_attn")(x) + x
+            x = getattr(self, f"down{i}_down")(x)
+        return out
+
+    def forward(self, x, cond, time, cond_feat=None):
+        f = self.cfg.stem_space_to_depth
+        x = self._stem(x)
         r = x
         t = self.time_mlp(time)
 

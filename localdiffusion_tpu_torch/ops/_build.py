@@ -1,4 +1,5 @@
-"""Builds the port's CUDA sources with plain nvcc and loads them with ctypes.
+"""Builds the port's CUDA sources with plain nvcc, loads them with ctypes,
+and counts the wrappers' launches.
 
 Each `csrc/<name>.cu` exposes a plain C interface (no PyTorch headers), so
 one nvcc call builds it in seconds.  The shared library goes to `build/`
@@ -32,6 +33,16 @@ _LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _loaded: dict = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
+
+
+def count_launch(fn) -> None:
+    """Add one to `fn.launches`, a kernel wrapper's launch count.  Under a
+    lock: the serving threads (Stage A of one batch, Stage B of another)
+    launch kernels at once, and `+=` on an attribute is a read and a write
+    that another thread may come between."""
+    with _count_lock:
+        fn.launches += 1
 
 
 def _nvcc() -> str:

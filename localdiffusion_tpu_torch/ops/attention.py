@@ -17,6 +17,8 @@ import ctypes
 
 import torch
 
+from localdiffusion_tpu_torch.ops import _build
+
 FLASH_MIN_TOKENS = 256
 HEAD_DIM = 32  # the kernel's one instantiation (the configs' attn_dim_head)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -48,8 +50,6 @@ def _check(q, k, v):
 
 
 def _launch(q, k, v, scale):
-    from localdiffusion_tpu_torch.ops import _build
-
     b, n, h, d = q.shape
     if d != HEAD_DIM:
         raise ValueError(f"head_dim {d}: the kernel is built for {HEAD_DIM}")
@@ -69,7 +69,7 @@ def _launch(q, k, v, scale):
                  b, n, h, d, *strides, float(scale), _DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return out
 
 

@@ -36,6 +36,8 @@ import ctypes
 
 import torch
 
+from localdiffusion_tpu_torch.ops import _build
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the JAX package's row gate (`_MAX_VMEM_BLOCK_BYTES`): a larger row leaves
 # the single-pass kernel
@@ -273,8 +275,6 @@ def _device(x):
 
 
 def _fn(lib_name, fn_name, argtypes):
-    from localdiffusion_tpu_torch.ops import _build
-
     fn = getattr(_build.load(lib_name), fn_name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
@@ -323,7 +323,7 @@ def _launch(x, gamma, beta, scale, shift, groups, eps, plan=None):
           _ptr(scale), _ptr(shift), out.data_ptr(), b, h * w, c, groups, float(eps),
           _DTYPE_CODES[x.dtype], plan["k"], plan["pixels"], int(plan["resident"]),
           plan["smem"])
-    groupnorm_film_silu.launches += 1
+    _build.count_launch(groupnorm_film_silu)
     return out
 
 
@@ -358,7 +358,7 @@ def _launch_stats(x, plan=None):
     fn = _fn("groupnorm_tiled", "gn_tiled_stats", [_VP, _VP] + [_CI] * 6 + [_VP])
     _call(fn, "gn_tiled_stats", x, x.data_ptr(), sums.data_ptr(), b, h * w, c, plan["k"],
           plan["pixels"], _DTYPE_CODES[x.dtype])
-    gn_tiled_stats.launches += 1
+    _build.count_launch(gn_tiled_stats)
     return sums
 
 
@@ -378,7 +378,7 @@ def _launch_apply(x, sums, gamma, beta, scale, shift, groups, eps, plan=None,
     _call(fn, "gn_tiled_apply", x, x.data_ptr(), sums.data_ptr(), gamma.data_ptr(),
           beta.data_ptr(), _ptr(scale), _ptr(shift), out.data_ptr(), b, h * w, c, groups,
           plan["apply_pixels"], float(eps), _DTYPE_CODES[x.dtype], int(after_stats))
-    gn_tiled_apply.launches += 1
+    _build.count_launch(gn_tiled_apply)
     return out
 
 

@@ -32,8 +32,11 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
+
+from localdiffusion_tpu_torch.ops import _build
 
 HEADS, DIM_HEAD = 4, 32
 HIDDEN = HEADS * DIM_HEAD
@@ -185,23 +188,25 @@ def _check_aligned(**tensors):
 
 
 def _lib():
-    from localdiffusion_tpu_torch.ops import _build
-
     return _build.load("linear_attention")
 
 
 _counters: dict = {}
+_counters_lock = threading.Lock()
 
 
 def _row_counters(device, b):
     """The kv kernel's per-row counters on `device`, at least `b` of them:
     zero when made, and every launch leaves them at zero, so one buffer
-    serves every launch on the device (and a CUDA graph's replay)."""
-    cnt = _counters.get(device)
-    if cnt is None or cnt.numel() < b:
-        cnt = torch.zeros(max(b, 64), dtype=torch.int32, device=device)
-        _counters[device] = cnt
-    return cnt
+    serves every launch on the device's stream (and a CUDA graph's replay).
+    Under a lock: the serving threads may both look for the buffer, and one
+    may grow it, at once."""
+    with _counters_lock:
+        cnt = _counters.get(device)
+        if cnt is None or cnt.numel() < b:
+            cnt = torch.zeros(max(b, 64), dtype=torch.int32, device=device)
+            _counters[device] = cnt
+        return cnt
 
 
 def linear_attention_kv(x, g_in, wk, nb):
@@ -237,7 +242,7 @@ def linear_attention_kv(x, g_in, wk, nb):
                  nb, stream)
     if err != 0:
         raise RuntimeError(f"linear_attention_kv launch failed: CUDA error {err}")
-    linear_attention_kv.launches += 1
+    _build.count_launch(linear_attention_kv)
     return m, l, gram
 
 
@@ -315,7 +320,7 @@ def linear_attention_q(x, g_in, wq, wtil, b_out, g_out):
                  _scale(DIM_HEAD), stream)
     if err != 0:
         raise RuntimeError(f"linear_attention_q launch failed: CUDA error {err}")
-    linear_attention_q.launches += 1
+    _build.count_launch(linear_attention_q)
     return out
 
 

@@ -38,6 +38,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from localdiffusion_tpu_torch.ops import _build
+
 LANES = 128
 MIN_HW = 4096  # the JAX ResnetBlock fuses at this many pixels (h·w)
 TILE_H, TILE_W = 8, 16  # pixels of one conv tile (csrc: kTileH, kTileW)
@@ -225,8 +227,6 @@ def epilogue_reference(h2, x, a, b, w_res=None, b_res=None):
 # ---------------------------------------------------------------------------
 
 def _lib():
-    from localdiffusion_tpu_torch.ops import _build
-
     return _build.load("resnet_block")
 
 
@@ -303,7 +303,7 @@ def conv3x3_stats(x, w, bias, a=None, b=None):
                  h.data_ptr(), part.data_ptr(), bsz, hh, ww, cin, cout, stream)
     if err != 0:
         raise RuntimeError(f"conv3x3_stats launch failed: CUDA error {err}")
-    conv3x3_stats.launches += 1
+    _build.count_launch(conv3x3_stats)
     return h, part[:, :, 0], part[:, :, 1]
 
 
@@ -366,7 +366,7 @@ def _launch_epilogue(h2, x, a, b, w_res, b_res, plan=None):
                  out.data_ptr(), bsz, hh * ww, cin, c, plan["blocks"], stream)
     if err != 0:
         raise RuntimeError(f"epilogue launch failed: CUDA error {err}")
-    epilogue.launches += 1
+    _build.count_launch(epilogue)
     return out
 
 

@@ -1,11 +1,11 @@
-"""Local-diffusion inference pipeline (Stage B with a given or manual mask).
+"""Local-diffusion inference pipeline: Stage A, then Stage B.
 
 Port of `localdiffusion_tpu/pipeline.py` (`LocalDiffusionPipeline.translate`).
-Stage A in this slice is the caller's mask or the configuration's 'manual'
-(or 'none') detector; PatchCore and the segmentation detector come later.
-Stage B is ancestral DDPM, or DDIM when the configuration samples fewer
-steps than it trains (`sampling_timesteps < timesteps`).  There is no device
-mesh: the pipeline runs on one device.
+Stage A is the caller's mask or the front end's (ood/frontend.py): PatchCore
+over the denoiser's taps with the fitted ladder and hysteresis refinement,
+or the 'manual' and 'none' masks.  Stage B is ancestral DDPM, or DDIM when
+the configuration samples fewer steps than it trains (`sampling_timesteps <
+timesteps`).  There is no device mesh: the pipeline runs on one device.
 """
 
 from __future__ import annotations
@@ -19,51 +19,60 @@ import torch
 from localdiffusion_tpu_torch.config import Config, min_max_val_for
 from localdiffusion_tpu_torch.diffusion import sampler as S
 from localdiffusion_tpu_torch.diffusion.gaussian import GaussianDiffusion
-from localdiffusion_tpu_torch.ood.manual import manual_mask
+from localdiffusion_tpu_torch.ood.frontend import OODFrontend
 from localdiffusion_tpu_torch.utils.metrics import mse, psnr, ssim
 
 
 class LocalDiffusionPipeline:
     """Config-driven translation with hallucination suppression."""
 
-    def __init__(self, config: Config, gd: GaussianDiffusion):
+    def __init__(self, config: Config, gd: GaussianDiffusion,
+                 frontend: Optional[OODFrontend] = None):
+        """frontend: Stage A's (`factory.build_frontend(config, gd)`); the
+        'manual' and 'none' detectors get theirs here when none is given."""
         if config.sampler.classifier:
             raise NotImplementedError("classifier-gated sampling: later slice")
         self.config = config
         self.gd = gd
         self.device = gd.device
         self.min_max_val = min_max_val_for(config)
+        if frontend is None and config.ood.detector in ("manual", "none"):
+            frontend = OODFrontend(config)
+        self.frontend = frontend
 
-    def detect(self, lr: np.ndarray) -> np.ndarray:
-        """Stage A for a batch [B, H, W, C]: the [B, H, W, 1] mask."""
-        s = self.gd.image_size
-        shape = (lr.shape[0], s, s, 1)
-        det = self.config.ood.detector
-        if det == "manual":
-            return manual_mask(shape, self.config.ood.manual_mask_cols)
-        if det == "none":
-            return np.ones(shape, np.float32)
-        raise NotImplementedError(
-            f"detector {det!r}: later slice; pass mask= to translate"
-        )
+    def detect(self, lr: np.ndarray):
+        """Stage A for a batch [B, H, W, C]: (mask_pred, binary_mask,
+        anomaly_map or None), each [B, H, W, 1].  Raises when the pipeline
+        has no front end (a PatchCore detector needs one built)."""
+        if self.frontend is None:
+            raise ValueError(
+                f"detector {self.config.ood.detector!r} needs a front end: pass "
+                "frontend=factory.build_frontend(config, gd)[0], or pass mask= to translate")
+        return self.frontend.detect(np.asarray(lr, np.float32))
 
     def translate(self, lr: np.ndarray, hr: Optional[np.ndarray] = None,
                   noise=None, mask: Optional[np.ndarray] = None,
                   gt_region: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
         """One batch through Stage A and Stage B.
 
-        lr (and hr): [B, H, W, C].  `mask` overrides the detector.  `noise`
-        is an int seed, a noise source (see diffusion.sampler), or None
-        (seed 0).  A uniform-ones mask takes the plain chain, any other mask
-        the branched chain, each DDPM or DDIM as the configuration says.
+        lr (and hr): [B, H, W, C].  `mask` overrides the detector; without
+        it Stage A runs (with `sampler.ood_ad`, else the mask is uniform
+        ones) and a PatchCore detector adds 'anomaly_map' to the result.
+        `noise` is an int seed, a noise source (see diffusion.sampler), or
+        None (seed 0).  A uniform-ones mask takes the plain chain, any other
+        mask the branched chain, each DDPM or DDIM as the configuration
+        says.  'time' is Stage B's.
         """
         scfg = self.config.sampler
         dev = self.device
         lr_t = torch.as_tensor(np.asarray(lr, np.float32), device=dev)
+        amap = None
         if mask is None:
-            mask = self.detect(lr) if scfg.ood_ad else np.ones(
-                (lr.shape[0], self.gd.image_size, self.gd.image_size, 1), np.float32
-            )
+            if scfg.ood_ad:
+                mask, _, amap = self.detect(lr)
+            else:
+                s = self.gd.image_size
+                mask = np.ones((lr.shape[0], s, s, 1), np.float32)
         mask = np.asarray(mask, np.float32)
         uniform = bool(np.all(mask == 1.0))
         branch = scfg.branch_out and not uniform
@@ -98,6 +107,8 @@ class LocalDiffusionPipeline:
             "time": np.asarray(dt),
             "branched": np.asarray(branch),
         }
+        if amap is not None:
+            result["anomaly_map"] = amap
         if hr is not None:
             hr_t = torch.as_tensor(np.asarray(hr, np.float32), device=dev)
             rng = float(self.min_max_val[1])

@@ -15,7 +15,9 @@ Port of `localdiffusion_tpu/serving.py`:
     i)`, so a served result is reproducible by replaying the same rows in
     the same slots.
 
-Stage A here is the caller's mask or the pipeline's `detect`.
+Stage A is the caller's mask or the pipeline's front end (`detect`: the
+PatchCore detector, or the manual and none masks), run on the padded rows
+of the requests that brought no mask.
 """
 
 from __future__ import annotations
@@ -202,7 +204,7 @@ class InferenceServer:
         """Masks for the rows that did not bring one."""
         need = [r for r in batch if r.mask is None]
         if need and self.pipe.config.sampler.ood_ad:
-            masks = self.pipe.detect(self._pad([r.lr for r in need]))
+            masks, _, _ = self.pipe.detect(self._pad([r.lr for r in need]))
             for r, m in zip(need, masks):
                 r.mask = m
         for r in batch:

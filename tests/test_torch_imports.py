@@ -39,6 +39,14 @@ REQUIRED = {
     "localdiffusion_tpu_torch.models.unet",
     "localdiffusion_tpu_torch.diffusion.gaussian",
     "localdiffusion_tpu_torch.serving",
+    "localdiffusion_tpu_torch.factory",
+    "localdiffusion_tpu_torch.data.synthetic",
+    "localdiffusion_tpu_torch.ops.resize",
+    "localdiffusion_tpu_torch.ood.thresholds",
+    "localdiffusion_tpu_torch.ood.patchcore",
+    "localdiffusion_tpu_torch.ood.features",
+    "localdiffusion_tpu_torch.ood.frontend",
+    "localdiffusion_tpu_torch.ood.bank",
 }
 
 
@@ -49,7 +57,7 @@ def test_port_imports_without_jax_flax_yaml():
     )
     assert proc.returncode == 0, proc.stderr
     names = set(proc.stdout.split())
-    assert len(names) >= 16 and REQUIRED <= names, sorted(names)
+    assert len(names) >= 24 and REQUIRED <= names, sorted(names)
 
 
 def test_blocked_module_really_fails():

@@ -14,6 +14,7 @@ from localdiffusion_tpu.pipeline import LocalDiffusionPipeline as JaxPipeline
 from localdiffusion_tpu.serving import InferenceServer as JaxServer
 from localdiffusion_tpu_torch import config as tcfg
 from localdiffusion_tpu_torch.diffusion.sampler import ArrayNoise
+from localdiffusion_tpu_torch.factory import build_frontend
 from localdiffusion_tpu_torch.pipeline import LocalDiffusionPipeline
 from localdiffusion_tpu_torch.serving import InferenceServer, batch_seed
 from test_torch_support import (
@@ -81,13 +82,24 @@ def test_translate_uniform_mask_takes_the_plain_chain(pipes):
 
 
 def test_translate_refuses_unported_detectors(pipes):
+    """No silent fallback: a PatchCore pipeline without a front end raises
+    (a given mask still serves), the sources and detector of later slices
+    raise, and a bank-less PatchCore front end without calibration images
+    raises."""
     _, tpipe = pipes
     cfg = _cfg()
-    pipe = LocalDiffusionPipeline(
-        cfg.replace(ood=tcfg.OODConfig(detector="patchcore")), tpipe.gd)
-    with pytest.raises(NotImplementedError, match="patchcore"):
+    pc_cfg = cfg.replace(ood=tcfg.OODConfig(detector="patchcore", feature_source="denoiser"))
+    pipe = LocalDiffusionPipeline(pc_cfg, tpipe.gd)
+    with pytest.raises(ValueError, match="patchcore.*front end"):
         pipe.translate(images(0, 1, S))
     assert pipe.translate(images(0, 1, S), mask=np.ones((1, S, S, 1)))["pred"].shape == (1, S, S, 1)
+    with pytest.raises(ValueError, match="no memory bank"):
+        build_frontend(pc_cfg, gd=tpipe.gd, device="cpu", verbose=False)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        build_frontend(cfg.replace(ood=tcfg.OODConfig(detector="patchcore")), gd=tpipe.gd,
+                       device="cpu", verbose=False)
+    with pytest.raises(NotImplementedError, match="seg detector"):
+        build_frontend(cfg.replace(ood=tcfg.OODConfig(detector="seg")), gd=tpipe.gd)
 
 
 @pytest.mark.parametrize("size", [8, 16])
