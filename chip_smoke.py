@@ -72,19 +72,39 @@ Phases, each printed on its own line with the elapsed seconds:
     launches counted apart from Stage B's; then an `InferenceServer`
     answering four requests without masks in two batches, the second's
     Stage A overlapping the first's chain;
-12. stem kernels: the s2d-stem configuration (`stem256_config()`, the
+12. the classifier-gated configuration (`mri256_gated_config()`: fused at
+    t=5, the gate PatchCore over the same taps on its own bank, suppress,
+    3 retries), on Stage A's denoiser and detector bank: (a) the
+    classifier's bank, 64 normal FLAIR targets → 262,144 patches → a 5%
+    coreset of 13,107 × 192 (`ood.bank.build_classifier_bank`), and its
+    threshold ROC-calibrated on 32 + 32 images by `build_classifier_gate`
+    (seconds, threshold, balanced accuracy); (b) its scores on the card
+    against the CPU, f32 and bf16, on 4 + 4 of those images, and with the
+    kernels against their plain versions on all 64; (c) with every count
+    at 0, `translate` without a mask on 4 tumour brains (Stage A, the
+    branched chain, the gated phase B: `fusion_time`, the first gated
+    step's verdicts, phase B on the device's timeline split into plain
+    steps, gate and retry), then an `InferenceServer` answering four
+    requests without masks; each kernel's launches checked against the
+    UNet calls, detects and gated steps (a tap pass and a [2B] retry
+    each); (d) the chain at T = 50 (cut for the time limit, full width)
+    with the threshold forced to +inf (always accept: `fusion_time` 4,
+    bit-equal to the ungated chain) and to −inf (always reject: 3
+    rejections, then the budget: `fusion_time` 1, the gate at 4 steps),
+    each against the same chain with the plain versions;
+13. stem kernels: the s2d-stem configuration (`stem256_config()`, the
     README's recommended 256px deployment: f32, DDIM-50, plain chain) at
     full width, one UNet call at batch 8 recorded: the GroupNorm op at its
     40 Block shapes (the tiled pair at the 14 past the row gate) and full
     attention at its three 16x16 sites, f32, against their plain versions,
     timed as in phase 7;
-13. stem main path: with every count at 0, the plain DDIM-50 chain at batch
+14. stem main path: with every count at 0, the plain DDIM-50 chain at batch
     4 (detector none), the branched DDIM-50 chain with disc masks, then an
     `InferenceServer` answering three requests; every kernel's launches
     checked per UNet call;
-14. stem check: both chains against the same chains with every kernel's
+15. stem check: both chains against the same chains with every kernel's
     plain version (same noise), and one UNet call against the CPU, f32;
-15. stem profile: the plain chain under torch.profiler.
+16. stem profile: the plain chain under torch.profiler.
 
 The line before the last is one JSON object with the kernels' numbers; the
 last line is the device record.  Any failed check raises, so the exit code
@@ -104,23 +124,41 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from localdiffusion_tpu_torch.config import flagship_config, mri256_config, stem256_config
+from localdiffusion_tpu_torch.config import (
+    flagship_config,
+    mri256_config,
+    mri256_gated_config,
+    stem256_config,
+)
 from localdiffusion_tpu_torch.data.synthetic import synthetic_brain_translation
 from localdiffusion_tpu_torch.diffusion.gaussian import GaussianDiffusion, build_gd
 from localdiffusion_tpu_torch.diffusion.sampler import ArrayNoise
-from localdiffusion_tpu_torch.factory import build_frontend
+from localdiffusion_tpu_torch.factory import (
+    build_classifier_gate,
+    build_frontend,
+    classifier_bank_beside,
+)
 from localdiffusion_tpu_torch.models.blocks import (
     Attention,
     GroupNormFilmSiLU,
     LinearAttention,
     ResnetBlock,
 )
-from localdiffusion_tpu_torch.ood.bank import build_bank, calibration_images
+from localdiffusion_tpu_torch.ood.bank import (
+    build_bank,
+    build_classifier_bank,
+    calibration_images,
+    classifier_calibration_pairs,
+)
+from localdiffusion_tpu_torch.ood.classifier import ClassifierPatchCore, balanced_accuracy
 from localdiffusion_tpu_torch.ood.features import DenoiserFeatureSource
 from localdiffusion_tpu_torch.ood.frontend import OODFrontend
 from localdiffusion_tpu_torch.ood.patchcore import (
     PatchCore,
+    StageClock,
+    compute_anomaly_score,
     kcenter_greedy_indices,
+    nearest_neighbors,
     random_projection,
 )
 from localdiffusion_tpu_torch.ood.thresholds import manual_mask, near_threshold
@@ -255,6 +293,23 @@ KCENTER_CHECK = (20_000, 2_000)  # rows, k
 STAGE_A_SERVE_BATCH = 2  # four requests, two batches: the second's Stage A overlaps
 STAGE_A_WAVE_S = 0.5  # between them: past the first batch's Stage A
 STAGE_A_DIR = Path(__file__).resolve().parent / "build" / "stage_a"
+# the classifier-gated configuration: its own bank of 64 normal FLAIR
+# targets at 256px, 262,144 patches, a 5% coreset (the JAX script's
+# bank_rows).  Scores card vs CPU in f32 (TF32 off) on 4 + 4 of the 64
+# calibration images (the CPU's time): the set within 1e-4 relative L2
+# (Stage A's f32 bar); each score recomputed in float64 from each side's
+# own patch embeddings within 1e-4 relative (what the card's float32 taps
+# change: 2.5e-5 read); each float32 score within 3e-4 relative.  A score
+# is one patch's distance by |x|² − 2x·y + |y|², whose float32 rounding put
+# a score 2.1e-4 from its float64 value on the card's GEMM and 3.8e-5 on
+# the CPU's, so two sides may differ by their sum, 2.5e-4 (1.45e-4 read;
+# H100 80GB HBM3, 700 W).  In bf16 and kernels vs
+# plain versions the one-UNet-call bar.  The forced chains at T = 50 (the
+# script's time limit) against the chain bars; at the configuration file's
+# float32 against the stem's float32 chain bar, 1e-3.
+GATED_BANK_IMAGES, GATED_BANK_SHAPE = 64, (13_107, 192)
+GATED_F32_REL, GATED_F32_SCORE_REL = 1e-4, 3e-4
+GATED_CHECK_PER_CLASS, GATED_FORCED_T = 4, 50
 # s2d stem, float32.  The DDIM-50 chains, kernels vs plain versions (same
 # noise), and one UNet call, card vs CPU: float32 sums in another order
 # (~1e-6 per call) through 50 DDIM updates: relative L2 <= 1e-3, and for
@@ -1607,7 +1662,375 @@ def stage_a256() -> dict:
                 img_per_s=MRI_BATCH / chain_s, serve_latency_mean_s=stats["latency_mean_s"],
                 overlap_batches=stats["overlap_batches"],
                 bank_seconds=dict(secs, data=data_s), bank_shape=list(bank.shape))
-    return dict(counts=counts, perf=perf, checks=checks)
+    return dict(counts=counts, perf=perf, checks=checks, gd=gd, bank_path=bank_path)
+
+
+# ---------------------------------------------------------------------------
+# the classifier-gated 256px configuration: Stage A, the branched chain and
+# the gated phase B
+# ---------------------------------------------------------------------------
+
+class CountedGate:
+    """Wraps a sampler gate: counts its calls (the gated steps: one retry
+    each) and the kernel launches of its tap passes, and records its values
+    on the device."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.calls, self.launches, self.values = 0, {}, []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def __call__(self, x_start, t=None):
+        before = read_counts()
+        v = self.inner(x_start, t)
+        for k, n in read_counts().items():
+            self.launches[k] = self.launches.get(k, 0) + n - before[k]
+        self.calls += 1
+        self.values.append(v)
+        return v
+
+
+def expected_gated(calls: int, gated_steps: int, detects: int) -> dict:
+    """Launches of `detects` Stage A detects and chains of `calls` UNet calls
+    in all whose gate ran at `gated_steps` steps: each gated step adds a tap
+    pass (the gate) and a [2B] UNet call (the retry)."""
+    return {k: (MRI_PER_CALL.get(k, 0) * (calls + gated_steps)
+                + STAGE_A_PER_DETECT.get(k, 0) * (gated_steps + detects)) for k in COUNTERS}
+
+
+def _check_launches(got: dict, want: dict, what: str) -> None:
+    if any(got[k] != want[k] for k in COUNTERS):
+        raise RuntimeError(f"{what}: launches {got}, expected {want}")
+
+
+def _score_agreement(got, want) -> tuple:
+    """(max relative difference of a score, relative L2 of the scores)."""
+    return (float(np.max(np.abs(got - want) / np.abs(want))),
+            float(np.linalg.norm(got - want) / np.linalg.norm(want)))
+
+
+def scores_float64(cls, x) -> np.ndarray:
+    """The classifier's image scores of x recomputed on the card in float64
+    from its own float32 patch embeddings: the nearest-neighbour distances
+    and the reweighting in float64, so the float32 rounding of the distance
+    identity drops out and only the embeddings' differences remain."""
+    pc = cls.patchcore
+    bank = pc.memory_bank.to("cuda", torch.float64)
+    out = []
+    for i in range(0, len(x), 8):
+        emb = pc.embed_map(cls._prep(x[i:i + 8]))
+        b, _, _, c = emb.shape
+        e = emb.reshape(-1, c).to("cuda", torch.float64)
+        dist, loc = nearest_neighbors(e, bank, 1)
+        out.append(compute_anomaly_score(dist.reshape(b, -1), loc.reshape(b, -1), e, bank,
+                                         pc.num_neighbors).cpu().numpy())
+    return np.concatenate(out)
+
+
+def gated256(gd, bank_path) -> dict:
+    """The classifier-gated configuration on Stage A's denoiser (the same
+    seeded random weights) and detector bank: (a) the classifier's bank and
+    its ROC threshold, (b) its scores on the card against the CPU and
+    against the plain versions, (c) the counted main path: `translate`
+    without a mask and the server, gated, (d) the chain with forced
+    thresholds, whose decisions cannot flip on rounding."""
+    cfg = mri256_gated_config().replace(ood=dataclasses.replace(
+        mri256_gated_config().ood, memory_bank_path=bank_path))
+    s = gd.image_size
+    d = cfg.data
+    log(f"gated 256px: start_timestep {cfg.sampler.start_timestep}, classifier_obj "
+        f"{cfg.sampler.classifier_obj}, polarity {cfg.sampler.classifier_polarity}, retry "
+        f"budget {cfg.sampler.max_classifier_retries}, threshold ROC-calibrated; Stage A's "
+        f"weights and detector bank ({bank_path})")
+
+    # (a) the classifier's bank: 64 normal FLAIR targets -> a 5% coreset
+    obj_path = classifier_bank_beside(bank_path, cfg)
+    built = build_classifier_bank(cfg, obj_path, gd=gd, n_images=GATED_BANK_IMAGES)
+    bank, secs = built["bank"], built["seconds"]
+    if bank.shape != GATED_BANK_SHAPE or not np.all(np.isfinite(bank)):
+        raise RuntimeError(f"classifier bank {bank.shape}, expected {GATED_BANK_SHAPE}")
+    fe, cfg = build_frontend(cfg, gd=gd, device="cuda", verbose=False)
+    pairs = classifier_calibration_pairs(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gate = build_classifier_gate(cfg, frontend=fe, calibration_pairs=pairs, gd=gd,
+                                 verbose=False)
+    calib_s = time.perf_counter() - t0
+    labels, scores = gate.classifier.calibration
+    thr = gate.threshold
+    acc = balanced_accuracy(labels, scores, thr)
+    sn, sl = scores[labels == 1], scores[labels == 2]
+    log(f"gated bank: {GATED_BANK_IMAGES} normal FLAIR at {s}px, {built['patches']} patches "
+        f"-> {bank.shape} ({bank.nbytes / 1e6:.1f} MB) at {obj_path}; taps {secs['taps']:.3f}s, "
+        f"k-center {secs['kcenter']:.3f}s ({bank.shape[0]} steps); calibration "
+        f"{len(pairs)} images ({len(sn)} normal, {len(sl)} with a lesion) {calib_s:.3f}s; ROC "
+        f"threshold {thr:.6g}, balanced accuracy {acc:.4f}; scores normal "
+        f"{sn.mean():.4f}+-{sn.std():.4f}, lesion {sl.mean():.4f}+-{sl.std():.4f}")
+    if not np.isfinite(thr):
+        raise RuntimeError("the ROC threshold separates nothing: the gate would never reject")
+
+    # (b) the classifier's scores: card against CPU (f32, bf16) on a subset
+    # of the calibration images, kernels against plain versions on all
+    x_all = np.concatenate([img for img, _ in pairs])
+    sub = np.r_[0:GATED_CHECK_PER_CLASS, len(sn):len(sn) + GATED_CHECK_PER_CLASS]
+    state = {k: v.cpu() for k, v in gd.model.state_dict().items()}
+    checks = {}
+
+    def classifier_on(g):
+        return ClassifierPatchCore(PatchCore(cfg.ood, source=DenoiserFeatureSource(
+            g, t=cfg.ood.feature_t), memory_bank=bank))
+
+    def scores_of(cls, x):
+        return np.concatenate([cls.score_raw(x[i:i + 8]).cpu().numpy()
+                               for i in range(0, len(x), 8)])
+
+    for dtype in ("float32", "bfloat16"):
+        c2 = cfg.replace(train=dataclasses.replace(cfg.train, compute_dtype=dtype))
+        card = gd if dtype == "bfloat16" else build_gd(c2, device="cuda")
+        card.model.load_state_dict(state)
+        cpu = build_gd(c2, device="cpu")
+        cpu.model.load_state_dict(state)
+        cls_card, cls_cpu = classifier_on(card), classifier_on(cpu)
+        got = scores_of(cls_card, x_all[sub])
+        t0 = time.perf_counter()
+        want = scores_of(cls_cpu, x_all[sub])
+        cpu_s = time.perf_counter() - t0
+        worst, rel = _score_agreement(got, want)
+        check = dict(max_rel=worst, rel_l2=rel)
+        if dtype == "float32":
+            # the cause of the worst score's difference: each side's score
+            # again in float64 from the same side's embeddings
+            got64 = scores_float64(cls_card, x_all[sub])
+            want64 = scores_float64(cls_cpu, x_all[sub])
+            emb_worst, _ = _score_agreement(got64, want64)
+            own = [_score_agreement(got, got64)[0], _score_agreement(want, want64)[0]]
+            i = int(np.argmax(np.abs(got - want) / np.abs(want)))
+            ok = (rel <= GATED_F32_REL and worst <= GATED_F32_SCORE_REL
+                  and emb_worst <= GATED_F32_REL)
+            bar = (f"relative L2 <= {GATED_F32_REL:g}, each score <= {GATED_F32_SCORE_REL:g}, "
+                   f"each float64 score <= {GATED_F32_REL:g}")
+            kind = "normal" if i < GATED_CHECK_PER_CLASS else "lesion"
+            detail = (f"; the worst, score {i} ({kind}): float32 card {got[i]:.7f}, CPU "
+                      f"{want[i]:.7f}, float64 from the card's "
+                      f"embeddings {got64[i]:.9f}, from the CPU's {want64[i]:.9f}; float64 scores "
+                      f"card vs CPU: max relative difference {emb_worst:.4g}; each side's float32 "
+                      f"score vs its float64: max relative difference card {own[0]:.4g}, CPU "
+                      f"{own[1]:.4g}")
+            check.update(max_rel_float64=emb_worst, float32_vs_float64_card=own[0],
+                         float32_vs_float64_cpu=own[1], worst_index=i,
+                         worst=dict(card=float(got[i]), cpu=float(want[i]),
+                                    card_float64=float(got64[i]), cpu_float64=float(want64[i])))
+        else:
+            ok = rel <= MRI_UNET_REL
+            bar, detail = f"relative L2 <= {MRI_UNET_REL:g}", ""
+        log(f"gated check, classifier scores card vs CPU ({dtype}, {len(sub)} of the "
+            f"{len(x_all)} calibration images, cut for the CPU's time; same weights and bank): "
+            f"relative L2 {rel:.4g}, max relative difference of a score {worst:.4g}{detail} "
+            f"({bar}) {'ok' if ok else 'FAIL'}; CPU {cpu_s:.1f}s")
+        if not ok:
+            raise RuntimeError(f"the classifier on the card disagrees with the CPU's ({dtype})")
+        checks[f"scores_card_vs_cpu_{dtype}"] = check
+        if dtype == "float32":
+            del card
+        del cpu
+    got = scores_of(classifier_on(gd), x_all)
+    gd.model.use_plain_kernels(True)
+    try:
+        want = scores_of(classifier_on(gd), x_all)
+    finally:
+        gd.model.use_plain_kernels(False)
+    worst, rel = _score_agreement(got, want)
+    ok = rel <= MRI_UNET_REL
+    log(f"gated check, classifier scores kernels vs plain versions on the card (bf16, all "
+        f"{len(x_all)} calibration images): relative L2 {rel:.4g} (<= {MRI_UNET_REL:g}), max "
+        f"relative difference of a score {worst:.4g}; decisions at the threshold differ for "
+        f"{int(np.sum((got > thr) != (want > thr)))} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("the classifier with the kernels disagrees with the plain versions")
+    checks["scores_kernels_vs_plain_bfloat16"] = dict(max_rel=worst, rel_l2=rel)
+
+    # (c) the counted main path: translate without a mask, then the server
+    counted_fe, counted_gate = CountedFrontend(fe), CountedGate(gate)
+    pipe = LocalDiffusionPipeline(cfg, gd, frontend=counted_fe, classifier_gate=counted_gate)
+    lo, hi = pipe.min_max_val
+    hr, lr, _ = synthetic_brain_translation(MRI_BATCH, s, tumor=True, seed=11,
+                                            mean_t1=d.mean_t1, std_t1=d.std_t1,
+                                            mean_flair=d.mean_flair, std_flair=d.std_flair)
+    calls = gd.diff_cfg.resolved_sampling_timesteps
+    t_fuse = cfg.sampler.start_timestep
+    reset_counts()
+    clock = StageClock("cuda")
+    res = pipe.translate(lr, hr=hr, noise=1, clock=clock)
+    total = read_counts()
+    ft = res["fusion_time"]
+    split = clock.split()
+    steps = counted_gate.calls
+    chain_s = float(res["time"])
+    if not bool(res["branched"]):
+        raise RuntimeError("Stage A gated no tumour brain: the chain was not branched")
+    if steps != t_fuse - int(ft.min()) or len(ft) != MRI_BATCH:
+        raise RuntimeError(f"the gate ran at {steps} steps, fusion_time {ft.tolist()}")
+    _check_launches(total, expected_gated(calls, steps, 1), "gated main path translate")
+    _check_images("gated main path chain", res["pred"], lr.shape, lo, hi)
+    values = torch.stack(counted_gate.values).float().cpu().numpy()
+    phase_b = {k: split[k] for k in ("plain", "gate", "retry")}
+    log(f"gated main path: translate without a mask, batch {MRI_BATCH} tumour brains: "
+        f"fusion_time {ft.tolist()}: {int(np.sum(ft == t_fuse - 1))} accepted at the first "
+        f"gated step (t={t_fuse - 1}), {int(np.sum(ft < t_fuse - 1))} rejected at least once; "
+        f"the gate ran at {steps} steps (values {np.round(values, 4).tolist()}); chain "
+        f"{chain_s * 1e3:.1f}ms wall -> {MRI_BATCH / chain_s:.3f} img/s (Stage A "
+        f"{counted_fe.seconds[-1] * 1e3:.2f}ms before it); device timeline: up to phase B "
+        f"(Stage A included) {split['chain']:.1f}ms, phase B ({t_fuse} steps) plain steps "
+        f"{phase_b['plain']:.2f}ms, gate {phase_b['gate']:.2f}ms, retry {phase_b['retry']:.2f}ms; mse "
+        f"{float(res['mse']):.4f}; launches {total} (Stage A {counted_fe.launches}, gate "
+        f"{counted_gate.launches})")
+    chain_counts = read_counts()
+    srv = InferenceServer(pipe, batch_size=MRI_BATCH, max_wait_ms=500)
+    gate_calls, detects = counted_gate.calls, counted_fe.calls
+    t0 = time.perf_counter()
+    with srv:
+        futs = [srv.submit(x) for x in lr]
+        outs = [f.result(timeout=600) for f in futs]
+    served_s = time.perf_counter() - t0
+    stats = srv.snapshot_stats()
+    counts = read_counts()
+    served_steps = counted_gate.calls - gate_calls
+    dispatches = (stats["merged_dispatches"] + stats["plain_dispatches"]
+                  + stats["branched_dispatches"])
+    log(f"gated serving: {stats['requests']} requests without masks in {stats['batches']} "
+        f"batch(es), {dispatches} dispatch(es), mean latency {stats['latency_mean_s'] * 1e3:.1f}ms "
+        f"({served_s:.2f}s wall); the gate ran at {served_steps} steps; branched flags "
+        f"{[o['branched'] for o in outs]}")
+    if stats["requests"] != MRI_BATCH or dispatches != 1 or counted_fe.calls - detects != 1:
+        raise RuntimeError(f"gated server stats {stats}")
+    for i, o in enumerate(outs):
+        _check_images(f"gated served request {i}", o["pred"], (s, s, 1), lo, hi)
+    _check_launches({k: counts[k] - chain_counts[k] for k in COUNTERS},
+                    expected_gated(calls, served_steps, 1), "gated serving")
+    log(f"gated main path: launches {counts}")
+
+    # (d) forced thresholds at T = 50: always accept, always reject
+    cut = cfg.replace(diffusion=dataclasses.replace(cfg.diffusion, timesteps=GATED_FORCED_T))
+    gd50 = build_gd(cut, device="cuda")
+    gd50.model.load_state_dict(gd.model.state_dict())
+    mask = res["mask"]
+    forced = {}
+    for name, threshold in (("accept", np.inf), ("reject", -np.inf)):
+        cls = classifier_on(gd50)
+        cls.threshold = threshold
+        fpipe = LocalDiffusionPipeline(cut, gd50, classifier_gate=CountedGate(
+            cls.as_sampler_gate("suppress")))
+        reset_counts()
+        out = fpipe.translate(lr, noise=2, mask=mask)
+        got_counts = read_counts()
+        fsteps = fpipe.classifier_gate.calls
+        want_ft = [t_fuse - 1] * MRI_BATCH if name == "accept" else [1] * MRI_BATCH
+        want_steps = 1 if name == "accept" else t_fuse - 1
+        if out["fusion_time"].tolist() != want_ft or fsteps != want_steps:
+            raise RuntimeError(f"always {name}: fusion_time {out['fusion_time'].tolist()}, "
+                               f"gate at {fsteps} steps")
+        _check_launches(got_counts, expected_gated(GATED_FORCED_T, fsteps, 0),
+                        f"always {name}")
+        gd50.model.use_plain_kernels(True)
+        try:
+            plain = fpipe.translate(lr, noise=2, mask=mask)
+        finally:
+            gd50.model.use_plain_kernels(False)
+        a, p = out["pred"].ravel(), plain["pred"].ravel()
+        rel = float(np.linalg.norm(a - p) / np.linalg.norm(p))
+        corr = float(np.corrcoef(a, p)[0, 1])
+        same_ft = plain["fusion_time"].tolist() == out["fusion_time"].tolist()
+        ok = rel <= MRI_CHAIN_REL and corr >= MRI_CHAIN_CORR and same_ft
+        line = (f"gated forced, always {name} (suppress, threshold {threshold}; T cut to "
+                f"{GATED_FORCED_T} for the time limit, full width): fusion_time "
+                f"{out['fusion_time'].tolist()}, the gate at {fsteps} steps; launches "
+                f"{got_counts}; kernels vs plain versions: relative L2 {rel:.4g}, correlation "
+                f"{corr:.6f}, fusion_time equal {same_ft}")
+        if name == "accept":
+            ungated = LocalDiffusionPipeline(cut, gd50).translate(lr, noise=2, mask=mask)
+            bit = bool(np.array_equal(out["pred"], ungated["pred"]))
+            line += f"; bit-equal to the ungated chain (same seed): {bit}"
+            ok = ok and bit
+            forced["accept_bit_equal"] = bit
+        log(line + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"the forced 'always {name}' chain failed its checks")
+        forced[name] = dict(rel_l2=rel, corr=corr, gate_steps=fsteps)
+    forced["reject_float32"] = gated_float32(cut, gd50, mask, lr, classifier_on)
+    del gd50
+    perf = dict(chain_s=chain_s, img_per_s=MRI_BATCH / chain_s, phase_b_ms=phase_b,
+                phase_b_ms_per_step={k: v / t_fuse for k, v in phase_b.items()},
+                gate_steps=steps, fusion_time=ft.tolist(), threshold=thr,
+                balanced_accuracy=acc, serve_latency_mean_s=stats["latency_mean_s"],
+                bank_seconds=dict(secs, calibration=calib_s), bank_shape=list(bank.shape))
+    return dict(counts=counts, perf=perf, checks=dict(checks, forced=forced))
+
+
+def gated_float32(cut, gd50, mask, lr, classifier_on) -> dict:
+    """Always reject at the configuration file's float32 (T = 50, full
+    width): the kernels that serve float32 (the GroupNorm and attention
+    kernels; the fused ResnetBlock and linear attention take bf16 only)
+    counted through the gated chain, and held against the plain versions."""
+    c32 = cut.replace(train=dataclasses.replace(cut.train, compute_dtype="float32"))
+    gd32 = build_gd(c32, device="cuda")
+    gd32.model.load_state_dict(gd50.model.state_dict())
+    t_fuse = c32.sampler.start_timestep
+    cond = torch.as_tensor(np.concatenate([lr, lr]), device="cuda")
+    with torch.no_grad():
+        feat = gd32.encode_cond(cond)
+        reset_counts()
+        gd32.apply_model(torch.randn_like(cond), None,
+                         torch.full((len(cond),), t_fuse, dtype=torch.long, device="cuda"),
+                         cond_feat=feat)
+    per_call = read_counts()  # one [2B] UNet call
+    reset_counts()
+    ungated = LocalDiffusionPipeline(c32, gd32).translate(lr, noise=2, mask=mask)
+    per_chain = read_counts()
+    cls = classifier_on(gd32)
+    cls.threshold = -np.inf
+    gate = CountedGate(cls.as_sampler_gate("suppress"))
+    pipe = LocalDiffusionPipeline(c32, gd32, classifier_gate=gate)
+    reset_counts()
+    out = pipe.translate(lr, noise=2, mask=mask)
+    got, steps, tap_launches = read_counts(), gate.calls, dict(gate.launches)
+    # the ungated chain is T UNet calls; each gated step adds a tap pass
+    # (counted by the gate) and a [2B] UNet call, the retry
+    want = {k: per_call[k] * (GATED_FORCED_T + steps) + tap_launches.get(k, 0)
+            for k in COUNTERS}
+    if any(per_chain[k] != per_call[k] * GATED_FORCED_T for k in COUNTERS) or got != want:
+        raise RuntimeError(f"float32 always reject: launches {got}, expected {want} (one UNet "
+                           f"call {per_call}, the ungated chain {per_chain}, gate "
+                           f"{tap_launches})")
+    if not (per_call["groupnorm_film_silu"] and per_call["flash_attention"]):
+        raise RuntimeError(f"a float32 UNet call launched no GroupNorm or attention kernel: "
+                           f"{per_call}")
+    if out["fusion_time"].tolist() != [1] * len(lr) or steps != t_fuse - 1:
+        raise RuntimeError(f"float32 always reject: fusion_time {out['fusion_time'].tolist()}, "
+                           f"gate at {steps} steps")
+    gd32.model.use_plain_kernels(True)
+    try:
+        plain = pipe.translate(lr, noise=2, mask=mask)
+    finally:
+        gd32.model.use_plain_kernels(False)
+    a, p = out["pred"].ravel(), plain["pred"].ravel()
+    rel = float(np.linalg.norm(a - p) / np.linalg.norm(p))
+    corr = float(np.corrcoef(a, p)[0, 1])
+    same_ft = plain["fusion_time"].tolist() == out["fusion_time"].tolist()
+    moved = float(np.linalg.norm(a - ungated["pred"].ravel()) / np.linalg.norm(p))
+    ok = rel <= STEM_CHAIN_REL and same_ft and np.all(np.isfinite(a))
+    log(f"gated forced, always reject at the configuration file's float32 (suppress, threshold "
+        f"-inf; T cut to {GATED_FORCED_T}, full width): fusion_time {out['fusion_time'].tolist()}, "
+        f"the gate at {steps} steps; launches {got} (one UNet call {per_call}, the "
+        f"gate's tap passes {tap_launches}); kernels vs plain versions: relative L2 {rel:.4g} "
+        f"(<= {STEM_CHAIN_REL:g}), correlation {corr:.8f}, fusion_time equal {same_ft}; the "
+        f"retries moved the image from the ungated chain's by {moved:.4g} relative L2 "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("the float32 'always reject' chain failed its checks")
+    return dict(rel_l2=rel, corr=corr, gate_steps=steps, launches=got, per_call=per_call,
+                per_tap_pass={k: v // steps for k, v in tap_launches.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -1705,9 +2128,11 @@ def main() -> None:
     flag = flagship()
     mri = mri256()
     stage_a = stage_a256()
+    gated = gated256(stage_a.pop("gd"), stage_a.pop("bank_path"))
     stem = stem256()
 
-    phases = {"flagship": flag, "256px": mri, "stage_a": stage_a, "stem": stem}
+    phases = {"flagship": flag, "256px": mri, "stage_a": stage_a, "gated": gated,
+              "stem": stem}
     launches = {name: {label: ph["counts"][name] for label, ph in phases.items()}
                 for name in COUNTERS}
     total = {name: sum(v.values()) for name, v in launches.items()}
@@ -1799,7 +2224,7 @@ def main() -> None:
         + "; busy share " + " ".join(f"{label} {ph['busy_share']:.4f}"
                                      for label, ph in phases.items() if "busy_share" in ph)
         + f"; stem checks {json.dumps(stem['checks'])}; Stage A checks "
-        + json.dumps(stage_a["checks"]))
+        + json.dumps(stage_a["checks"]) + f"; gated checks {json.dumps(gated['checks'])}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

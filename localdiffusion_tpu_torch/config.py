@@ -6,10 +6,11 @@ OODConfig, DataConfig, TrainConfig, Config, min_max_val_for).  The port keeps
 its own copy because it imports nothing of the JAX package, and that module
 imports `yaml`, which a CUDA host need not have.  The flagship configuration
 (`configs/mnist.yaml`) is built in Python by `flagship_config()`, the 256px
-MRI one (`configs/mri_synthetic_256.yaml`) by `mri256_config()`, and its
-s2d-stem variant (`configs/mri_synthetic_256_stem.yaml`) by
-`stem256_config()`; `Config.from_dict` takes the parsed contents of such a
-file.
+MRI one (`configs/mri_synthetic_256.yaml`) by `mri256_config()`, its
+classifier-gated variant (`configs/mri_synthetic_256_gated.yaml`) by
+`mri256_gated_config()`, and its s2d-stem variant
+(`configs/mri_synthetic_256_stem.yaml`) by `stem256_config()`;
+`Config.from_dict` takes the parsed contents of such a file.
 """
 
 from __future__ import annotations
@@ -345,6 +346,36 @@ def mri256_config() -> Config:
             batch_size=8, lr=1e-4, num_steps=400, results_dir="./results",
             project_name="mri_synth256", compute_dtype="bfloat16",
         ),
+    )
+
+
+def mri256_gated_config() -> Config:
+    """`configs/mri_synthetic_256_gated.yaml`, the 256px chain with the
+    classifier-gated phase B, built without YAML: fusion at t=5, so four
+    post-fusion steps can reject; the gate is PatchCore over the denoiser's
+    taps on its own bank of normal FLAIR images (`classifier_obj
+    flair_denoiser`), suppress polarity, at most 3 retries, and a threshold
+    ROC-calibrated at run time.  Stage A is the 256px default's.
+
+    One value departs from the file: compute is bf16, the 256px default's.
+    The file names no `compute_dtype`, so the JAX package runs it, and
+    measured `results/gated_quality_r5.json`, in float32; its threshold
+    and decisions belong to that precision.  At bf16 all eight kernels
+    serve the chain; at float32 the GroupNorm and attention kernels do and
+    the ResnetBlocks and linear attention take their plain modules, as in
+    the JAX package.  `.replace(train=dataclasses.replace(cfg.train,
+    compute_dtype="float32"))` gives the file's precision."""
+    base = mri256_config()
+    return base.replace(
+        diffusion=dataclasses.replace(base.diffusion, sampling_timesteps=None),
+        sampler=dataclasses.replace(
+            base.sampler, start_timestep=5, classifier=True,
+            classifier_obj="flair_denoiser", max_classifier_retries=3,
+            classifier_polarity="suppress",
+        ),
+        ood=dataclasses.replace(base.ood, classifier_threshold=None),
+        train=TrainConfig(batch_size=8, lr=1e-4, results_dir="./results",
+                          project_name="mri_synth256", compute_dtype="bfloat16"),
     )
 
 

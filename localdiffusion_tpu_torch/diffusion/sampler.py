@@ -9,23 +9,34 @@ Python loop over the timesteps with static shapes:
           same noise for both branches;
   fusion at t = s = start_timestep — x_start and the noisy states are
           fused through the binary mask;
-  phase B (fused): t ∈ [s-1 .. 0] — one plain chain.
+  phase B (fused): t ∈ [s-1 .. 0] — one plain chain, optionally gated by
+          a classifier: a rejected sample redoes the step from the saved
+          masked branch pair (the retry), until it is accepted.
 
 DDIM (`ddim_sample_plain`, `ddim_sample_branched`) walks the strided time
 grid of `ddim_times` in (t, t_next) pairs, with the same [2B] branch pair;
-the branched chain fuses at the first pair with t <= times[-s-2].
+the branched chain fuses at the first pair with t <= times[-s-2].  It has
+no gate, as in the reference.
 
-The condition features are encoded once per chain.  The classifier-gated
-phase B is a later slice: asking for it raises.
+The condition features are encoded once per chain.
 
 Noise comes from a noise source: a callable `noise(shape) -> Tensor`, called
 once for the initial image and once per step, in chain order (so T + 1
-draws per DDPM chain, for the plain and the branched sampler alike, and
-S + 1 per DDIM chain of S pairs, η = 0 included: the JAX samplers draw
-then too).  By default
-it draws from a `torch.Generator` on the device (`GeneratorNoise`);
-`ArrayNoise` hands out given arrays instead, which is how a test replays the
-JAX package's key stream.
+draws per DDPM chain, for the plain and the branched sampler alike, gated
+or not, and S + 1 per DDIM chain of S pairs, η = 0 included: the JAX
+samplers draw then too).  By default it draws from a `torch.Generator` on
+the device (`GeneratorNoise`); `ArrayNoise` hands out given arrays instead,
+which is how a test replays the JAX package's key stream.
+
+The gate's retries draw from a second source, `retry_noise`, once at each
+post-fusion step where the gate runs (the retry is computed there for the
+whole batch, used or not), so the main stream, and with it the plain chain,
+is the same whether the gate runs or not (the JAX chain splits a key for
+the plain step and one for the retry at every post-fusion step).  With
+`noise` an int seed (or None, seed 0) and no `retry_noise`, the retries
+draw from a generator seeded by `retry_seed(seed)`; with a noise source
+given and no `retry_noise`, a retry raises.  An ungated chain builds no
+retry source.
 """
 
 from __future__ import annotations
@@ -78,6 +89,25 @@ def as_noise(noise, device):
     if callable(noise):
         return noise
     raise TypeError(f"noise must be an int seed or a callable, got {type(noise)}")
+
+
+def retry_seed(seed: int) -> int:
+    """The seed of the gate's retry noise in a chain seeded by `seed`."""
+    return int(np.random.SeedSequence([int(seed), 1]).generate_state(1)[0])
+
+
+def _no_retry_noise(shape) -> torch.Tensor:
+    raise RuntimeError("the classifier gate's retry needs noise: pass retry_noise with a "
+                       "given noise source (or noise as an int seed)")
+
+
+def _retry_source(noise, retry_noise, device):
+    """The retries' noise source (see the module docstring)."""
+    if retry_noise is not None:
+        return as_noise(retry_noise, device)
+    if noise is None or isinstance(noise, (int, np.integer)):
+        return GeneratorNoise(retry_seed(0 if noise is None else noise), device)
+    return _no_retry_noise
 
 
 def reconcile(scfg: SamplerConfig) -> SamplerConfig:
@@ -141,8 +171,9 @@ def _tb(t: int, n: int, device):
 
 
 def _branch_starts(gd, scfg: SamplerConfig, m, cond_out, feat_pair, lo: float, hi: float):
-    """(x2, tb2) → both branches' x_start from one [2B] UNet call (OOD half
-    first), the mask_x policy on the OOD half, clipped to [lo, hi]."""
+    """(x2, tb2[, force_mask_x]) → both branches' x_start from one [2B] UNet
+    call (OOD half first), the mask_x policy on the OOD half (with mask_x
+    set, or forced as the gate's retry forces it), clipped to [lo, hi]."""
     b, device = m.shape[0], m.device
     out_half = torch.cat([torch.ones(b, 1, 1, 1, dtype=torch.bool, device=device),
                           torch.zeros(b, 1, 1, 1, dtype=torch.bool, device=device)])
@@ -152,10 +183,10 @@ def _branch_starts(gd, scfg: SamplerConfig, m, cond_out, feat_pair, lo: float, h
         mask_x_mult2 = torch.cat([m, torch.ones_like(m)])
         mask_x_zero2 = torch.cat([m == 0.0, torch.zeros_like(m, dtype=torch.bool)])
 
-    def starts(x2, tb2):
+    def starts(x2, tb2, force_mask_x=False):
         out2 = gd.apply_model(x2, None, tb2, cond_feat=feat_pair)
         xs2 = dm.model_output_to_x_start(gd.schedule, out2, x2, tb2)
-        if scfg.mask_x:
+        if scfg.mask_x or force_mask_x:
             if scfg.mask_x_policy == "cond":
                 xs2 = torch.where(out_half, mask_x_repl2, xs2)
             else:
@@ -201,7 +232,8 @@ def ddpm_sample_plain(gd, cond, min_max_val: Tuple[float, float], noise=None,
 @torch.no_grad()
 def ddpm_sample_branched(gd, cond, mask, scfg: SamplerConfig,
                          min_max_val: Tuple[float, float], noise=None, gt=None,
-                         classifier_fn=None, return_all: bool = False):
+                         classifier_fn=None, return_all: bool = False,
+                         return_fusion_time: bool = False, retry_noise=None, clock=None):
     """Branched local-diffusion DDPM with fusion at `start_timestep`.
 
     cond: [B, H, W, C]; mask: [B, H, W, 1].  Returns the final image
@@ -209,14 +241,29 @@ def ddpm_sample_branched(gd, cond, mask, scfg: SamplerConfig,
     is False).  `return_all` → (final, frames), frames [T+1, 2, B, H, W, C]:
     the initial noise, then one frame per step (the (OOD, IND) pair while
     branched, the fused image duplicated on the pair axis once fused).
+    `return_fusion_time` appends the per-sample acceptance timestep of the
+    gate ([B] int32; `num_timesteps` where the gate never ran) after them.
+
+    The gate runs when `scfg.classifier` is set and `classifier_fn` given:
+    `classifier_fn(x_start, t)` → [B] float32, accept where > 0.  At each
+    post-fusion step a sample not yet accepted takes the plain step if the
+    gate accepts its clipped x_start, at t == 0, or once it has been
+    rejected `max_classifier_retries` times (0: no budget); otherwise the
+    step is redone from the saved masked branch pair with fresh [2B]
+    predictions under mask_x (the retry).  Once accepted a sample stays
+    on the plain chain.  While any sample is unlatched, every step runs the
+    gate and the retry for the whole batch; whether one is left is read on
+    the host once per post-fusion step (4 reads at start_timestep 5).
+    `retry_noise` draws the retries' noise (see the module docstring).
+    `clock` (an `ood.patchcore.StageClock`) is marked at phase B's start
+    ('chain') and after each post-fusion step's plain step ('plain'), gate
+    ('gate') and retry with the selection ('retry').
     """
-    if scfg.classifier or classifier_fn is not None:
-        raise NotImplementedError("classifier-gated phase B: later slice")
     scfg = reconcile(scfg)
     sched = gd.schedule
     lo, hi = min_max_val
     device = cond.device
-    noise = as_noise(noise, device)
+    noise_arg, noise = noise, as_noise(noise, device)
     b = cond.shape[0]
     shape = (b, gd.image_size, gd.image_size, gd.model_cfg.channels)
 
@@ -244,6 +291,27 @@ def ddpm_sample_branched(gd, cond, mask, scfg: SamplerConfig,
         n = _step_noise(noise, shape, t)  # shared across the branches
         return mean2 + torch.exp(0.5 * logvar2) * torch.cat([n, n])
 
+    def fuse_step(x2, t, source, force_mask_x=False):
+        """The fused step at t from the branch pair: (image, the masked
+        pair).  A retry passes the saved masked pair with mask_x forced."""
+        xs2 = branch_starts2(x2, _tb(t, 2 * b, device), force_mask_x)
+        xs_out, xs_in = xs2[:b], xs2[b:]
+        x_start = (xs_in * (1.0 - m) + xs_out).clamp(lo, hi)  # xs_out is mask_x-masked
+        x_out, x_in = x2[:b] * m, x2[b:] * (1.0 - m)
+        x = fuse_noisy_states(x_out, x_in, m, scfg.fusion_route)
+        tb = _tb(t, b, device)
+        mean, _, logvar = dm.q_posterior(sched, x_start, x, tb)
+        img = mean + torch.exp(0.5 * logvar) * _step_noise(source, shape, t)
+        return img, torch.cat([x_out, x_in])
+
+    def plain_step(x, t):
+        """The fused chain's plain step: (image, its clipped x_start)."""
+        tb = _tb(t, b, device)
+        out = gd.apply_model(x, None, tb, cond_feat=feat_full)
+        x_start = dm.model_output_to_x_start(sched, out, x, tb).clamp(lo, hi)
+        mean, _, logvar = dm.q_posterior(sched, x_start, x, tb)
+        return mean + torch.exp(0.5 * logvar) * _step_noise(noise, shape, t), x_start
+
     frames = [torch.stack([img0, img0])]
 
     def record_pair(x2):
@@ -254,17 +322,22 @@ def ddpm_sample_branched(gd, cond, mask, scfg: SamplerConfig,
         if return_all:
             frames.append(torch.stack([x, x]))
 
-    def finish(result):
+    accept_t = torch.full((b,), gd.num_timesteps, dtype=torch.int32, device=device)
+
+    def finish(result, fused=True):
+        out = [_maybe_unnorm(gd, result)]
         if return_all:
-            return _maybe_unnorm(gd, result), _maybe_unnorm(gd, torch.stack(frames))
-        return _maybe_unnorm(gd, result)
+            out.append(_maybe_unnorm(gd, torch.stack(frames)))
+        if return_fusion_time and fused:
+            out.append(accept_t)
+        return tuple(out) if len(out) > 1 else out[0]
 
     s = int(scfg.start_timestep)
     if not scfg.start_intermediate:
         for t in range(t_top - 1, -1, -1):
             x2 = branched_step(x2, t)
             record_pair(x2)
-        return finish(x2.reshape(2, b, *x2.shape[1:]))
+        return finish(x2.reshape(2, b, *x2.shape[1:]), fused=False)
 
     # ---- phase A: branched steps t ∈ [T-1 .. s+1] ----
     for t in range(t_top - 1, s, -1):
@@ -273,24 +346,44 @@ def ddpm_sample_branched(gd, cond, mask, scfg: SamplerConfig,
 
     # ---- fusion at t = s ----
     t_fuse = min(s, t_top - 1)
-    tb2 = _tb(t_fuse, 2 * b, device)
-    xs2 = branch_starts2(x2, tb2)
-    xs_out, xs_in = xs2[:b], xs2[b:]
-    x_start = (xs_in * (1.0 - m) + xs_out).clamp(lo, hi)  # xs_out is mask_x-masked
-    x = fuse_noisy_states(x2[:b] * m, x2[b:] * (1.0 - m), m, scfg.fusion_route)
-    tb = _tb(t_fuse, b, device)
-    mean, _, logvar = dm.q_posterior(sched, x_start, x, tb)
-    img = mean + torch.exp(0.5 * logvar) * _step_noise(noise, shape, t_fuse)
+    img, x_branchout2 = fuse_step(x2, t_fuse, noise)
     record_fused(img)
+    if clock is not None:
+        clock.mark("chain")
 
-    # ---- phase B: fused steps t ∈ [s-1 .. 0] ----
+    # ---- phase B: fused steps t ∈ [s-1 .. 0], gated or not ----
+    gating = scfg.classifier and classifier_fn is not None
+    if gating:
+        accepted = torch.zeros(b, dtype=torch.bool, device=device)
+        rejects = torch.zeros(b, dtype=torch.int32, device=device)
+        budget = int(scfg.max_classifier_retries)
+        retry = _retry_source(noise_arg, retry_noise, device)
     for t in range(t_fuse - 1, -1, -1):
-        tb = _tb(t, b, device)
-        out = gd.apply_model(img, None, tb, cond_feat=feat_full)
-        x_start = dm.model_output_to_x_start(sched, out, img, tb).clamp(lo, hi)
-        mean, _, logvar = dm.q_posterior(sched, x_start, img, tb)
-        img = mean + torch.exp(0.5 * logvar) * _step_noise(noise, shape, t)
+        img_plain, xs_plain = plain_step(img, t)
+        if clock is not None:
+            clock.mark("plain")
+        if not gating:
+            img = img_plain
+            record_fused(img)
+            continue
+        accept_now = classifier_fn(xs_plain, t).reshape(b) > 0.0
+        if t == 0:
+            accept_now = torch.ones_like(accept_now)
+        if budget > 0:
+            accept_now = accept_now | (rejects >= budget)
+        if clock is not None:
+            clock.mark("gate")
+        img_retry, _ = fuse_step(x_branchout2, t, retry, force_mask_x=True)
+        use_plain = accepted | accept_now
+        img = torch.where(use_plain[:, None, None, None], img_plain, img_retry)
+        accept_t = torch.where(accepted | ~accept_now, accept_t, torch.full_like(accept_t, t))
+        rejects = rejects + (~use_plain).to(torch.int32)
+        accepted = use_plain
+        if clock is not None:
+            clock.mark("retry")
         record_fused(img)
+        # the latch: once every sample is accepted the gate cannot fire again
+        gating = t > 0 and not bool(accepted.all())
     return finish(img)
 
 
@@ -373,10 +466,10 @@ def ddim_sample_branched(gd, cond, mask, scfg: SamplerConfig,
 
     `return_all` → (final, frames), frames [S+1, 2, B, H, W, C]: the
     initial noise, the branch pair while branched, the fused image
-    duplicated on the pair axis after fusion.
+    duplicated on the pair axis after fusion.  There is no classifier gate
+    here, as in the reference: a configuration with `sampler.classifier`
+    runs ungated.
     """
-    if scfg.classifier:
-        raise NotImplementedError("classifier-gated phase B: later slice")
     scfg = reconcile(scfg)
     sched = gd.schedule
     lo, hi = min_max_val

@@ -12,6 +12,16 @@ as `<bank>_ladder.json`, where `build_frontend` finds it.
 builds the bank of `mri256_config()` (200 images at 256px: 819,200 patches,
 a 10% coreset of 81,920 × 192) with the weights of its `ood.feature_npz`, on
 the card unless `--device cpu`.  Other datasets wait for their readers.
+
+    python -m localdiffusion_tpu_torch.ood.bank --classifier --out /path/to/memory_bank.npy
+
+builds instead the classifier gate's own bank for `mri256_gated_config()`
+(the counterpart of the bank and ROC sections of
+`scripts/eval_gated_quality.py`): 64 normal FLAIR targets (seed 11) → a 5%
+coreset of their 262,144 patches, 13,107 × 192, saved beside `--out` as
+`memory_bank_synthetic_brain_flair_denoiser.npy`, where
+`factory.build_classifier_gate` finds it; then it prints the threshold
+ROC-calibrated on `classifier_calibration_pairs` and its balanced accuracy.
 """
 
 from __future__ import annotations
@@ -22,25 +32,35 @@ import time
 
 import numpy as np
 
-from localdiffusion_tpu_torch.config import Config, mri256_config
+from localdiffusion_tpu_torch.config import Config, mri256_config, mri256_gated_config
 from localdiffusion_tpu_torch.data.synthetic import synthetic_brain_translation
-from localdiffusion_tpu_torch.factory import ladder_beside
+from localdiffusion_tpu_torch.factory import (
+    build_classifier_gate,
+    classifier_bank_beside,
+    ladder_beside,
+)
+from localdiffusion_tpu_torch.ood.classifier import balanced_accuracy
 from localdiffusion_tpu_torch.ood.features import make_feature_source
 from localdiffusion_tpu_torch.ood.frontend import OODFrontend
 from localdiffusion_tpu_torch.ood.patchcore import PatchCore
 from localdiffusion_tpu_torch.ood.thresholds import fit_ladder, save_ladder
 
 
-def calibration_images(cfg: Config, n_images: int) -> np.ndarray:
-    """The normal conditioning images [n, H, W, 1] a bank is built from."""
+def _brains(cfg: Config, n: int, tumor: bool, seed: int):
+    """(hr FLAIR, lr T1, seg) synthetic brains normalized as `cfg` says."""
     if cfg.data.name != "synthetic_brain":
         raise NotImplementedError(f"dataset {cfg.data.name!r}: its reader is a later slice "
                                   "of the port (ROADMAP queue 1)")
     d = cfg.data
-    _, lr, _ = synthetic_brain_translation(
-        n_images, cfg.diffusion.image_size, tumor=False, seed=42, mean_t1=d.mean_t1,
-        std_t1=d.std_t1, mean_flair=d.mean_flair, std_flair=d.std_flair)
-    return lr
+    return synthetic_brain_translation(
+        n, cfg.diffusion.image_size, tumor=tumor, seed=seed, mean_t1=d.mean_t1,
+        std_t1=d.std_t1, mean_flair=d.mean_flair, std_flair=d.std_flair,
+        translate_zero=d.translate_zero)
+
+
+def calibration_images(cfg: Config, n_images: int) -> np.ndarray:
+    """The normal conditioning images [n, H, W, 1] a bank is built from."""
+    return _brains(cfg, n_images, False, 42)[1]
 
 
 BATCH = 8  # calibration images a feature pass
@@ -77,17 +97,84 @@ def build_bank(cfg: Config, out: str, gd=None, n_images: int = 200, images=None,
                 patches=pc.last_build_s["patches"])
 
 
+def build_classifier_bank(cfg: Config, out: str, gd=None, n_images: int = 64,
+                          ratio: float = 0.05, device="cuda") -> dict:
+    """Build the classifier gate's bank over `n_images` normal FLAIR
+    targets (seed 11), the images the gate scores, as the sampler holds
+    them, with `cfg`'s feature source (the denoiser `gd`, or one built on
+    `device` with `cfg.ood.feature_npz`'s weights): a `ratio` coreset (the
+    k-center projection from seed 0), saved to `out` (np.save).  Returns
+    {'bank', 'seconds': {'taps', 'kcenter'}, 'patches'}."""
+    hr = _brains(cfg, n_images, False, 11)[0]
+    pc = PatchCore(cfg.ood, source=make_feature_source(cfg, denoiser=gd, device=device))
+    bank = pc.build_memory_bank([hr[i:i + BATCH] for i in range(0, len(hr), BATCH)],
+                                sampling_ratio=ratio)
+    np.save(out, bank)
+    return dict(bank=bank, seconds={k: pc.last_build_s[k] for k in ("taps", "kcenter")},
+                patches=pc.last_build_s["patches"])
+
+
+def classifier_calibration_pairs(cfg: Config, n: int = 32, lesion_amp: float = 2.0) -> list:
+    """(image [1, H, W, 1], label) pairs for the gate's ROC calibration: n
+    normal FLAIR targets (seed 21, label 0), then n anomalous ones (label
+    1).  For 'suppress' those are normal FLAIR (seed 22) with a Gaussian
+    lesion of peak `lesion_amp` and radius size/10 added at a place in the
+    image's middle half (rng seed 23), a synthetic hallucination residue;
+    for 'preserve' the tumour-carrying FLAIR of seed 22."""
+    size = cfg.diffusion.image_size
+    normal = _brains(cfg, n, False, 21)[0]
+    if cfg.sampler.classifier_polarity == "preserve":
+        anomalous = _brains(cfg, n, True, 22)[0]
+    else:
+        anomalous = _brains(cfg, n, False, 22)[0]
+        rng = np.random.default_rng(23)
+        yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+        radius = size / 10
+        for i in range(n):
+            ty = int(rng.integers(size // 4, 3 * size // 4))
+            tx = int(rng.integers(size // 4, 3 * size // 4))
+            lesion = np.exp(-((yy - ty) ** 2 + (xx - tx) ** 2) / (2 * radius**2))
+            anomalous[i, :, :, 0] += lesion_amp * lesion
+    return ([(normal[i:i + 1], 0) for i in range(n)]
+            + [(anomalous[i:i + 1], 1) for i in range(n)])
+
+
 def main(argv=None) -> None:
-    cfg = mri256_config()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--out", required=True, help="the bank's .npy path (its ladder goes beside it)")
-    ap.add_argument("--n-images", type=int, default=200)
-    ap.add_argument("--feature-npz", default=cfg.ood.feature_npz,
+    ap.add_argument("--out", required=True,
+                    help="the detector bank's .npy path (its ladder goes beside it; with "
+                         "--classifier, the classifier's bank)")
+    ap.add_argument("--classifier", action="store_true",
+                    help="build the classifier gate's bank of mri256_gated_config() and "
+                         "ROC-calibrate its threshold")
+    ap.add_argument("--n-images", type=int, default=None,
+                    help="images of the bank (default 200; with --classifier 64)")
+    ap.add_argument("--calib", type=int, default=32,
+                    help="with --classifier: calibration images per class")
+    ap.add_argument("--feature-npz", default=mri256_config().ood.feature_npz,
                     help="the denoiser's params snapshot")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    cfg = mri256_gated_config() if args.classifier else mri256_config()
     cfg = cfg.replace(ood=dataclasses.replace(cfg.ood, feature_npz=args.feature_npz))
-    res = build_bank(cfg, args.out, n_images=args.n_images, device=args.device)
+    if args.classifier:
+        # one denoiser with the snapshot's weights taps for the bank and the calibration
+        gd = make_feature_source(cfg, device=args.device).gd
+        cfg = cfg.replace(ood=dataclasses.replace(cfg.ood, memory_bank_path=args.out))
+        out = classifier_bank_beside(args.out, cfg)
+        res = build_classifier_bank(cfg, out, gd=gd, n_images=args.n_images or 64,
+                                    device=args.device)
+        print(f"saved {out}: {res['bank'].shape} from {res['patches']} patches; seconds "
+              + " ".join(f"{k} {v:.2f}" for k, v in res["seconds"].items()))
+        t0 = time.perf_counter()
+        gate = build_classifier_gate(cfg, calibration_pairs=classifier_calibration_pairs(
+            cfg, n=args.calib), gd=gd, device=args.device, verbose=False)
+        labels, scores = gate.classifier.calibration
+        print(f"ROC threshold {gate.threshold:.6g} ({gate.polarity}), balanced accuracy "
+              f"{balanced_accuracy(labels, scores, gate.threshold):.4f} on {len(labels)} "
+              f"calibration images ({time.perf_counter() - t0:.2f}s)")
+        return
+    res = build_bank(cfg, args.out, n_images=args.n_images or 200, device=args.device)
     lad = res["ladder"]
     print(f"saved {args.out}: {res['bank'].shape} from {res['patches']} patches; seconds "
           + " ".join(f"{k} {v:.2f}" for k, v in res["seconds"].items()))

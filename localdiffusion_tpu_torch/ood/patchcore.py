@@ -199,7 +199,7 @@ class StageClock:
     begun at the previous mark.  On a CUDA device the marks are CUDA events
     on the current stream, read by `split()` after the caller has waited
     for the device (no mark waits for it); on the CPU they are host clock
-    readings.  `split()` gives milliseconds per stage."""
+    readings."""
 
     def __init__(self, device):
         self.cuda = torch.device(device).type == "cuda"
@@ -215,9 +215,11 @@ class StageClock:
             self.marks.append((name, time.perf_counter()))
 
     def split(self) -> Dict[str, float]:
-        out = {}
+        """Milliseconds by stage name; a name marked more than once (a
+        stage of every step of a loop) sums its stages."""
+        out: Dict[str, float] = {}
         for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
-            out[name] = a.elapsed_time(b) if self.cuda else 1e3 * (b - a)
+            out[name] = out.get(name, 0.0) + (a.elapsed_time(b) if self.cuda else 1e3 * (b - a))
         return out
 
 
@@ -268,26 +270,26 @@ class PatchCore:
         """[B, H, W, C] → [B·P, D] patch embeddings (bank building)."""
         return reshape_embedding(self.embed_map(self._input(x)))
 
-    def build_memory_bank(self, batches, proj: Optional[torch.Tensor] = None) -> np.ndarray:
-        """Batches → embeddings → a `coreset_ratio` coreset bank (kept on the
-        device and returned as numpy), projected for k-center by `proj` or
-        `random_projection`'s seed 0.  `last_build_s` holds the seconds of
-        the taps (with the pooling and concatenation) and of k-center."""
+    def build_memory_bank(self, batches, sampling_ratio: Optional[float] = None,
+                          proj: Optional[torch.Tensor] = None) -> np.ndarray:
+        """Batches → embeddings → a coreset bank of `sampling_ratio` (default
+        `coreset_ratio`) of the patches, kept on the device and returned as
+        numpy, projected for k-center by `proj` or `random_projection`'s
+        seed 0.  `last_build_s` holds the seconds of the taps (with the
+        pooling and concatenation) and of k-center."""
+        ratio = self.cfg.coreset_ratio if sampling_ratio is None else sampling_ratio
         t0 = time.perf_counter()
         embedding = torch.cat([self.embed(b) for b in batches])
         self._sync()
         t1 = time.perf_counter()
-        self.memory_bank = subsample_embedding(embedding, self.cfg.coreset_ratio, proj=proj)
+        self.memory_bank = subsample_embedding(embedding, ratio, proj=proj)
         self._sync()
         self.last_build_s = {"taps": t1 - t0, "kcenter": time.perf_counter() - t1,
                              "patches": int(embedding.shape[0])}
         return self.memory_bank.cpu().numpy()
 
-    def __call__(self, x, clock: Optional[StageClock] = None) -> Dict[str, torch.Tensor]:
-        """{'anomaly_map' [B, H, W, 1], 'pred_score' [B]} on the device.
-        `clock` (optional) is marked after the feature pass ('features'),
-        the nearest-neighbour search and image score ('nn') and the map
-        ('map')."""
+    def _score(self, x, clock: Optional[StageClock]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(patch scores [B, h, w, 1], image scores [B]) on the device."""
         if self.memory_bank is None:
             raise ValueError("load or build a memory bank first")
         emb_map = self.embed_map(self._input(x))
@@ -301,7 +303,20 @@ class PatchCore:
                                            self.memory_bank, self.num_neighbors)
         if clock is not None:
             clock.mark("nn")
-        anomaly_map = anomaly_map_from_scores(scores_b.reshape(b, h, w, 1), self.input_size)
+        return scores_b.reshape(b, h, w, 1), pred_score
+
+    def score(self, x) -> torch.Tensor:
+        """Image scores [B] on the device, without the map: the classifier
+        gate's path (ood/classifier.py)."""
+        return self._score(x, None)[1]
+
+    def __call__(self, x, clock: Optional[StageClock] = None) -> Dict[str, torch.Tensor]:
+        """{'anomaly_map' [B, H, W, 1], 'pred_score' [B]} on the device.
+        `clock` (optional) is marked after the feature pass ('features'),
+        the nearest-neighbour search and image score ('nn') and the map
+        ('map')."""
+        score_map, pred_score = self._score(x, clock)
+        anomaly_map = anomaly_map_from_scores(score_map, self.input_size)
         if clock is not None:
             clock.mark("map")
         return {"anomaly_map": anomaly_map, "pred_score": pred_score}

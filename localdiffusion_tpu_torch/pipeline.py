@@ -5,7 +5,10 @@ Stage A is the caller's mask or the front end's (ood/frontend.py): PatchCore
 over the denoiser's taps with the fitted ladder and hysteresis refinement,
 or the 'manual' and 'none' masks.  Stage B is ancestral DDPM, or DDIM when
 the configuration samples fewer steps than it trains (`sampling_timesteps <
-timesteps`).  There is no device mesh: the pipeline runs on one device.
+timesteps`).  With `sampler.classifier` and a classifier gate
+(`factory.build_classifier_gate`), the branched DDPM chain's post-fusion
+steps are gated; DDIM has no gate, as in the reference.  There is no
+device mesh: the pipeline runs on one device.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from localdiffusion_tpu_torch.config import Config, min_max_val_for
 from localdiffusion_tpu_torch.diffusion import sampler as S
 from localdiffusion_tpu_torch.diffusion.gaussian import GaussianDiffusion
 from localdiffusion_tpu_torch.ood.frontend import OODFrontend
+from localdiffusion_tpu_torch.ood.patchcore import StageClock
 from localdiffusion_tpu_torch.utils.metrics import mse, psnr, ssim
 
 
@@ -27,11 +31,11 @@ class LocalDiffusionPipeline:
     """Config-driven translation with hallucination suppression."""
 
     def __init__(self, config: Config, gd: GaussianDiffusion,
-                 frontend: Optional[OODFrontend] = None):
+                 frontend: Optional[OODFrontend] = None, classifier_gate=None):
         """frontend: Stage A's (`factory.build_frontend(config, gd)`); the
-        'manual' and 'none' detectors get theirs here when none is given."""
-        if config.sampler.classifier:
-            raise NotImplementedError("classifier-gated sampling: later slice")
+        'manual' and 'none' detectors get theirs here when none is given.
+        classifier_gate: `factory.build_classifier_gate(...)`, used when
+        `sampler.classifier` is set."""
         self.config = config
         self.gd = gd
         self.device = gd.device
@@ -39,6 +43,7 @@ class LocalDiffusionPipeline:
         if frontend is None and config.ood.detector in ("manual", "none"):
             frontend = OODFrontend(config)
         self.frontend = frontend
+        self.classifier_gate = classifier_gate
 
     def detect(self, lr: np.ndarray):
         """Stage A for a batch [B, H, W, C]: (mask_pred, binary_mask,
@@ -52,7 +57,9 @@ class LocalDiffusionPipeline:
 
     def translate(self, lr: np.ndarray, hr: Optional[np.ndarray] = None,
                   noise=None, mask: Optional[np.ndarray] = None,
-                  gt_region: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
+                  gt_region: Optional[np.ndarray] = None,
+                  retry_noise=None,
+                  clock: Optional[StageClock] = None) -> Dict[str, np.ndarray]:
         """One batch through Stage A and Stage B.
 
         lr (and hr): [B, H, W, C].  `mask` overrides the detector; without
@@ -61,7 +68,11 @@ class LocalDiffusionPipeline:
         `noise` is an int seed, a noise source (see diffusion.sampler), or
         None (seed 0).  A uniform-ones mask takes the plain chain, any other
         mask the branched chain, each DDPM or DDIM as the configuration
-        says.  'time' is Stage B's.
+        says.  'time' is Stage B's.  A gated chain adds 'fusion_time', each
+        sample's acceptance step, and draws its retries' noise from
+        `retry_noise` (see diffusion.sampler).  `clock` is handed to the
+        branched DDPM chain, which marks its stages on it (see
+        `diffusion.sampler.ddpm_sample_branched`).
         """
         scfg = self.config.sampler
         dev = self.device
@@ -86,6 +97,7 @@ class LocalDiffusionPipeline:
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         mask_t = torch.as_tensor(mask, device=dev)
+        fusion_time = None
         if self.gd.is_ddim_sampling:
             if branch:
                 out = S.ddim_sample_branched(self.gd, lr_t, mask_t, scfg, self.min_max_val,
@@ -93,8 +105,13 @@ class LocalDiffusionPipeline:
             else:
                 out = S.ddim_sample_plain(self.gd, lr_t, self.min_max_val, noise=noise)
         elif branch:
+            gate = self.classifier_gate if scfg.classifier else None
             out = S.ddpm_sample_branched(self.gd, lr_t, mask_t, scfg, self.min_max_val,
-                                         noise=noise, gt=gt)
+                                         noise=noise, gt=gt, classifier_fn=gate,
+                                         return_fusion_time=gate is not None,
+                                         retry_noise=retry_noise, clock=clock)
+            if gate is not None:
+                out, fusion_time = out
         else:
             out = S.ddpm_sample_plain(self.gd, lr_t, self.min_max_val, noise=noise)
         if dev.type == "cuda":
@@ -107,6 +124,8 @@ class LocalDiffusionPipeline:
             "time": np.asarray(dt),
             "branched": np.asarray(branch),
         }
+        if fusion_time is not None:
+            result["fusion_time"] = fusion_time.cpu().numpy()
         if amap is not None:
             result["anomaly_map"] = amap
         if hr is not None:

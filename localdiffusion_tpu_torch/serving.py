@@ -12,7 +12,8 @@ Port of `localdiffusion_tpu/serving.py`:
     plain chain; a mixed batch is merged into one branched dispatch (a plain
     row rides it under its uniform mask) unless `merge_mixed=False`;
   * deterministic noise: batch i samples with the seed `batch_seed(base_seed,
-    i)`, so a served result is reproducible by replaying the same rows in
+    i)` (a gated chain's retries with the stream the sampler derives from
+    it), so a served result is reproducible by replaying the same rows in
     the same slots.
 
 Stage A is the caller's mask or the pipeline's front end (`detect`: the
@@ -52,10 +53,12 @@ class InferenceServer:
         out = srv.submit(lr_image).result()   # {"pred": [H,W,C], "branched": bool, ...}
         srv.stop()
 
-    `noise_for_batch(i)` gives the noise of batch i (an int seed or a noise
-    source); it defaults to `batch_seed(base_seed, i)`.  It is called once
-    per dispatch, so a batch split into two dispatches gives each the same
-    noise stream.
+    `noise_for_batch(i)` gives the noise of batch i: an int seed, a noise
+    source, or a pair (noise, retry_noise) whose second item feeds a gated
+    chain's retries (see diffusion.sampler: with a noise source alone a
+    gated batch fails at its first gated step).  It defaults to
+    `batch_seed(base_seed, i)`.  It is called once per dispatch, so a batch
+    split into two dispatches gives each the same noise streams.
     """
 
     def __init__(self, pipeline, batch_size: int = 8, max_wait_ms: float = 50.0,
@@ -224,9 +227,11 @@ class InferenceServer:
         for group, stat_key in groups:
             if not group:
                 continue
+            noise = self.noise_for_batch(index)
+            noise, retry_noise = noise if isinstance(noise, tuple) else (noise, None)
             res = self.pipe.translate(
                 self._pad([r.lr for r in group]),
-                noise=self.noise_for_batch(index),
+                noise=noise, retry_noise=retry_noise,
                 mask=self._pad([r.mask for r in group]),
             )
             with self._lock:

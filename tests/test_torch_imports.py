@@ -1,4 +1,5 @@
-"""The port imports nothing of JAX, flax, YAML or the JAX package.
+"""The port imports nothing of JAX, flax, YAML, scikit-learn or the JAX
+package.
 
 A subprocess blocks those modules (an entry of None in sys.modules makes
 their import fail) and imports every module of the port and chip_smoke.
@@ -14,7 +15,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = textwrap.dedent(
     """
     import importlib, pkgutil, sys
-    for name in ("jax", "jaxlib", "flax", "yaml", "localdiffusion_tpu"):
+    for name in ("jax", "jaxlib", "flax", "yaml", "sklearn", "localdiffusion_tpu"):
         sys.modules[name] = None
     import localdiffusion_tpu_torch as pkg
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -47,6 +48,7 @@ REQUIRED = {
     "localdiffusion_tpu_torch.ood.features",
     "localdiffusion_tpu_torch.ood.frontend",
     "localdiffusion_tpu_torch.ood.bank",
+    "localdiffusion_tpu_torch.ood.classifier",
 }
 
 

@@ -10,7 +10,11 @@ its shared-memory plans, persistent grids with more and fewer tiles than
 blocks) and epilogue at the 256px chain's shapes (its persistent grids,
 ragged last items), the single-pass GroupNorm's cluster plans (every
 cluster size, resident and streamed slices), the inputs each wrapper
-refuses, and a row alone against the same row in a batch.
+refuses, and a row alone against the same row in a batch.  Then the
+classifier gate of the gated 256px configuration (its UNet at a 64px
+input, where the fused blocks and linear attention engage): its scores
+on the card against the CPU's, and a gate that always accepts, whose
+chain equals the ungated chain bit for bit.
 
 Every test here needs an NVIDIA GPU and nvcc (the kernels have no CPU mode)
 and skips without one.  The module imports neither JAX nor the JAX package,
@@ -19,14 +23,25 @@ so it runs on a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 """
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
+from localdiffusion_tpu_torch.config import min_max_val_for, mri256_gated_config
+from localdiffusion_tpu_torch.data.synthetic import synthetic_brain_translation
+from localdiffusion_tpu_torch.diffusion import sampler as TS
+from localdiffusion_tpu_torch.diffusion.gaussian import build_gd
 from localdiffusion_tpu_torch.models.blocks import ResnetBlock
 from localdiffusion_tpu_torch.ops import groupnorm as G
 from localdiffusion_tpu_torch.ops import linear_attention as LA
 from localdiffusion_tpu_torch.ops import resnet_block as RB
 from localdiffusion_tpu_torch.ops.attention import flash_attention, xla_attention
+from localdiffusion_tpu_torch.ood.bank import classifier_calibration_pairs
+from localdiffusion_tpu_torch.ood.classifier import ClassifierPatchCore
+from localdiffusion_tpu_torch.ood.features import DenoiserFeatureSource
+from localdiffusion_tpu_torch.ood.patchcore import PatchCore
 from localdiffusion_tpu_torch.ops.groupnorm import (
     groupnorm_film_silu,
     groupnorm_film_silu_reference,
@@ -983,3 +998,76 @@ def test_tiled_groupnorm_rejects_what_it_cannot_take(cuda_device):
         G.gn_tiled_stats(off)
     with pytest.raises(ValueError, match="16-byte boundary"):
         G.gn_tiled_apply(off, sums, g, b, s, h)
+
+
+# ---------------------------------------------------------------------------
+# the classifier gate (the gated 256px configuration at a 64px input)
+# ---------------------------------------------------------------------------
+
+def _gated64(dtype: str, device):
+    """`mri256_gated_config()` at 64px and T=8 in `dtype`, its engine on
+    `device` with weights drawn on the CPU from seed 0."""
+    base = mri256_gated_config()
+    cfg = base.replace(
+        diffusion=dataclasses.replace(base.diffusion, image_size=64, timesteps=8),
+        ood=dataclasses.replace(base.ood, input_size=64, memory_bank_path=None),
+        train=dataclasses.replace(base.train, compute_dtype=dtype))
+    torch.manual_seed(0)
+    cpu = build_gd(cfg, device="cpu")
+    gd = build_gd(cfg, device=device)
+    gd.model.load_state_dict(cpu.model.state_dict())
+    return cfg, cpu, gd
+
+
+def _flair(cfg, n, seed, tumor=False):
+    d = cfg.data
+    return synthetic_brain_translation(n, 64, tumor=tumor, seed=seed, mean_t1=d.mean_t1,
+                                       std_t1=d.std_t1, mean_flair=d.mean_flair,
+                                       std_flair=d.std_flair)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
+def test_classifier_gate_on_the_card_matches_the_cpu(cuda_device, dtype, tol):
+    """The same bank (built on the CPU) and weights: the card's scores
+    within `tol` relative L2 of the CPU's (f32: summation order, TF32 off;
+    bf16: independent rounding through the taps), as a [B] float32 tensor
+    on the card, and the gate's value is sign · (score − threshold)."""
+    cfg, cpu, gd = _gated64(dtype, cuda_device)
+    src = lambda g: DenoiserFeatureSource(g, t=cfg.ood.feature_t)
+    pc_cpu = PatchCore(cfg.ood, source=src(cpu))
+    bank = pc_cpu.build_memory_bank([_flair(cfg, 4, 11)[0]], sampling_ratio=0.05)
+    pc_card = PatchCore(cfg.ood, source=src(gd), memory_bank=bank)
+    x = np.concatenate([img for img, _ in classifier_calibration_pairs(cfg, n=3)])
+    want = ClassifierPatchCore(pc_cpu).score_raw(x).numpy()
+    cls = ClassifierPatchCore(pc_card, threshold=float(np.median(want)))
+    got = cls.score_raw(torch.as_tensor(x, device=cuda_device))
+    assert got.device.type == "cuda" and got.dtype == torch.float32 and got.shape == (6,)
+    got = got.cpu().numpy()
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) <= tol
+    gate = cls.as_sampler_gate("suppress")(torch.as_tensor(x, device=cuda_device), 4)
+    np.testing.assert_allclose(gate.cpu().numpy(), -(got - np.float32(cls.threshold)),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_gated_always_accept_equals_ungated_on_the_card(cuda_device):
+    """bf16 with the kernels: a gate that always accepts latches at the
+    first post-fusion step (t = 4), and the image equals the ungated
+    chain's with the same seed bit for bit; the retry drew from its own
+    stream, the main stream is the same."""
+    cfg, _, gd = _gated64("bfloat16", cuda_device)
+    lr = torch.as_tensor(_flair(cfg, 2, 7, tumor=True)[1], device=cuda_device)
+    mask = torch.zeros(2, 64, 64, 1, device=cuda_device)
+    mask[0, 16:40, 12:36] = 1.0
+    mask[1, 28:52, 24:48] = 1.0
+    calls = []
+    accept = lambda xs, t: calls.append(t) or torch.ones(xs.shape[0], device=xs.device)
+    mmv = min_max_val_for(cfg)
+    gated, ft = TS.ddpm_sample_branched(gd, lr, mask, cfg.sampler, mmv, noise=3,
+                                        classifier_fn=accept, return_fusion_time=True)
+    ungated = TS.ddpm_sample_branched(
+        gd, lr, mask, dataclasses.replace(cfg.sampler, classifier=False), mmv, noise=3)
+    torch.cuda.synchronize()
+    assert calls == [4] and ft.tolist() == [4, 4]
+    assert torch.equal(gated, ungated)

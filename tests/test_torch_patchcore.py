@@ -306,7 +306,7 @@ class _CountingPipe:
         m[:, :, :1] = 1.0
         return m, m, None
 
-    def translate(self, lr, noise=None, mask=None):
+    def translate(self, lr, noise=None, mask=None, retry_noise=None):
         self._launch()
         return {"pred": np.asarray(lr), "branched": np.asarray(True)}
 

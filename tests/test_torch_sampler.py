@@ -138,10 +138,25 @@ def test_branched_without_intermediate_returns_the_pair(pair):
 
 
 def test_classifier_gate_is_refused(pair):
-    _, _, tgd = pair
-    with pytest.raises(NotImplementedError, match="classifier"):
-        TS.ddpm_sample_branched(tgd, torch.zeros(1, S, S, 1), torch.zeros(1, S, S, 1),
-                                tcfg.SamplerConfig(classifier=True), MMV)
+    """The classifier flag without a gate: the chain runs ungated, as the
+    JAX sampler runs it (`use_classifier` needs both), bit for bit the
+    unflagged chain, and matches JAX's flagged chain."""
+    jgd, params, tgd = pair
+    cond = images(9, B, S)
+    mask = left_mask(B, S, 3)
+    flagged = tcfg.SamplerConfig(classifier=True, start_timestep=3)
+    got, ft = TS.ddpm_sample_branched(tgd, torch.as_tensor(cond), torch.as_tensor(mask),
+                                      flagged, MMV, noise=4, return_fusion_time=True)
+    plain = TS.ddpm_sample_branched(tgd, torch.as_tensor(cond), torch.as_tensor(mask),
+                                    tcfg.SamplerConfig(start_timestep=3), MMV, noise=4)
+    np.testing.assert_array_equal(got.numpy(), plain.numpy())
+    assert ft.tolist() == [T] * B
+    want = JS.ddpm_sample_branched(jgd, params, jnp.asarray(cond), jnp.asarray(mask), KEY,
+                                   to_jax(flagged), MMV)
+    got = TS.ddpm_sample_branched(
+        tgd, torch.as_tensor(cond), torch.as_tensor(mask), flagged, MMV,
+        noise=TS.ArrayNoise(branched_noise(KEY, (B, S, S, 1), T, 3), "cpu"))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 def test_generator_noise_is_reproducible(pair):

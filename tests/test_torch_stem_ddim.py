@@ -200,10 +200,15 @@ def test_branched_ddim_matches_jax(pair, variant):
 
 
 def test_branched_ddim_refuses_the_classifier_gate(pair):
+    """DDIM has no gate, as in the reference: a configuration with the
+    classifier flag runs the ungated branched DDIM chain, bit for bit."""
     _, _, tgd = pair
-    with pytest.raises(NotImplementedError, match="classifier"):
-        TS.ddim_sample_branched(tgd, torch.zeros(1, S, S, 1), torch.zeros(1, S, S, 1),
-                                tcfg.SamplerConfig(classifier=True), MMV)
+    cond = torch.as_tensor(images(12, B, S))
+    mask = torch.as_tensor(left_mask(B, S, 3))
+    gated = TS.ddim_sample_branched(tgd, cond, mask, tcfg.SamplerConfig(classifier=True), MMV,
+                                    noise=6)
+    plain = TS.ddim_sample_branched(tgd, cond, mask, tcfg.SamplerConfig(), MMV, noise=6)
+    np.testing.assert_array_equal(gated.numpy(), plain.numpy())
 
 
 # ---------------------------------------------------------------------------

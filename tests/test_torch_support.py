@@ -122,6 +122,76 @@ def branched_noise(key, shape, timesteps, start_timestep):
     return [np.asarray(a) for a in out]
 
 
+def retry_noise(key, shape, timesteps, start_timestep, gated_steps):
+    """The noise the gated `ddpm_sample_branched` draws from `key` for its
+    retries: each phase-B step splits its key three ways, (k, pk, rk), and
+    the retry at a step where the gate runs draws from rk.  The gate runs
+    at the first `gated_steps` phase-B steps (until every sample latched)."""
+    key, _ = jax.random.split(key)
+    k = key
+    for _ in range(timesteps - 1, start_timestep, -1):
+        k, _ = jax.random.split(k)
+    k, _ = jax.random.split(k)
+    out = []
+    for _ in range(gated_steps):
+        k, _pk, rk = jax.random.split(k, 3)
+        out.append(np.asarray(jax.random.normal(rk, shape, dtype=jnp.float32)))
+    return out
+
+
+def flair_targets(cfg, n, seed, tumor=False):
+    """(hr FLAIR, lr T1, seg) synthetic brains of the JAX package's data
+    module, at `cfg`'s size and normalization."""
+    from localdiffusion_tpu.data.synthetic import synthetic_brain_translation
+
+    d = cfg.data
+    return synthetic_brain_translation(
+        n, cfg.diffusion.image_size, tumor=tumor, seed=seed, mean_t1=d.mean_t1,
+        std_t1=d.std_t1, mean_flair=d.mean_flair, std_flair=d.std_flair,
+        translate_zero=d.translate_zero)
+
+
+def narrow_gated(size=64, timesteps=6):
+    """`mri256_gated_config()` with a narrow UNet (dim 8), at `size` and T
+    `timesteps`, f32, in both packages on shared numpy-drawn weights, and
+    the classifier bank JAX builds from 4 normal FLAIR targets (seed 11) as
+    scripts/eval_gated_quality.py does (5%; 48 channels, so no k-center
+    projection): {cfg, jc, jgd, params, tgd, jpc, tpc, bank}, the two
+    PatchCores over the denoiser's taps at t=5 holding that bank."""
+    from localdiffusion_tpu.ood.features import DenoiserFeatureSource as JSource
+    from localdiffusion_tpu.ood.patchcore import PatchCore as JPatchCore
+    from localdiffusion_tpu_torch.ood.features import DenoiserFeatureSource as TSource
+    from localdiffusion_tpu_torch.ood.patchcore import PatchCore as TPatchCore
+
+    base = tcfg.mri256_gated_config()
+    cfg = base.replace(
+        model=dataclasses.replace(base.model, dim=8, attn_heads=2, attn_dim_head=8),
+        diffusion=dataclasses.replace(base.diffusion, image_size=size, timesteps=timesteps),
+        ood=dataclasses.replace(base.ood, input_size=size, memory_bank_path=None),
+        train=dataclasses.replace(base.train, compute_dtype="float32"))
+    jgd, params, tgd = make_pair(cfg.model, cfg.diffusion, seed=3, numpy_init=True)
+    jc = jax_config(cfg)
+    jpc = JPatchCore(jc.ood, source=JSource(jgd, params, t=5))
+    bank = jpc.build_memory_bank([flair_targets(cfg, 4, 11)[0]], sampling_ratio=0.05)
+    tpc = TPatchCore(cfg.ood, source=TSource(tgd, t=5), memory_bank=bank)
+    return dict(cfg=cfg, jc=jc, jgd=jgd, params=params, tgd=tgd, jpc=jpc, tpc=tpc, bank=bank)
+
+
+def recording(gate, seen):
+    """The gate, each value it returns appended to `seen`."""
+    def rec(x, t):
+        v = gate(x, t)
+        seen.append(v.clone())
+        return v
+    return rec
+
+
+def split_threshold(scores):
+    """A threshold halfway between the two lowest scores."""
+    s = np.sort(np.asarray(scores))
+    return float((s[0] + s[1]) / 2)
+
+
 def left_mask(b, s, cols):
     m = np.zeros((b, s, s, 1), np.float32)
     m[:, :, :cols] = 1.0
