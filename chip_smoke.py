@@ -92,19 +92,40 @@ Phases, each printed on its own line with the elapsed seconds:
     bit-equal to the ungated chain) and to −inf (always reject: 3
     rejections, then the budget: `fusion_time` 1, the gate at 4 steps),
     each against the same chain with the plain versions;
-13. stem kernels: the s2d-stem configuration (`stem256_config()`, the
+13. the 256px bf16 seg configuration (`mri256_bf16_config()`: DDIM-50,
+    bf16, the seg detector, dilation 16), batch 4, all at full width with
+    seeded weights: (a) a seeded SegUNet (base 64) written as a JAX-format
+    npz under `build/stage_a/` and loaded by `build_frontend`; its logits
+    on the card against the CPU (f32), the masks off the 0.5 band;
+    `translate` without a mask (the seg detect, then the branched DDIM-50
+    chain), the chain against its plain versions (same noise and mask), a
+    DDIM-5 chain of the same weights under torch.profiler, the seg UNet's
+    kernels too, then an `InferenceServer` answering three requests
+    without masks.  The phase runs with cuDNN's TF32 on, PyTorch's
+    default: Stage A's networks turn it off themselves; (b) the WRN50-2 source (`detector="patchcore"`): its bank of 200
+    brains through `python -m localdiffusion_tpu_torch.ood.bank
+    --feature-source wrn` (20,480 × 1,536; seconds of taps, k-center and
+    ladder), the taps and k-center card vs CPU, detect at batch 4 card vs
+    CPU with its split, `translate` without a mask; (c) the seg-encoder
+    source: its bank (50 brains, 20,480 × 768), detect card vs CPU; (d) the
+    classifier gate's WRN last resort (`mri256_gated_config()` with the seg
+    detector and no bank: a WRN bank from 16 + 16 calibration images),
+    scores card vs CPU, and as a control the card's scores with the
+    distance product in TF32, which must fail the bar; Stage A launches none of the eight kernels, Stage B
+    each chain's;
+14. stem kernels: the s2d-stem configuration (`stem256_config()`, the
     README's recommended 256px deployment: f32, DDIM-50, plain chain) at
     full width, one UNet call at batch 8 recorded: the GroupNorm op at its
     40 Block shapes (the tiled pair at the 14 past the row gate) and full
     attention at its three 16x16 sites, f32, against their plain versions,
     timed as in phase 7;
-14. stem main path: with every count at 0, the plain DDIM-50 chain at batch
+15. stem main path: with every count at 0, the plain DDIM-50 chain at batch
     4 (detector none), the branched DDIM-50 chain with disc masks, then an
     `InferenceServer` answering three requests; every kernel's launches
     checked per UNet call;
-15. stem check: both chains against the same chains with every kernel's
+16. stem check: both chains against the same chains with every kernel's
     plain version (same noise), and one UNet call against the CPU, f32;
-16. stem profile: the plain chain under torch.profiler.
+17. stem profile: the plain chain under torch.profiler.
 
 The line before the last is one JSON object with the kernels' numbers; the
 last line is the device record.  Any failed check raises, so the exit code
@@ -126,6 +147,7 @@ import torch.nn.functional as F
 
 from localdiffusion_tpu_torch.config import (
     flagship_config,
+    mri256_bf16_config,
     mri256_config,
     mri256_gated_config,
     stem256_config,
@@ -144,14 +166,26 @@ from localdiffusion_tpu_torch.models.blocks import (
     LinearAttention,
     ResnetBlock,
 )
+from localdiffusion_tpu_torch.models.seg_unet import (
+    SegDetector,
+    SegUNet,
+    flax_seg_tree,
+    load_seg_npz,
+)
+from localdiffusion_tpu_torch.ood import patchcore as PC
 from localdiffusion_tpu_torch.ood.bank import (
     build_bank,
     build_classifier_bank,
     calibration_images,
     classifier_calibration_pairs,
 )
+from localdiffusion_tpu_torch.ood.bank import main as bank_main
 from localdiffusion_tpu_torch.ood.classifier import ClassifierPatchCore, balanced_accuracy
-from localdiffusion_tpu_torch.ood.features import DenoiserFeatureSource
+from localdiffusion_tpu_torch.ood.features import (
+    DenoiserFeatureSource,
+    SegEncoderFeatureSource,
+    WRNFeatureSource,
+)
 from localdiffusion_tpu_torch.ood.frontend import OODFrontend
 from localdiffusion_tpu_torch.ood.patchcore import (
     PatchCore,
@@ -310,6 +344,32 @@ STAGE_A_DIR = Path(__file__).resolve().parent / "build" / "stage_a"
 GATED_BANK_IMAGES, GATED_BANK_SHAPE = 64, (13_107, 192)
 GATED_F32_REL, GATED_F32_SCORE_REL = 1e-4, 3e-4
 GATED_CHECK_PER_CLASS, GATED_FORCED_T = 4, 50
+# the 256px bf16 seg configuration (`mri256_bf16_config()`), batch 4.  Its
+# Stage A networks (SegUNet, WRN50-2) are cuDNN convs and GroupNorm in f32,
+# no kernel of the eight; Stage B is the 256px UNet, DDIM-50, bf16, all
+# eight.  Card vs CPU in f32 (the networks turn cuDNN's TF32 off
+# themselves): seg logits, WRN taps and the maps within 1e-4 relative L2
+# (Stage A's f32 bar); seg masks equal off the band |p − 0.5| <= 1e-3;
+# PatchCore masks equal but near a threshold.  The WRN bank: 200 brains →
+# 204,800 patches × 1,536 (layer2 ⊕ layer3) → 10%; the seg-encoder bank:
+# 50 brains (cut from 200 for time) → 204,800 × 768 → 10%.  The chain's
+# device time from a DDIM-5 chain of the same weights under the profiler.
+# The gate's WRN last resort: 16 + 16 calibration images; each score's
+# float64 recomputation from each side's embeddings within 1e-4 (6.1e-6
+# read), the f32 scores within 3e-4 relative L2 and each within 5e-4: at
+# 1,536 channels the distance identity's f32 rounding put a score 2.7e-4
+# from its float64 value on the card and 1.0e-4 on the CPU, and the sides
+# 1.7e-4 apart in relative L2, 3.0e-4 at the worst score (H100 80GB HBM3,
+# 700 W).  The control, the card's distance product in TF32, must fail the
+# per-score bar (7.4e-4 to 3.7e-3 from the CPU's f32 scores in a CPU
+# emulation of TF32's rounding, `gate_tf32_emulation.py`).
+SEG_WRN_BATCH, SEG_SEED, SEG_PROFILE_STEPS = 4, 7, 5
+SEG_LOGIT_REL, SEG_BAND, SEG_WRN_F32_REL = 1e-4, 1e-3, 1e-4
+WRN_BANK_BRAINS, WRN_BANK_SHAPE = 200, (20_480, 1_536)
+SEGENC_BANK_BRAINS, SEGENC_BANK_SHAPE = 50, (20_480, 768)
+WRN_KCENTER_CHECK = (20_480, 2_048)  # rows, k
+GATE_WRN_PAIRS = 16
+GATE_WRN_F32_REL, GATE_WRN_F32_SCORE_REL = 3e-4, 5e-4
 # s2d stem, float32.  The DDIM-50 chains, kernels vs plain versions (same
 # noise), and one UNet call, card vs CPU: float32 sums in another order
 # (~1e-6 per call) through 50 DDIM updates: relative L2 <= 1e-3, and for
@@ -791,7 +851,27 @@ def profile_chain(pipe, lr, mask, label, top=12) -> dict:
         f"{100 - 100 * busy_us / wall_us:.1f}%, {sum(e.count for e in kernels)} kernels")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
         log(f"  {e.self_device_time_total / 1e3:8.2f}ms {e.count:7d}x  {e.key[:110]}")
-    return dict(busy_share=busy_us / wall_us)
+    return dict(busy_share=busy_us / wall_us, busy_ms=busy_us / 1e3)
+
+
+def top_kernels(fn, label, top=8) -> dict:
+    """The card's kernels of one fn() by device time (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    log(f"{label} profile: {busy_us / 1e3:.3f}ms of kernels, "
+        f"{sum(e.count for e in kernels)} launches")
+    ranked = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:top]
+    for e in ranked:
+        log(f"  {e.self_device_time_total / 1e3:8.3f}ms {e.count:5d}x  {e.key[:110]}")
+    return dict(busy_ms=busy_us / 1e3,
+                top={e.key[:80]: e.self_device_time_total / 1e3 for e in ranked})
 
 
 # ---------------------------------------------------------------------------
@@ -2034,6 +2114,365 @@ def gated_float32(cut, gd50, mask, lr, classifier_on) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the 256px bf16 seg configuration: the seg detector, the WRN50-2 and
+# seg-encoder sources, the classifier gate's WRN last resort
+# ---------------------------------------------------------------------------
+
+def _seeded_seg_npz(path: Path) -> str:
+    """A SegUNet (base 64) with PyTorch's default init under `SEG_SEED`,
+    written as the JAX package's slim npz (flat `params/...` keys, fp16)."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEG_SEED)
+        model = SegUNet()
+    tree = flax_seg_tree(model)
+    np.savez(path, **{k: v.astype(np.float16) for k, v in tree.items()})
+    return str(path)
+
+
+def _seg_cpu(npz: str) -> SegUNet:
+    model = SegUNet()
+    model.load_state_dict(load_seg_npz(npz, model))
+    return model.eval().requires_grad_(False)
+
+
+def _rel_l2(got, want) -> float:
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _detect_card_vs_cpu(label, fe_card, fe_cpu, lr, ladder, ood) -> dict:
+    """A PatchCore front end's detect on the card against the CPU's: the
+    map within `SEG_WRN_F32_REL`, the masks equal but in an image with a map
+    value within `STAGE_A_NEAR` of a threshold.  Prints the card's split."""
+    fe_card.time_stages = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        _, b_card, m_card = fe_card.detect(lr)
+    finally:
+        fe_card.time_stages = False
+    card_ms = 1e3 * (time.perf_counter() - t0)
+    split = fe_card.last_split
+    t0 = time.perf_counter()
+    _, b_cpu, m_cpu = fe_cpu.detect(lr)
+    cpu_s = time.perf_counter() - t0
+    rel = _rel_l2(m_card, m_cpu)
+    differ = [int((b_card[i] != b_cpu[i]).sum()) for i in range(len(lr))]
+    near = [near_threshold(m_cpu[i], ladder, STAGE_A_NEAR, ood.refine_hi_frac,
+                           ood.refine_lo_frac) for i in range(len(lr))]
+    ok = rel <= SEG_WRN_F32_REL and all(n == 0 or nr for n, nr in zip(differ, near))
+    log(f"{label} detect, card vs CPU (f32, batch {len(lr)} tumour brains, same weights and "
+        f"bank): map rel L2 {rel:.4g} (tol {SEG_WRN_F32_REL:g}), max_abs_err "
+        f"{float(np.abs(m_card - m_cpu).max()):.4g}; binary pixels differing {differ} (near a "
+        f"threshold: {near}); OOD share per image "
+        f"{[round(float(b.mean()), 4) for b in b_card]} {'ok' if ok else 'FAIL'}; card "
+        f"{card_ms:.2f}ms wall (features {split['features']:.3f}ms, nn {split['nn']:.3f}ms, "
+        f"map {split['map']:.3f}ms, host {split['host']:.3f}ms); CPU {cpu_s:.1f}s")
+    if not ok:
+        raise RuntimeError(f"{label}: detect on the card disagrees with the CPU's")
+    return dict(map_rel_l2=rel, binary_differ=differ, split_ms=split, detect_ms=card_ms)
+
+
+def _counted_translate(label, pipe, counted, lr, hr, calls) -> tuple:
+    """With every count at 0, `translate` without a mask: Stage A (its
+    launches apart) and the branched chain, `calls` UNet calls of the 256px
+    kernels.  → (result, Stage A launches, Stage B launches)."""
+    lo, hi = pipe.min_max_val
+    reset_counts()
+    res = pipe.translate(lr, hr=hr, noise=1)
+    total = read_counts()
+    stage_a = {k: counted.launches.get(k, 0) for k in COUNTERS}
+    counted.launches = {}
+    stage_b = {k: v - stage_a[k] for k, v in total.items()}
+    chain_s = float(res["time"])
+    log(f"{label} main path: translate without a mask, batch {len(lr)} tumour brains: Stage A "
+        f"{counted.seconds[-1] * 1e3:.2f}ms wall, mask areas "
+        f"{[int(m.sum()) for m in res['mask']]} px of {res['mask'][0].size}; then the "
+        f"{'branched' if bool(res['branched']) else 'PLAIN'} bf16 DDIM-{calls} chain "
+        f"{chain_s * 1e3:.1f}ms -> {len(lr) / chain_s:.3f} img/s; mse {float(res['mse']):.4f}; "
+        f"launches Stage A {stage_a}, Stage B {stage_b}")
+    if not bool(res["branched"]):
+        raise RuntimeError(f"{label}: the chain was not branched")
+    check_counts(stage_a, {}, 1, f"{label} Stage A detect")
+    check_counts(stage_b, MRI_PER_CALL, calls, f"{label} Stage B chain")
+    _check_images(f"{label} chain", res["pred"], lr.shape, lo, hi)
+    return res, stage_a, stage_b
+
+
+def scores_tf32(cls, x) -> np.ndarray:
+    """The control of the f32 score bar: the classifier's image scores of x
+    with the distance product in TF32 on the card (the port refuses TF32
+    there; its check is lifted for this call only)."""
+    check = PC.check_full_float32
+    PC.check_full_float32 = lambda device: None
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return cls.score_raw(x).cpu().numpy()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        PC.check_full_float32 = check
+
+
+def seg_wrn256() -> dict:
+    """`mri256_bf16_config()` with cuDNN's TF32 on, as PyTorch has it by
+    default: Stage A's networks must turn it off themselves (and restore
+    it).  See `_seg_wrn256`."""
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        out = _seg_wrn256()
+        if not torch.backends.cudnn.allow_tf32:
+            raise RuntimeError("Stage A left cuDNN's TF32 off")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    return out
+
+
+def _seg_wrn256() -> dict:
+    """(1) the seg detector (a seeded SegUNet through `build_frontend`),
+    card vs CPU, `translate` and the server without masks, the chain
+    against its plain versions, a DDIM-5 chain profiled; (2) the WRN50-2
+    source (`detector="patchcore"`): its bank through the bank CLI, taps,
+    k-center and detect card vs CPU, `translate`; (3) the seg-encoder
+    source: its bank, detect card vs CPU; (4) the classifier gate's WRN
+    last resort, scores card vs CPU and the TF32 control."""
+    t_phase = time.perf_counter()
+    cfg = mri256_bf16_config()
+    gd = build_gd(cfg, device="cuda")
+    s = gd.image_size
+    d = cfg.data
+    calls = gd.diff_cfg.resolved_sampling_timesteps
+    brains = lambda n, tumor, seed: synthetic_brain_translation(
+        n, s, tumor=tumor, seed=seed, mean_t1=d.mean_t1, std_t1=d.std_t1,
+        mean_flair=d.mean_flair, std_flair=d.std_flair)
+    _, lr, _ = brains(SEG_WRN_BATCH, True, 11)
+    hr = brains(SEG_WRN_BATCH, True, 11)[0]
+    lr2 = lr[:2]
+    STAGE_A_DIR.mkdir(parents=True, exist_ok=True)
+    checks, perf, counts = {}, {}, {k: 0 for k in COUNTERS}
+
+    # (1) the seg detector
+    npz = _seeded_seg_npz(STAGE_A_DIR / "seg_seeded.npz")
+    scfg = cfg.replace(ood=dataclasses.replace(cfg.ood, seg_model_path=npz))
+    fe, _ = build_frontend(scfg, device="cuda", verbose=False)
+    if fe is None or fe.seg_apply is None:
+        raise RuntimeError("build_frontend gave no seg front end for a seg checkpoint")
+    seg_card = fe.seg_apply.model
+    log(f"seg detector: SegUNet base 64, {sum(p.numel() for p in seg_card.parameters())} "
+        f"params (seeded, {npz} in the JAX npz format, fp16), f32, mask_dilate "
+        f"{scfg.ood.resolved_mask_dilate(s)}, Stage B {cfg.model.dim_mults} bf16 DDIM-{calls} "
+        f"of T={gd.num_timesteps}, {sum(p.numel() for p in gd.model.parameters())} params")
+    seg_cpu = SegDetector(_seg_cpu(npz))
+    got = fe.seg_apply(lr2).cpu().numpy()
+    t0 = time.perf_counter()
+    want = seg_cpu(lr2).numpy()
+    cpu_s = time.perf_counter() - t0
+    rel = _rel_l2(got, want)
+    p_card, p_cpu = (1 / (1 + np.exp(-v.astype(np.float64))) for v in (got, want))
+    band = np.abs(p_cpu - 0.5) <= SEG_BAND
+    differ = int(((p_card > 0.5) != (p_cpu > 0.5))[~band].sum())
+    ok = rel <= SEG_LOGIT_REL and differ == 0
+    log(f"seg check, logits card vs CPU (f32, batch 2 at {s}px; cudnn.allow_tf32 "
+        f"{torch.backends.cudnn.allow_tf32} around the call): rel L2 {rel:.4g} "
+        f"(tol {SEG_LOGIT_REL:g}), max_abs_err {float(np.abs(got - want).max()):.4g}; masks "
+        f"differ at {differ} pixels off the band |p - 0.5| <= {SEG_BAND:g}, which holds "
+        f"{int(band.sum())} of {band.size} pixels; raw mask areas "
+        f"{[int(m.sum()) for m in (p_cpu > 0.5)]} {'ok' if ok else 'FAIL'}; CPU {cpu_s:.1f}s")
+    if not ok:
+        raise RuntimeError("the seg detector on the card disagrees with the CPU's")
+    checks["seg_logits_rel_l2"], checks["seg_band_pixels"] = rel, int(band.sum())
+
+    counted = CountedFrontend(fe)
+    pipe = LocalDiffusionPipeline(scfg, gd, frontend=counted)
+    fe.detect(lr)  # warm-up
+    fe.time_stages = True  # the split of a detect that has the card to itself
+    fe.detect(lr)
+    fe.time_stages = False
+    perf["seg_split_ms"] = fe.last_split
+    log(f"seg detect at batch {SEG_WRN_BATCH}, alone on the card: the UNet and sigmoid "
+        f"{fe.last_split['seg']:.3f}ms (device timeline), the host's dilation by "
+        f"{scfg.ood.resolved_mask_dilate(s)} with its back-off {fe.last_split['host']:.3f}ms")
+    perf["seg_unet_kernels"] = top_kernels(lambda: fe.seg_apply(lr), "seg UNet at batch 4")
+    res, _, sb = _counted_translate("seg", pipe, counted, lr, hr, calls)
+    for k in COUNTERS:
+        counts[k] += sb[k]
+    perf["seg_chain_s"], perf["seg_detect_ms"] = float(res["time"]), counted.seconds[-1] * 1e3
+    gd.model.use_plain_kernels(True)
+    try:
+        plain = pipe.translate(lr, noise=1, mask=res["mask"])
+    finally:
+        gd.model.use_plain_kernels(False)
+    a, p = res["pred"].ravel(), plain["pred"].ravel()
+    rel, corr = _rel_l2(a, p), float(np.corrcoef(a, p)[0, 1])
+    log(f"seg check: DDIM-{calls} chain, kernels vs plain versions (same noise and mask): "
+        f"relative L2 {rel:.4g} (tol {MRI_CHAIN_REL:g}), correlation {corr:.6f} (tol "
+        f"{MRI_CHAIN_CORR:g}); plain-version chain {float(plain['time']):.2f}s")
+    if not (rel <= MRI_CHAIN_REL and corr >= MRI_CHAIN_CORR):
+        raise RuntimeError("the seg chain with the kernels disagrees with its plain versions")
+    checks["seg_chain_rel_l2"], checks["seg_chain_corr"] = rel, corr
+    cut = scfg.replace(diffusion=dataclasses.replace(scfg.diffusion,
+                                                     sampling_timesteps=SEG_PROFILE_STEPS))
+    gd5 = build_gd(cut, device="cuda")
+    gd5.model.load_state_dict(gd.model.state_dict())
+    prof = profile_chain(LocalDiffusionPipeline(cut, gd5), lr, res["mask"],
+                         f"seg DDIM-{SEG_PROFILE_STEPS} (the DDIM-{calls} chain's weights)", top=8)
+    del gd5
+    per_call = prof["busy_ms"] / SEG_PROFILE_STEPS
+    log(f"seg chain device time: {per_call:.2f}ms of kernels a UNet call (DDIM-"
+        f"{SEG_PROFILE_STEPS} profiled), x{calls} = {per_call * calls:.1f}ms for the DDIM-{calls} "
+        f"chain, {100 * per_call * calls / (perf['seg_chain_s'] * 1e3):.1f}% of its "
+        f"{perf['seg_chain_s'] * 1e3:.1f}ms wall")
+    perf["seg_chain_busy_ms_per_call"] = per_call
+    perf["seg_profile_busy_share"] = prof["busy_share"]
+
+    before = read_counts()
+    srv = InferenceServer(pipe, batch_size=SEG_WRN_BATCH, max_wait_ms=200)
+    futs = [srv.submit(x) for x in lr[:3]]
+    t0 = time.perf_counter()
+    with srv:
+        outs = [f.result(timeout=600) for f in futs]
+    served_s = time.perf_counter() - t0
+    stats = srv.snapshot_stats()
+    served = {k: v - before[k] for k, v in read_counts().items()}
+    dispatches = (stats["merged_dispatches"] + stats["plain_dispatches"]
+                  + stats["branched_dispatches"])
+    log(f"seg serving: {stats['requests']} requests without masks in {stats['batches']} "
+        f"batch(es), {dispatches} dispatch(es), padded {stats['padded_slots']}, mean latency "
+        f"{stats['latency_mean_s'] * 1e3:.1f}ms ({served_s:.2f}s wall); branched flags "
+        f"{[o['branched'] for o in outs]}; launches {served}")
+    if stats["requests"] != 3 or dispatches < 1:
+        raise RuntimeError(f"seg server stats {stats}")
+    for i, o in enumerate(outs):
+        _check_images(f"seg served request {i}", o["pred"], (s, s, 1), *pipe.min_max_val)
+    check_counts(served, MRI_PER_CALL, calls * dispatches, "seg serving")
+    for k in COUNTERS:
+        counts[k] += served[k]
+    perf["seg_serve_latency_mean_s"] = stats["latency_mean_s"]
+    del seg_cpu
+
+    # (2) the WRN50-2 source: the bank through the CLI, 200 brains at 256px
+    wcfg = cfg.replace(ood=dataclasses.replace(cfg.ood, detector="patchcore"))
+    wrn_bank = STAGE_A_DIR / "memory_bank_synthetic_brain_256_wrn.npy"
+    built = bank_main(["--config", "mri256_bf16", "--feature-source", "wrn", "--seed", "0",
+                       "--n-images", str(WRN_BANK_BRAINS), "--out", str(wrn_bank)])
+    bank, secs = built["bank"], built["seconds"]
+    log(f"WRN bank: {WRN_BANK_BRAINS} normal brains at {s}px, layers {wcfg.ood.layers}, "
+        f"{built['patches']} patches x {bank.shape[1]} -> {bank.shape}; taps "
+        f"{secs['taps']:.3f}s, k-center {secs['kcenter']:.3f}s ({bank.shape[0]} steps), ladder "
+        f"{secs['ladder']:.3f}s; ladder gate {built['ladder'].gate:.6g}")
+    if bank.shape != WRN_BANK_SHAPE or not np.all(np.isfinite(bank)):
+        raise RuntimeError(f"WRN bank {bank.shape}, expected {WRN_BANK_SHAPE}")
+    perf["wrn_bank_seconds"] = secs
+    wsrc = built["patchcore"].source
+    wsrc_cpu = WRNFeatureSource(wcfg.ood.layers, input_size=s, device="cpu")
+    x2 = OODFrontend(wcfg, patchcore=built["patchcore"])._preprocess_patchcore(lr2)
+    got = {k: v.cpu().numpy() for k, v in wsrc.apply(x2).items()}
+    want = wsrc_cpu.apply(x2.cpu())
+    rels = {k: _rel_l2(got[k], want[k].numpy()) for k in got}
+    log(f"WRN check, taps card vs CPU (f32, batch 2, shapes "
+        f"{ {k: tuple(v.shape) for k, v in got.items()} }): rel L2 {rels} (tol "
+        f"{SEG_WRN_F32_REL:g})")
+    if not all(r <= SEG_WRN_F32_REL for r in rels.values()):
+        raise RuntimeError("the WRN's taps on the card disagree with the CPU's")
+    checks["wrn_taps_rel_l2"] = rels
+    n, k = WRN_KCENTER_CHECK
+    emb = built["patchcore"].embed(OODFrontend(wcfg, patchcore=built["patchcore"])
+                                   ._preprocess_patchcore(calibration_images(wcfg, 20)))[:n]
+    proj = random_projection(emb.shape[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = kcenter_greedy_indices(emb.contiguous(), k, proj=proj).cpu()
+    card_s = time.perf_counter() - t0
+    on_cpu = kcenter_greedy_indices(emb.cpu(), k, proj=proj)
+    same = torch.equal(on_card, on_cpu)
+    log(f"WRN check, k-center card vs CPU ({n} x {emb.shape[1]}, k {k}): indices "
+        f"{'identical' if same else 'DIFFER'}; card {card_s:.2f}s")
+    if not same:
+        raise RuntimeError("k-center on the card picks other rows than on the CPU (WRN)")
+    checks["wrn_kcenter_identical"] = True
+    del emb
+    wcfg = wcfg.replace(ood=dataclasses.replace(wcfg.ood, memory_bank_path=str(wrn_bank)))
+    wfe, wcfg2 = build_frontend(wcfg, device="cuda", verbose=False)
+    if wcfg2.ood.ladder_path != built["ladder_path"]:
+        raise RuntimeError(f"build_frontend found ladder {wcfg2.ood.ladder_path!r}")
+    wfe_cpu = OODFrontend(wcfg2, patchcore=PatchCore(wcfg2.ood, memory_bank=bank, device="cpu"))
+    wfe.detect(lr)  # warm-up
+    checks["wrn_detect"] = _detect_card_vs_cpu("WRN", wfe, wfe_cpu, lr, built["ladder"],
+                                               wcfg2.ood)
+    del wfe_cpu
+    wcounted = CountedFrontend(wfe)
+    wpipe = LocalDiffusionPipeline(wcfg2, gd, frontend=wcounted)
+    res, _, sb = _counted_translate("WRN", wpipe, wcounted, lr, hr, calls)
+    for k2 in COUNTERS:
+        counts[k2] += sb[k2]
+    perf["wrn_chain_s"], perf["wrn_detect_ms"] = float(res["time"]), wcounted.seconds[-1] * 1e3
+
+    # (3) the seg-encoder source: the seeded SegUNet's down2 ⊕ down3
+    se_bank = STAGE_A_DIR / "memory_bank_synthetic_brain_256_seg_encoder.npy"
+    built = bank_main(["--config", "mri256_bf16", "--feature-source", "seg_encoder",
+                       "--seg-npz", npz, "--n-images", str(SEGENC_BANK_BRAINS),
+                       "--out", str(se_bank)])
+    bank, secs = built["bank"], built["seconds"]
+    log(f"seg-encoder bank: {SEGENC_BANK_BRAINS} normal brains, down2 + down3, "
+        f"{built['patches']} patches x {bank.shape[1]} -> {bank.shape}; taps "
+        f"{secs['taps']:.3f}s, k-center {secs['kcenter']:.3f}s, ladder {secs['ladder']:.3f}s")
+    if bank.shape != SEGENC_BANK_SHAPE or not np.all(np.isfinite(bank)):
+        raise RuntimeError(f"seg-encoder bank {bank.shape}, expected {SEGENC_BANK_SHAPE}")
+    perf["seg_encoder_bank_seconds"] = secs
+    ecfg = scfg.replace(ood=dataclasses.replace(
+        scfg.ood, detector="patchcore", feature_source="seg_encoder",
+        memory_bank_path=str(se_bank)))
+    efe, ecfg2 = build_frontend(ecfg, device="cuda", verbose=False)
+    efe_cpu = OODFrontend(ecfg2, patchcore=PatchCore(
+        ecfg2.ood, source=SegEncoderFeatureSource(_seg_cpu(npz)), memory_bank=bank))
+    efe.detect(lr)  # warm-up
+    checks["seg_encoder_detect"] = _detect_card_vs_cpu("seg-encoder", efe, efe_cpu, lr,
+                                                       built["ladder"], ecfg2.ood)
+    del efe_cpu, efe
+
+    # (4) the classifier gate's WRN last resort: no classifier bank, no
+    # front-end PatchCore (the detector is seg), a bank from the pairs
+    base = mri256_gated_config()
+    gcfg = base.replace(ood=dataclasses.replace(base.ood, detector="seg",
+                                                memory_bank_path=None))
+    pairs = classifier_calibration_pairs(gcfg, n=GATE_WRN_PAIRS)
+    t0 = time.perf_counter()
+    gate = build_classifier_gate(gcfg, calibration_pairs=pairs, device="cuda", verbose=False)
+    setup_s = time.perf_counter() - t0
+    gpc = gate.classifier.patchcore
+    labels, scores = gate.classifier.calibration
+    cls_cpu = ClassifierPatchCore(PatchCore(gcfg.ood, memory_bank=gpc.memory_bank.cpu(),
+                                            device="cpu"), threshold=gate.threshold)
+    x = np.concatenate([pairs[i][0] for i in (0, 1, GATE_WRN_PAIRS, GATE_WRN_PAIRS + 1)])
+    got = gate.classifier.score_raw(x).cpu().numpy()
+    want = cls_cpu.score_raw(x).numpy()
+    got64, want64 = scores_float64(gate.classifier, x), scores_float64(cls_cpu, x)
+    worst, rel = _score_agreement(got, want)
+    emb_worst, _ = _score_agreement(got64, want64)
+    ctl_worst, ctl_rel = _score_agreement(scores_tf32(gate.classifier, x), want)
+    ok = (isinstance(gpc.source, WRNFeatureSource) and emb_worst <= GATED_F32_REL
+          and rel <= GATE_WRN_F32_REL and worst <= GATE_WRN_F32_SCORE_REL
+          and ctl_worst > GATE_WRN_F32_SCORE_REL)
+    log(f"gate WRN last resort: {type(gpc.source).__name__} {gpc.layers}, bank "
+        f"{tuple(gpc.memory_bank.shape)} from {len(pairs)} calibration images, threshold "
+        f"{gate.threshold:.6g}, balanced accuracy "
+        f"{balanced_accuracy(labels, scores, gate.threshold):.4f} ({setup_s:.2f}s); scores "
+        f"card vs CPU (f32, 2 + 2 images): {got.round(5).tolist()} vs "
+        f"{want.round(5).tolist()}, rel L2 {rel:.4g} (tol {GATE_WRN_F32_REL:g}), worst "
+        f"{worst:.4g} (tol {GATE_WRN_F32_SCORE_REL:g}); in float64 from each side's embeddings "
+        f"worst {emb_worst:.4g} (tol {GATED_F32_REL:g}); each side's f32 vs its float64: card "
+        f"{_score_agreement(got, got64)[0]:.4g}, CPU {_score_agreement(want, want64)[0]:.4g}; "
+        f"control, the card's distance product in TF32: rel L2 {ctl_rel:.4g}, worst "
+        f"{ctl_worst:.4g} (must exceed {GATE_WRN_F32_SCORE_REL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("the gate's WRN last resort disagrees with the CPU's")
+    checks.update(gate_wrn_scores_rel_l2=rel, gate_wrn_worst=worst,
+                  gate_wrn_worst_float64=emb_worst, gate_wrn_tf32_control_worst=ctl_worst)
+    perf["gate_wrn_setup_s"] = setup_s
+    perf["phase_s"] = time.perf_counter() - t_phase
+    log(f"seg/WRN phase: {perf['phase_s']:.1f}s; main-path launches {counts}")
+    return dict(counts=counts, perf=perf, checks=checks)
+
+
+# ---------------------------------------------------------------------------
 # the s2d-stem 256px configuration (the README's recommended deployment)
 # ---------------------------------------------------------------------------
 
@@ -2129,10 +2568,11 @@ def main() -> None:
     mri = mri256()
     stage_a = stage_a256()
     gated = gated256(stage_a.pop("gd"), stage_a.pop("bank_path"))
+    seg_wrn = seg_wrn256()
     stem = stem256()
 
     phases = {"flagship": flag, "256px": mri, "stage_a": stage_a, "gated": gated,
-              "stem": stem}
+              "seg_wrn": seg_wrn, "stem": stem}
     launches = {name: {label: ph["counts"][name] for label, ph in phases.items()}
                 for name in COUNTERS}
     total = {name: sum(v.values()) for name, v in launches.items()}
@@ -2224,7 +2664,8 @@ def main() -> None:
         + "; busy share " + " ".join(f"{label} {ph['busy_share']:.4f}"
                                      for label, ph in phases.items() if "busy_share" in ph)
         + f"; stem checks {json.dumps(stem['checks'])}; Stage A checks "
-        + json.dumps(stage_a["checks"]) + f"; gated checks {json.dumps(gated['checks'])}")
+        + json.dumps(stage_a["checks"]) + f"; gated checks {json.dumps(gated['checks'])}"
+        + f"; seg/WRN checks {json.dumps(seg_wrn['checks'])}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

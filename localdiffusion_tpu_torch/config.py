@@ -8,8 +8,11 @@ imports `yaml`, which a CUDA host need not have.  The flagship configuration
 (`configs/mnist.yaml`) is built in Python by `flagship_config()`, the 256px
 MRI one (`configs/mri_synthetic_256.yaml`) by `mri256_config()`, its
 classifier-gated variant (`configs/mri_synthetic_256_gated.yaml`) by
-`mri256_gated_config()`, and its s2d-stem variant
-(`configs/mri_synthetic_256_stem.yaml`) by `stem256_config()`;
+`mri256_gated_config()`, its s2d-stem variant
+(`configs/mri_synthetic_256_stem.yaml`) by `stem256_config()`, its bf16
+DDIM variant with the seg detector (`configs/mri_synthetic_256_bf16.yaml`)
+by `mri256_bf16_config()`, and the 64px MRI flow
+(`configs/mri_synthetic.yaml`) by `mri64_config()`;
 `Config.from_dict` takes the parsed contents of such a file.
 """
 
@@ -155,9 +158,9 @@ class SamplerConfig:
 
 @dataclass(frozen=True)
 class OODConfig:
-    """Stage-A options.  The port serves the 'patchcore' detector over the
-    denoiser's own taps (`feature_source='denoiser'`), 'manual' and 'none';
-    the WRN and seg-encoder sources and the 'seg' detector raise.  Every
+    """Stage-A options: the 'patchcore' detector over the WRN50-2, the
+    seg encoder's or the denoiser's taps (`feature_source`), the 'seg'
+    detector (a SegUNet's sigmoid at 0.5), 'manual' and 'none'.  Every
     field is kept so a configuration file reads unchanged."""
 
     detector: str = "patchcore"  # patchcore | seg | manual | none
@@ -183,16 +186,42 @@ class OODConfig:
     refine_lo_frac: float = 0.25
     refine_min_area: int = 0
 
-    def resolved_mask_dilate(self, strides: Dict[str, int]) -> int:
-        """Dilation radius in output pixels; -1 (auto) resolves to one
-        feature cell of the coarsest tap, from the feature source's own
-        `strides` (which know the denoiser's stem factor).  The port's one
-        source, the denoiser, sees the image at its own resolution, so a
-        stride is in output pixels."""
+    # each WRN50-2 tap's feature stride (ood/wide_resnet.py)
+    _LAYER_STRIDE = {"layer1": 4, "layer2": 8, "layer3": 16, "layer4": 32}
+
+    def _stride_of(self, layer: str) -> int:
+        """A tap's feature stride from its name alone, for any source: WRN
+        layerN, seg-encoder inc/downN, denoiser downN_blockM (which cannot
+        see a space-to-depth stem: pass the source's own `strides`)."""
+        if layer in self._LAYER_STRIDE:
+            return self._LAYER_STRIDE[layer]
+        if layer == "inc":
+            return 1
+        if layer.startswith("down") and layer[4:5].isdigit():
+            return 2 ** int(layer[4])
+        return 8
+
+    def resolved_mask_dilate(self, image_size: int, strides: Optional[Dict[str, int]] = None) -> int:
+        """Dilation radius in output pixels; -1 (auto) resolves to 0 off the
+        'patchcore' detector, else to one feature cell of the coarsest tap:
+        from the source's own `strides` where given (they know the
+        denoiser's stem factor), else from the tap names.  The WRN sees the
+        image resized to `input_size`, so its stride is rescaled by
+        image_size / input_size; the raw sources (seg encoder, denoiser) see
+        it at its own size, so their stride is in output pixels."""
         if self.mask_dilate >= 0:
             return self.mask_dilate
-        layers = self.feature_layers or ("down2_block2", "down3_block2")
-        return max(1, int(max(strides[l] for l in layers)))
+        if self.detector != "patchcore":
+            return 0
+        layers = self.feature_layers or {
+            "wrn": self.layers,
+            "seg_encoder": ("down2", "down3"),
+            "denoiser": ("down2_block2", "down3_block2"),
+        }[self.feature_source]
+        stride = max((strides or {}).get(l, self._stride_of(l)) for l in layers)
+        if self.feature_source == "wrn":
+            return max(1, round(stride * image_size / self.input_size))
+        return max(1, int(stride))
 
     def __post_init__(self):
         if self.detector not in ("patchcore", "seg", "manual", "none"):
@@ -399,6 +428,49 @@ def stem256_config() -> Config:
             batch_size=8, lr=1e-4, num_steps=400, results_dir="./results",
             project_name="mri_stem256",
         ),
+    )
+
+
+def mri256_bf16_config() -> Config:
+    """`configs/mri_synthetic_256_bf16.yaml`, built without YAML: the 256px
+    UNet of `mri256_config()`, DDIM-50 of T=250, bf16, and Stage A the
+    file's: the 'seg' detector (a SegUNet, `ood.seg_model_path` or the
+    shipped `results/seg256_params.npz`) with dilation 16 and no
+    refinement.  `detector="patchcore"` turns it into the WRN50-2 path
+    (`layers` layer2 ⊕ layer3 at a 256px input, the bank
+    `ood.memory_bank_path` and its fitted ladder), as `scripts/test.py
+    --detector patchcore` runs it."""
+    base = mri256_config()
+    return base.replace(
+        diffusion=dataclasses.replace(base.diffusion, sampling_timesteps=50),
+        ood=OODConfig(
+            detector="seg", input_size=256, mask_dilate=16,
+            memory_bank_path="results/memory_bank_synthetic_brain_256.npy",
+            layers=("layer2", "layer3"),
+        ),
+        train=dataclasses.replace(base.train, project_name="mri_synth256_bf16"),
+    )
+
+
+def mri64_config() -> Config:
+    """`configs/mri_synthetic.yaml`, the 64px MRI flow, built without YAML:
+    the 4-stage UNet at 64px, DDIM-50 of T=250, float32, the 'seg'
+    detector; its PatchCore variant runs the WRN50-2's layer1 ⊕ layer2 at a
+    64px input against the shipped `results/memory_bank_synthetic_brain.npy`
+    (embedded with the JAX package's WRN weights, see ood/features.py)."""
+    base = mri256_config()
+    return Config(
+        model=base.model,
+        diffusion=dataclasses.replace(base.diffusion, image_size=64, sampling_timesteps=50),
+        sampler=base.sampler,
+        ood=OODConfig(
+            detector="seg", input_size=64,
+            memory_bank_path="results/memory_bank_synthetic_brain.npy",
+            layers=("layer1", "layer2"),
+        ),
+        data=base.data,
+        train=TrainConfig(batch_size=16, lr=1e-4, num_steps=400, results_dir="./results",
+                          project_name="mri_synth"),
     )
 
 

@@ -11,7 +11,14 @@ as `<bank>_ladder.json`, where `build_frontend` finds it.
 
 builds the bank of `mri256_config()` (200 images at 256px: 819,200 patches,
 a 10% coreset of 81,920 × 192) with the weights of its `ood.feature_npz`, on
-the card unless `--device cpu`.  Other datasets wait for their readers.
+the card unless `--device cpu`.  `--config mri256_bf16` or `mri64` takes
+`mri256_bf16_config()` or `mri64_config()` and `--feature-source` names
+the taps: `wrn` (the WRN50-2's `ood.layers`, weights seeded by `--seed` or
+the torchvision state dict of `--backbone-weights`; at 256px layer2 ⊕
+layer3, 204,800 patches × 1,536 → 20,480 rows), `seg_encoder` (the
+SegUNet of `--seg-npz`, down2 ⊕ down3, 768 channels at 64×64) or
+`denoiser`.  `--seed` also seeds the k-center projection, as the JAX
+script's does.  Other datasets wait for their readers.
 
     python -m localdiffusion_tpu_torch.ood.bank --classifier --out /path/to/memory_bank.npy
 
@@ -32,7 +39,15 @@ import time
 
 import numpy as np
 
-from localdiffusion_tpu_torch.config import Config, mri256_config, mri256_gated_config
+import torch
+
+from localdiffusion_tpu_torch.config import (
+    Config,
+    mri64_config,
+    mri256_bf16_config,
+    mri256_config,
+    mri256_gated_config,
+)
 from localdiffusion_tpu_torch.data.synthetic import synthetic_brain_translation
 from localdiffusion_tpu_torch.factory import (
     build_classifier_gate,
@@ -67,24 +82,26 @@ BATCH = 8  # calibration images a feature pass
 
 
 def build_bank(cfg: Config, out: str, gd=None, n_images: int = 200, images=None,
-               device="cuda") -> dict:
+               device="cuda", seed: int = 0) -> dict:
     """Build the bank of `cfg`'s detector (a `cfg.ood.coreset_ratio`
-    coreset; the k-center projection from seed 0) and save it to `out`
-    (np.save), then fit its ladder (`fit_ladder`'s defaults, those of the
-    JAX script) and save it beside the bank.
+    coreset, 0.1 as the JAX script's; the k-center projection from `seed`)
+    with `cfg.ood.feature_source`'s taps and save it to `out` (np.save),
+    then fit its ladder (`fit_ladder`'s defaults, those of the JAX script)
+    and save it beside the bank.
 
     gd: the denoiser to tap (default: built on `device` with
-    `cfg.ood.feature_npz`'s weights).  images: the calibration images
-    (default `calibration_images(cfg, n_images)`), `BATCH` at a time.
-    Returns {'bank', 'ladder', 'ladder_path', 'seconds': {'taps',
-    'kcenter', 'ladder'}, 'patches'}."""
+    `cfg.ood.feature_npz`'s weights); a WRN is seeded from `seed`.  images:
+    the calibration images (default `calibration_images(cfg, n_images)`),
+    `BATCH` at a time.  Returns {'bank', 'ladder', 'ladder_path', 'seconds':
+    {'taps', 'kcenter', 'ladder'}, 'patches', 'patchcore'}."""
     cfg = cfg.replace(ood=dataclasses.replace(cfg.ood, detector="patchcore"))
     lr = calibration_images(cfg, n_images) if images is None else np.asarray(images, np.float32)
-    pc = PatchCore(cfg.ood, source=make_feature_source(cfg, denoiser=gd, device=device))
+    pc = PatchCore(cfg.ood, source=make_feature_source(
+        cfg, denoiser=gd, device=device, generator=torch.Generator().manual_seed(seed)))
     # the bank shares the inference front end's preprocessing
     fe = OODFrontend(cfg, patchcore=pc)
     batches = [fe._preprocess_patchcore(lr[i:i + BATCH]) for i in range(0, len(lr), BATCH)]
-    bank = pc.build_memory_bank(batches)
+    bank = pc.build_memory_bank(batches, seed=seed)
     np.save(out, bank)
     # the normal set's own maps: nonzero, since the coreset keeps 10%
     t0 = time.perf_counter()
@@ -94,7 +111,7 @@ def build_bank(cfg: Config, out: str, gd=None, n_images: int = 200, images=None,
     return dict(bank=bank, ladder=ladder, ladder_path=path,
                 seconds=dict(taps=pc.last_build_s["taps"], kcenter=pc.last_build_s["kcenter"],
                              ladder=time.perf_counter() - t0),
-                patches=pc.last_build_s["patches"])
+                patches=pc.last_build_s["patches"], patchcore=pc)
 
 
 def build_classifier_bank(cfg: Config, out: str, gd=None, n_images: int = 64,
@@ -139,7 +156,10 @@ def classifier_calibration_pairs(cfg: Config, n: int = 32, lesion_amp: float = 2
             + [(anomalous[i:i + 1], 1) for i in range(n)])
 
 
-def main(argv=None) -> None:
+CONFIGS = {"mri256": mri256_config, "mri256_bf16": mri256_bf16_config, "mri64": mri64_config}
+
+
+def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", required=True,
                     help="the detector bank's .npy path (its ladder goes beside it; with "
@@ -147,16 +167,34 @@ def main(argv=None) -> None:
     ap.add_argument("--classifier", action="store_true",
                     help="build the classifier gate's bank of mri256_gated_config() and "
                          "ROC-calibrate its threshold")
+    ap.add_argument("--config", choices=sorted(CONFIGS), default="mri256",
+                    help="the detector's configuration (default mri256)")
+    ap.add_argument("--feature-source", choices=["denoiser", "wrn", "seg_encoder"],
+                    default=None, help="the taps (default: the configuration's)")
     ap.add_argument("--n-images", type=int, default=None,
                     help="images of the bank (default 200; with --classifier 64)")
     ap.add_argument("--calib", type=int, default=32,
                     help="with --classifier: calibration images per class")
     ap.add_argument("--feature-npz", default=mri256_config().ood.feature_npz,
                     help="the denoiser's params snapshot")
+    ap.add_argument("--seg-npz", default=None,
+                    help="the SegUNet's slim npz for --feature-source seg_encoder (default: "
+                         "ood.seg_model_path's resolution, results/seg256_params.npz)")
+    ap.add_argument("--backbone-weights", default=None,
+                    help="a torchvision wide_resnet50_2 state dict for --feature-source wrn")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seeds the WRN50-2's random weights and the k-center projection")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    cfg = mri256_gated_config() if args.classifier else mri256_config()
-    cfg = cfg.replace(ood=dataclasses.replace(cfg.ood, feature_npz=args.feature_npz))
+    cfg = mri256_gated_config() if args.classifier else CONFIGS[args.config]()
+    over = dict(feature_npz=args.feature_npz)
+    if args.feature_source:
+        over["feature_source"] = args.feature_source
+    if args.seg_npz:
+        over["seg_model_path"] = args.seg_npz
+    if args.backbone_weights:
+        over["backbone_weights_path"] = args.backbone_weights
+    cfg = cfg.replace(ood=dataclasses.replace(cfg.ood, **over))
     if args.classifier:
         # one denoiser with the snapshot's weights taps for the bank and the calibration
         gd = make_feature_source(cfg, device=args.device).gd
@@ -173,13 +211,16 @@ def main(argv=None) -> None:
         print(f"ROC threshold {gate.threshold:.6g} ({gate.polarity}), balanced accuracy "
               f"{balanced_accuracy(labels, scores, gate.threshold):.4f} on {len(labels)} "
               f"calibration images ({time.perf_counter() - t0:.2f}s)")
-        return
-    res = build_bank(cfg, args.out, n_images=args.n_images or 200, device=args.device)
+        return dict(res, gate=gate)
+    res = build_bank(cfg, args.out, n_images=args.n_images or 200, device=args.device,
+                     seed=args.seed)
     lad = res["ladder"]
-    print(f"saved {args.out}: {res['bank'].shape} from {res['patches']} patches; seconds "
+    print(f"saved {args.out}: {res['bank'].shape} from {res['patches']} patches "
+          f"({cfg.ood.feature_source} taps {list(res['patchcore'].layers)}); seconds "
           + " ".join(f"{k} {v:.2f}" for k, v in res["seconds"].items()))
     print(f"saved fitted ladder {res['ladder_path']}: gate={lad.gate:.4f} "
           f"rungs={[(r.above, r.threshold) for r in lad.rungs]}")
+    return res
 
 
 if __name__ == "__main__":

@@ -1,27 +1,92 @@
-"""PatchCore feature sources.  Port of the denoiser source of
-`localdiffusion_tpu/ood/features.py`.
+"""PatchCore feature sources.  Port of `localdiffusion_tpu/ood/features.py`.
 
-'denoiser': down-path activations of the trained denoiser UNet at a fixed
-small timestep.  The denoiser was trained only on normal anatomy, so
-anomalous content gives off-manifold activations; no extra training.  The
-conditioning image is fed as the sample at a small t (a near-clean pass)
-and the `down{i}_block2` outputs are tapped (`UNet.down_taps`, which stops
-after the deepest tap).
+  * 'wrn': WideResNet50-2 taps (`ood/wide_resnet.py`), ImageNet
+    preprocessing.  Weights: a torchvision state dict
+    (`ood.backbone_weights_path`) or, without one, seeded random weights.
+    The JAX package's random WRN comes from `jax.random.PRNGKey(0)`, which
+    PyTorch does not reproduce: the shipped WRN banks
+    (`results/memory_bank_synthetic_brain.npy`, `memory_bank_mnist.npy`)
+    were embedded with those weights and pair with the port only when the
+    JAX parameters are carried across (`wide_resnet.params_from_jax`), as
+    the CPU tests do.  A bank for the port's seeded WRN is built with
+    `python -m localdiffusion_tpu_torch.ood.bank --feature-source wrn`.
+  * 'seg_encoder': encoder taps of the trained SegUNet
+    (`models/seg_unet.py`), the DoubleConv outputs `inc` .. `down4`.
+  * 'denoiser': down-path activations of the trained denoiser UNet at a
+    fixed small timestep.  The denoiser was trained only on normal
+    anatomy, so anomalous content gives off-manifold activations; no extra
+    training.  The conditioning image is fed as the sample at a small t (a
+    near-clean pass) and the `down{i}_block2` outputs are tapped
+    (`UNet.down_taps`, which stops after the deepest tap).
 
 A source exposes `.layers` (tap names, shallowest first), `.preprocess`
-('raw': the conditioning image exactly as the diffusion pipeline sees it),
-`.strides` (each tap's stride in input pixels), `.device` and
-`.apply(x) → {layer: [B, h, w, c] float32}`.  The WRN50-2 and seg-encoder
-sources of the JAX package are later slices of the port (ROADMAP queue 1).
+('imagenet': channel repeat, de/re-normalization, resize to `input_size`
+and ImageNet normalization; 'raw': the conditioning image exactly as the
+diffusion pipeline sees it), `.strides` (each tap's stride in the pixels
+it sees), `.device` and `.apply(x) → {layer: [B, h, w, c] float32}`.  The
+WRN50-2 and the seg encoder apply their convolutions in full float32
+(`utils.precision.float32_convs`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import os
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from localdiffusion_tpu_torch.utils.precision import float32_convs
+
 DEFAULT_LAYERS = ("down2_block2", "down3_block2")
+SEG_LAYERS = ("down2", "down3")
+# the seg detector's checkpoints, in the JAX package's order: a local
+# training run's Orbax directory, then the shipped slim snapshot
+SEG_CANDIDATES = ("results/seg/best_dice", "results/seg256_params.npz")
+
+
+class WRNFeatureSource:
+    """WideResNet50-2 taps.  `params`: a state dict in torchvision's names
+    (`wide_resnet.params_from_jax` gives one from the JAX params); without
+    it the weights are seeded from `generator` (default: seed 0)."""
+
+    name = "wrn"
+    preprocess = "imagenet"
+    strides = {"layer1": 4, "layer2": 8, "layer3": 16, "layer4": 32}
+
+    def __init__(self, layers: Tuple[str, ...], params=None,
+                 generator: Optional[torch.Generator] = None, input_size: int = 224,
+                 device="cuda"):
+        from localdiffusion_tpu_torch.ood.wide_resnet import build_wrn
+
+        self.layers = tuple(layers)
+        self.input_size = input_size
+        self.device = torch.device(device)
+        self.backbone = build_wrn(self.layers, self.device, state_dict=params,
+                                  generator=generator)
+
+    @torch.no_grad()
+    def apply(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        with float32_convs():
+            return {k: v.float() for k, v in self.backbone(x).items()}
+
+
+class SegEncoderFeatureSource:
+    """Encoder taps of a SegUNet (`models.seg_unet.SegUNet`, on its
+    device): the DoubleConv outputs named in `layers`."""
+
+    name = "seg_encoder"
+    preprocess = "raw"
+    strides = {"inc": 1, "down1": 2, "down2": 4, "down3": 8, "down4": 16}
+
+    def __init__(self, model, layers: Tuple[str, ...] = SEG_LAYERS):
+        self.layers = tuple(layers)
+        self.model = model
+        self.device = next(model.parameters()).device
+
+    @torch.no_grad()
+    def apply(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        with float32_convs():
+            return self.model.encoder_taps(x, self.layers)
 
 
 class DenoiserFeatureSource:
@@ -68,17 +133,83 @@ class DenoiserFeatureSource:
         return out
 
 
-def make_feature_source(cfg, denoiser=None, device="cuda", verbose: bool = True):
+def load_backbone_weights(path: str) -> Dict[str, torch.Tensor]:
+    """A torchvision `wide_resnet50_2` state dict saved with `torch.save`,
+    read with `weights_only=True` onto the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def wrn_source(ood, device="cuda", generator: Optional[torch.Generator] = None,
+               verbose: bool = False) -> WRNFeatureSource:
+    """The WRN50-2 source of `ood` (an OODConfig) on `device`: `ood.layers`
+    at `ood.input_size`, with the state dict of `ood.backbone_weights_path`,
+    else weights seeded from `generator` (default seed 0)."""
+    params = None
+    if ood.backbone_weights_path:
+        params = load_backbone_weights(ood.backbone_weights_path)
+        if verbose:
+            print(f"WRN50-2 weights: {ood.backbone_weights_path}")
+    return WRNFeatureSource(ood.layers, params=params, generator=generator,
+                            input_size=ood.input_size, device=device)
+
+
+def load_seg_params(path: Optional[str], model):
+    """(resolved path, `model`'s state dict or None) of the SegUNet
+    checkpoint for the seg detector and the seg-encoder source.
+
+    With no path the JAX package's order applies: `results/seg/best_dice`
+    (an Orbax directory a local training run writes), then the shipped
+    `results/seg256_params.npz`.  A missing file gives None.  The port reads
+    slim npz snapshots only; an Orbax directory raises rather than fall
+    back to the npz, which would be another model than the JAX package's."""
+    from localdiffusion_tpu_torch.models.seg_unet import load_seg_npz
+
+    if path is None:
+        path = next((c for c in SEG_CANDIDATES if os.path.exists(c)), SEG_CANDIDATES[-1])
+    if not os.path.exists(path):
+        return path, None
+    if not path.endswith(".npz"):
+        raise NotImplementedError(
+            f"{path} is an Orbax checkpoint, which the port does not read; the exporter to "
+            "a slim npz (`utils.params_io.save_params_npz` over `Trainer.load`) is ROADMAP "
+            "queue 1 item 11: export it, and name the npz in ood.seg_model_path")
+    return path, load_seg_npz(path, model)
+
+
+def build_seg_unet(cfg, device="cuda", verbose: bool = True):
+    """(the SegUNet of `cfg.ood.seg_model_path` on `device` in eval mode, its
+    path), or (None, path) when there is no checkpoint."""
+    from localdiffusion_tpu_torch.models.seg_unet import SegUNet
+
+    model = SegUNet()
+    path, state = load_seg_params(cfg.ood.seg_model_path, model)
+    if state is None:
+        return None, path
+    model.load_state_dict(state)
+    if verbose:
+        print(f"loaded seg checkpoint {path}")
+    return model.to(device).eval().requires_grad_(False), path
+
+
+def make_feature_source(cfg, denoiser=None, device="cuda", verbose: bool = True,
+                        generator: Optional[torch.Generator] = None):
     """The feature source `cfg.ood.feature_source` names (cfg is the full
-    Config).  'denoiser' taps `denoiser` (a GaussianDiffusion, e.g. the
-    pipeline's own) or, without one, a denoiser built from the configuration
-    on `device` with the weights of `cfg.ood.feature_npz`."""
+    Config), on `device`.  'wrn': `wrn_source`, seeded from `generator`.
+    'seg_encoder': the SegUNet of `ood.seg_model_path`
+    (see `load_seg_params`); raises without one.  'denoiser' taps
+    `denoiser` (a GaussianDiffusion, e.g. the pipeline's own) or, without
+    one, a denoiser built from the configuration with the weights of
+    `ood.feature_npz`."""
     ood = cfg.ood
     name = ood.feature_source
-    if name in ("wrn", "seg_encoder"):
-        raise NotImplementedError(
-            f"feature source {name!r}: a later slice of the port (ROADMAP queue 1); "
-            "use feature_source='denoiser'")
+    if name == "wrn":
+        return wrn_source(ood, device=device, generator=generator, verbose=verbose)
+    if name == "seg_encoder":
+        model, path = build_seg_unet(cfg, device=device, verbose=verbose)
+        if model is None:
+            raise FileNotFoundError(f"the seg_encoder feature source needs a trained SegUNet "
+                                    f"at {path} (scripts/train_seg.py)")
+        return SegEncoderFeatureSource(model, ood.feature_layers or SEG_LAYERS)
     if name != "denoiser":
         raise ValueError(f"unknown feature_source {name!r}")
     gd = denoiser

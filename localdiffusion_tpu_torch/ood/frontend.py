@@ -2,10 +2,11 @@
 Port of `localdiffusion_tpu/ood/frontend.py`.
 
 Stage A of the inference pipeline: preprocessing, PatchCore detection,
-threshold ladder, hysteresis refinement and dilation, or the manual / none
-masks.  The device work (feature pass, nearest-neighbour search, map) runs
-on the PatchCore's device; the per-image ladder and refinement run on the
-host.  The 'seg' detector is a later slice of the port (ROADMAP queue 1).
+threshold ladder, hysteresis refinement and dilation; the seg detector's
+sigmoid at 0.5 and dilation; or the manual / none masks.  The device work
+(the seg UNet, or the feature pass, nearest-neighbour search and map) runs
+on the detector's device; the per-image ladder, refinement and dilation
+run on the host.
 """
 
 from __future__ import annotations
@@ -33,29 +34,35 @@ class OODFrontend:
     """Builds the OOD mask for one conditioning batch.
 
     detector='patchcore' → anomaly map + ladder (+ hysteresis refinement)
+    detector='seg'       → sigmoid(seg_apply(lr)) > 0.5, dilated
     detector='manual'    → left-columns mask
     detector='none'      → uniform ones (the branching bypass)
 
-    With `time_stages` on, a patchcore `detect` records CUDA events on the
-    current stream and leaves in `last_split` its milliseconds by stage:
-    'features' (the feature pass), 'nn' (nearest-neighbour search and image
-    score), 'map' (upsample and blur), 'host' (the ladder, refinement and
-    dilation, from the map's arrival on the host).  The split holds only for
-    a detect that has the device to itself: under the server's
-    `overlap_detect` the events fall between the other batch's Stage B
-    kernels.  Off (the default), nothing is recorded.
+    `seg_apply` (the seg detector's, e.g. `models.seg_unet.SegDetector`)
+    maps the conditioning image [B, H, W, 1], as the pipeline normalizes
+    it, to logits [B, H, W, 1] on its `.device`.
+
+    With `time_stages` on, a `detect` records CUDA events on the current
+    stream and leaves in `last_split` its milliseconds by stage: for
+    patchcore 'features' (the feature pass), 'nn' (nearest-neighbour search
+    and image score), 'map' (upsample and blur); for seg 'seg' (the UNet and
+    the sigmoid); and 'host' (the ladder, refinement and dilation, from the
+    map's arrival on the host).  The split holds only for a detect that has
+    the device to itself: under the server's `overlap_detect` the events
+    fall between the other batch's Stage B kernels.  Off (the default),
+    nothing is recorded.
     """
 
-    def __init__(self, config, patchcore=None, time_stages: bool = False):
+    def __init__(self, config, patchcore=None, seg_apply=None, time_stages: bool = False):
         self.config = config
         self.patchcore = patchcore
+        self.seg_apply = seg_apply
         self.time_stages = time_stages
         det = config.ood.detector
-        if det == "seg":
-            raise NotImplementedError("the seg detector is a later slice of the port "
-                                      "(ROADMAP queue 1)")
         if det == "patchcore" and patchcore is None:
             raise ValueError("patchcore detector requires a PatchCore instance")
+        if det == "seg" and seg_apply is None:
+            raise ValueError("seg detector requires a seg model apply fn")
         self.last_split: Dict[str, float] = {}
 
     def _preprocess_patchcore(self, lr) -> torch.Tensor:
@@ -109,6 +116,10 @@ class OODFrontend:
             m = manual_mask(shape, cfg.ood.manual_mask_cols)
             return m, m.copy(), None
 
+        strides = self.patchcore.source.strides if self.patchcore is not None else None
+        dilate = cfg.ood.resolved_mask_dilate(img_size, strides=strides)
+        if det == "seg":
+            return self._detect_seg(lr, dilate)
         clock = StageClock(self.patchcore.device) if self.time_stages else None
         amap = self.patchcore(self._preprocess_patchcore(lr), clock=clock)["anomaly_map"]
         if cfg.data.name in ("mnist", "mvtec", "mvtecSR"):
@@ -120,7 +131,6 @@ class OODFrontend:
         else:
             name = "mvtec" if "mvtec" in cfg.data.name else cfg.data.name
             ladder = ladder_for(name, self._ladder_variant())
-        dilate = cfg.ood.resolved_mask_dilate(self.patchcore.source.strides)
         refine = cfg.ood.mask_refine == "hysteresis"
         mask_pred, binary = soft_mask_from_map(amap_np, ladder, dilate=0 if refine else dilate)
         if refine:
@@ -140,3 +150,20 @@ class OODFrontend:
             # 'host': from the map's arrival on the host to the masks
             self.last_split = dict(clock.split(), host=1e3 * (time.perf_counter() - t_host))
         return mask_pred, binary, amap_np
+
+    def _detect_seg(self, lr, dilate: int):
+        """The seg detector: binary = sigmoid(logits) > 0.5, each image then
+        dilated by `dilate` with the saturation back-off (a mask is never
+        grown into the all-ones bypass sentinel); → (binary, binary, the
+        probabilities)."""
+        clock = StageClock(self.seg_apply.device) if self.time_stages else None
+        probs = torch.sigmoid(self.seg_apply(lr).float()).cpu().numpy()
+        if clock is not None:
+            clock.mark("seg")
+        t_host = time.perf_counter()
+        binary = (probs > 0.5).astype(np.float32)
+        if dilate > 0:
+            binary = np.stack([dilate_with_backoff(m, m, dilate)[1] for m in binary])
+        if clock is not None:
+            self.last_split = dict(clock.split(), host=1e3 * (time.perf_counter() - t_host))
+        return binary, binary.copy(), probs

@@ -226,19 +226,20 @@ class StageClock:
 class PatchCore:
     """PatchCore bound to a feature source and a memory bank.
 
-    The source (ood/features.py) exposes `.layers`, `.preprocess` and
-    `.apply(x) → {layer: [B, h, w, c]}` on its device.  The WRN50-2
-    default of the JAX package is not ported yet.
+    The source (ood/features.py) exposes `.layers`, `.preprocess`,
+    `.device` and `.apply(x) → {layer: [B, h, w, c]}`.  Without one, the
+    JAX package's default: `features.wrn_source(cfg, device)`, a WRN50-2
+    over `cfg.layers`.
 
     `embed(x)` streams patch embeddings for building a bank;
     `__call__(x)` → {'anomaly_map', 'pred_score'}.
     """
 
-    def __init__(self, cfg, source=None, memory_bank=None):
+    def __init__(self, cfg, source=None, memory_bank=None, device="cuda"):
         if source is None:
-            raise NotImplementedError(
-                "the WRN50-2 feature source is a later slice of the port (ROADMAP queue 1); "
-                "use feature_source='denoiser'")
+            from localdiffusion_tpu_torch.ood.features import wrn_source
+
+            source = wrn_source(cfg, device=device)
         self.cfg = cfg
         self.source = source
         self.device = source.device
@@ -271,17 +272,19 @@ class PatchCore:
         return reshape_embedding(self.embed_map(self._input(x)))
 
     def build_memory_bank(self, batches, sampling_ratio: Optional[float] = None,
-                          proj: Optional[torch.Tensor] = None) -> np.ndarray:
+                          proj: Optional[torch.Tensor] = None, seed: int = 0) -> np.ndarray:
         """Batches → embeddings → a coreset bank of `sampling_ratio` (default
         `coreset_ratio`) of the patches, kept on the device and returned as
         numpy, projected for k-center by `proj` or `random_projection`'s
-        seed 0.  `last_build_s` holds the seconds of the taps (with the
+        `seed`.  `last_build_s` holds the seconds of the taps (with the
         pooling and concatenation) and of k-center."""
         ratio = self.cfg.coreset_ratio if sampling_ratio is None else sampling_ratio
         t0 = time.perf_counter()
         embedding = torch.cat([self.embed(b) for b in batches])
         self._sync()
         t1 = time.perf_counter()
+        if proj is None:
+            proj = random_projection(embedding.shape[1], seed=seed)
         self.memory_bank = subsample_embedding(embedding, ratio, proj=proj)
         self._sync()
         self.last_build_s = {"taps": t1 - t0, "kcenter": time.perf_counter() - t1,

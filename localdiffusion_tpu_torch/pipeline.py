@@ -2,8 +2,9 @@
 
 Port of `localdiffusion_tpu/pipeline.py` (`LocalDiffusionPipeline.translate`).
 Stage A is the caller's mask or the front end's (ood/frontend.py): PatchCore
-over the denoiser's taps with the fitted ladder and hysteresis refinement,
-or the 'manual' and 'none' masks.  Stage B is ancestral DDPM, or DDIM when
+over the WRN50-2's, the seg encoder's or the denoiser's taps with the
+fitted ladder (and hysteresis refinement where configured), the seg
+detector's thresholded SegUNet, or the 'manual' and 'none' masks.  Stage B is ancestral DDPM, or DDIM when
 the configuration samples fewer steps than it trains (`sampling_timesteps <
 timesteps`).  With `sampler.classifier` and a classifier gate
 (`factory.build_classifier_gate`), the branched DDPM chain's post-fusion
@@ -64,7 +65,8 @@ class LocalDiffusionPipeline:
 
         lr (and hr): [B, H, W, C].  `mask` overrides the detector; without
         it Stage A runs (with `sampler.ood_ad`, else the mask is uniform
-        ones) and a PatchCore detector adds 'anomaly_map' to the result.
+        ones) and adds 'anomaly_map' to the result: a PatchCore detector's
+        map, or the seg detector's probabilities.
         `noise` is an int seed, a noise source (see diffusion.sampler), or
         None (seed 0).  A uniform-ones mask takes the plain chain, any other
         mask the branched chain, each DDPM or DDIM as the configuration

@@ -17,8 +17,8 @@ Port of `localdiffusion_tpu/serving.py`:
     the same slots.
 
 Stage A is the caller's mask or the pipeline's front end (`detect`: the
-PatchCore detector, or the manual and none masks), run on the padded rows
-of the requests that brought no mask.
+PatchCore or seg detector, or the manual and none masks), run on the padded
+rows of the requests that brought no mask.
 """
 
 from __future__ import annotations

@@ -1,1 +1,1 @@
-"""Weight I/O and image metrics."""
+"""Weight I/O, image metrics and float32 precision."""

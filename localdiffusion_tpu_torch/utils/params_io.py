@@ -10,7 +10,9 @@ stored in slim npz snapshots as flat keys joined by '/' (fp16 storage).
     `g` keep their names;
   * the module path keeps its names ('/' → '.').
 
-It raises on any leaf left over and on any parameter of the model missing.
+A module with another layout passes its own leaf rule (the SegUNet's
+transposed convs, `models/seg_unet.py`).  It raises on any leaf left over
+and on any parameter of the model missing.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     return {prefix[: -len(_SEP)]: np.asarray(tree)}
 
 
-def _torch_leaf(path: str, arr: np.ndarray):
+def torch_leaf(path: str, arr: np.ndarray):
+    """(state-dict name, array) of one '/'-joined flax leaf."""
     parts = path.split(_SEP)
     if parts[0] == "params":
         parts = parts[1:]
@@ -49,9 +52,11 @@ def _torch_leaf(path: str, arr: np.ndarray):
     return ".".join(parts[:-1] + [leaf]), arr
 
 
-def params_from_jax(tree: Any, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+def params_from_jax(tree: Any, model: torch.nn.Module,
+                    leaf=torch_leaf) -> Dict[str, torch.Tensor]:
     """The `state_dict` for `model` from a JAX params tree (nested mapping or
-    flat '/'-joined keys) of numpy arrays, as float32.
+    flat '/'-joined keys) of numpy arrays, as float32; `leaf(path, array)`
+    maps one leaf (default `torch_leaf`).
 
     Raises KeyError on a leaf the model has no parameter for or a parameter
     no leaf fills, ValueError on a shape that does not match.
@@ -60,7 +65,7 @@ def params_from_jax(tree: Any, model: torch.nn.Module) -> Dict[str, torch.Tensor
     expected = model.state_dict()
     out: Dict[str, torch.Tensor] = {}
     for path, arr in flat.items():
-        name, arr = _torch_leaf(path, np.asarray(arr))
+        name, arr = leaf(path, np.asarray(arr))
         if name not in expected:
             raise KeyError(f"JAX leaf {path} has no parameter in the port ({name})")
         if tuple(arr.shape) != tuple(expected[name].shape):

@@ -15,8 +15,9 @@ the server are in test_torch_gated_chain.py).
     64px, f32, one bank given to both): scores, `__call__` and the gates of
     both polarities within 1e-4 abs+rel, predictions equal;
   * `build_classifier_gate`'s sources (the classifier's own bank, the front
-    end's PatchCore, and the WRN last resort, which raises) and its ROC
-    calibration against JAX's: the same threshold within 1e-4;
+    end's PatchCore, and the WRN last resort, which raises without a bank
+    or pairs to build one) and its ROC calibration against JAX's: the same
+    threshold within 1e-4;
   * `build_classifier_bank` and `classifier_calibration_pairs` against
     `scripts/eval_gated_quality.py`'s construction on 2 images, and the
     bank CLI's `--classifier` switch;
@@ -61,6 +62,7 @@ from localdiffusion_tpu_torch.diffusion import sampler as TS
 from localdiffusion_tpu_torch.diffusion.gaussian import build_gd
 from localdiffusion_tpu_torch.factory import build_classifier_gate, classifier_bank_beside
 from localdiffusion_tpu_torch.ood import bank as tbank
+from localdiffusion_tpu_torch.ood import features as TF
 from localdiffusion_tpu_torch.ood.classifier import (
     ClassifierPatchCore,
     balanced_accuracy,
@@ -246,9 +248,16 @@ def test_build_classifier_gate_sources_and_roc_match_jax(narrow, jax_source, tmp
     gate = build_classifier_gate(fixed, frontend=fe, verbose=False)
     assert gate.classifier.patchcore is n["tpc"]
 
-    # (3) neither: the JAX package's WRN50-2 last resort is a later slice
-    with pytest.raises(NotImplementedError, match="WRN50-2"):
-        build_classifier_gate(fixed, verbose=False)
+    # (3) neither: the JAX package's WRN50-2 last resort (held against the
+    # JAX factory's in test_torch_wrn.py).  No fallback: with no bank and
+    # no calibration pairs to build one from, it raises; with pairs it
+    # builds its seeded WRN PatchCore on their images
+    with pytest.raises(ValueError, match="no memory bank and no calibration_pairs"):
+        build_classifier_gate(fixed, device="cpu", verbose=False)
+    gate = build_classifier_gate(fixed, calibration_pairs=pairs, device="cpu", verbose=False)
+    pc = gate.classifier.patchcore
+    assert isinstance(pc.source, TF.WRNFeatureSource) and pc.layers == ("layer2", "layer3")
+    assert pc.memory_bank.shape == (51, 1536) and gate.threshold == 2.5
     assert build_classifier_gate(tcfg.mri256_config(), verbose=False) is None
 
 

@@ -1,8 +1,11 @@
-"""The port imports nothing of JAX, flax, YAML, scikit-learn or the JAX
-package.
+"""The port imports nothing of JAX, flax, Orbax, YAML, scikit-learn or the
+JAX package.
 
 A subprocess blocks those modules (an entry of None in sys.modules makes
-their import fail) and imports every module of the port and chip_smoke.
+their import fail) and imports every module of the port and chip_smoke;
+another runs, at 32px on the CPU, the branches that import lazily: the seg
+detector from the shipped npz, the seg-encoder and WRN50-2 sources, and the
+classifier gate's WRN last resort.
 """
 
 import os
@@ -15,7 +18,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = textwrap.dedent(
     """
     import importlib, pkgutil, sys
-    for name in ("jax", "jaxlib", "flax", "yaml", "sklearn", "localdiffusion_tpu"):
+    for name in ("jax", "jaxlib", "flax", "orbax", "yaml", "sklearn", "localdiffusion_tpu"):
         sys.modules[name] = None
     import localdiffusion_tpu_torch as pkg
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -23,6 +26,37 @@ SCRIPT = textwrap.dedent(
         importlib.import_module(name)
     import chip_smoke
     print(" ".join(names))
+    """
+)
+
+BRANCHES = textwrap.dedent(
+    """
+    import dataclasses, sys
+    for name in ("jax", "jaxlib", "flax", "orbax", "yaml", "sklearn", "localdiffusion_tpu"):
+        sys.modules[name] = None
+    import numpy as np
+    from localdiffusion_tpu_torch import config as C
+    from localdiffusion_tpu_torch.factory import build_classifier_gate, build_frontend
+    from localdiffusion_tpu_torch.ood.features import make_feature_source
+
+    def at32(cfg, **ood):
+        return cfg.replace(diffusion=dataclasses.replace(cfg.diffusion, image_size=32),
+                           ood=dataclasses.replace(cfg.ood, input_size=32, **ood))
+
+    x = np.random.default_rng(0).uniform(0, 2, (4, 32, 32, 1)).astype(np.float32)
+    seg = at32(C.mri256_bf16_config(), seg_model_path="results/seg256_params.npz")
+    fe, _ = build_frontend(seg, device="cpu", verbose=False)
+    assert fe.detect(x)[1].shape == (4, 32, 32, 1)
+    for source, layers in (("seg_encoder", ("down2", "down3")), ("wrn", ("layer1",))):
+        src = make_feature_source(at32(seg, feature_source=source, layers=("layer1",)),
+                                  device="cpu", verbose=False)
+        assert tuple(src.apply(__import__("torch").as_tensor(
+            x if source != "wrn" else x.repeat(3, -1)))) == layers
+    gated = at32(C.mri256_gated_config(), detector="seg", memory_bank_path=None,
+                 classifier_threshold=1.0)
+    gate = build_classifier_gate(gated, calibration_pairs=[(x[i:i + 1], i % 2) for i in range(4)],
+                                 device="cpu", verbose=False)
+    print(type(gate.classifier.patchcore.source).__name__)
     """
 )
 
@@ -35,6 +69,7 @@ REQUIRED = {
     "localdiffusion_tpu_torch.diffusion.sampler",
     "localdiffusion_tpu_torch.pipeline",
     "localdiffusion_tpu_torch.utils.params_io",
+    "localdiffusion_tpu_torch.utils.precision",
     "localdiffusion_tpu_torch.ops.resnet_block",
     "localdiffusion_tpu_torch.models.blocks",
     "localdiffusion_tpu_torch.models.unet",
@@ -49,6 +84,8 @@ REQUIRED = {
     "localdiffusion_tpu_torch.ood.frontend",
     "localdiffusion_tpu_torch.ood.bank",
     "localdiffusion_tpu_torch.ood.classifier",
+    "localdiffusion_tpu_torch.ood.wide_resnet",
+    "localdiffusion_tpu_torch.models.seg_unet",
 }
 
 
@@ -59,7 +96,16 @@ def test_port_imports_without_jax_flax_yaml():
     )
     assert proc.returncode == 0, proc.stderr
     names = set(proc.stdout.split())
-    assert len(names) >= 24 and REQUIRED <= names, sorted(names)
+    assert len(names) >= 26 and REQUIRED <= names, sorted(names)
+
+
+def test_new_branches_run_without_jax_flax_orbax_yaml():
+    proc = subprocess.run(
+        [sys.executable, "-c", BRANCHES], cwd=ROOT, capture_output=True, text=True,
+        timeout=300, env={**os.environ, "PYTHONPATH": ROOT},
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["WRNFeatureSource"]
 
 
 def test_blocked_module_really_fails():

@@ -278,7 +278,7 @@ def test_mask_dilate_resolution_matches_jax():
         j = to_jax(t)
         for stem in (1, 2):
             strides = {f"down{i}_block{b}": 2**i * stem for i in range(4) for b in (1, 2)}
-            assert t.resolved_mask_dilate(strides) == j.resolved_mask_dilate(256, strides)
+            assert t.resolved_mask_dilate(256, strides) == j.resolved_mask_dilate(256, strides)
     with pytest.raises(ValueError, match="refine_lo_frac"):
         tcfg.OODConfig(refine_lo_frac=0.9)
 

@@ -81,11 +81,13 @@ def test_translate_uniform_mask_takes_the_plain_chain(pipes):
     _check(got, want, ["pred", "mse", "ssim", "psnr", "mse_ood_region"])
 
 
-def test_translate_refuses_unported_detectors(pipes):
+def test_translate_refuses_unported_detectors(pipes, tmp_path):
     """No silent fallback: a PatchCore pipeline without a front end raises
-    (a given mask still serves), the sources and detector of later slices
-    raise, and a bank-less PatchCore front end without calibration images
-    raises."""
+    (a given mask still serves), and a bank-less PatchCore front end without
+    calibration images raises, over the denoiser's taps and over the
+    WRN50-2's (the JAX package's default source, ported since).  The seg
+    detector without a checkpoint has no front end, as in the JAX package,
+    and a pipeline without one refuses to detect."""
     _, tpipe = pipes
     cfg = _cfg()
     pc_cfg = cfg.replace(ood=tcfg.OODConfig(detector="patchcore", feature_source="denoiser"))
@@ -95,11 +97,14 @@ def test_translate_refuses_unported_detectors(pipes):
     assert pipe.translate(images(0, 1, S), mask=np.ones((1, S, S, 1)))["pred"].shape == (1, S, S, 1)
     with pytest.raises(ValueError, match="no memory bank"):
         build_frontend(pc_cfg, gd=tpipe.gd, device="cpu", verbose=False)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_frontend(cfg.replace(ood=tcfg.OODConfig(detector="patchcore")), gd=tpipe.gd,
-                       device="cpu", verbose=False)
-    with pytest.raises(NotImplementedError, match="seg detector"):
-        build_frontend(cfg.replace(ood=tcfg.OODConfig(detector="seg")), gd=tpipe.gd)
+    with pytest.raises(ValueError, match="no memory bank"):
+        build_frontend(cfg.replace(ood=tcfg.OODConfig(detector="patchcore", input_size=S)),
+                       gd=tpipe.gd, device="cpu", verbose=False)
+    seg = cfg.replace(ood=tcfg.OODConfig(detector="seg",
+                                         seg_model_path=str(tmp_path / "absent.npz")))
+    assert build_frontend(seg, gd=tpipe.gd, device="cpu", verbose=False) == (None, seg)
+    with pytest.raises(ValueError, match="'seg' needs a front end"):
+        LocalDiffusionPipeline(seg, tpipe.gd).translate(images(0, 1, S))
 
 
 @pytest.mark.parametrize("size", [8, 16])
