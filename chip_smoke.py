@@ -5,8 +5,14 @@
 
 Phases, each printed on its own line with the elapsed seconds:
 
-1. device: requires CUDA, prints the card's name and power limit, and turns
-   TF32 off for convolutions and matrix products (exact float32 checks);
+1. device: requires CUDA, prints the card's name and power limit and
+   PyTorch's TF32 flags, which the script leaves at their defaults: the
+   float32 phases (flagship, stem, the gated chain's float32 part, the
+   shipped checkpoints) are entered with both flags on, a user's worst
+   case, print them at entry and check at their exit that every block of
+   the port's precision policy (`utils/precision.py`) restored them; the
+   kernel phases' comparisons with the plain versions run inside that
+   policy's `full_float32` block;
 2. build: builds every CUDA source in `localdiffusion_tpu_torch/csrc` with
    nvcc, one process per source, all at once, and prints the times;
 3. flagship kernel: the GroupNorm+FiLM+SiLU kernel against its plain version
@@ -125,7 +131,20 @@ Phases, each printed on its own line with the elapsed seconds:
     checked per UNet call;
 16. stem check: both chains against the same chains with every kernel's
     plain version (same noise), and one UNet call against the CPU, f32;
-17. stem profile: the plain chain under torch.profiler.
+17. stem profile: the plain chain under torch.profiler;
+18. the shipped checkpoints (`results/*.npz`, tracked in git; each file's
+    size and sha256 printed, a missing one raises): `mri_synth256_ema.npz`
+    in `mri256_config()` (one UNet call at batch 2, bf16) and
+    `mri_stem256_ema.npz` in `stem256_config()` (f32), each loaded by
+    `factory.load_params` on the card and on the CPU and held at the
+    one-UNet-call bars; `seg256_params.npz`'s logits at batch 2 through
+    `build_frontend`, card vs CPU; then, with every count at 0, the margin
+    evaluation's entry point (`scripts.eval_margins.main`) at n=8, batch 8,
+    DDPM T=250, variants plain and denoiser, on the trained denoiser: its
+    bank of 200 brains and ladder built on the card under
+    `build/shipped/`, Stage A's masks, both chains; the launches checked
+    against the UNet calls and tap passes; the per-variant OOD-region MSE
+    and the delta printed, not judged (n=8 cannot resolve the margin).
 
 The line before the last is one JSON object with the kernels' numbers; the
 last line is the device record.  Any failed check raises, so the exit code
@@ -134,7 +153,10 @@ is not 0.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import hashlib
 import json
 import subprocess
 import time
@@ -159,6 +181,7 @@ from localdiffusion_tpu_torch.factory import (
     build_classifier_gate,
     build_frontend,
     classifier_bank_beside,
+    load_params,
 )
 from localdiffusion_tpu_torch.models.blocks import (
     Attention,
@@ -172,6 +195,7 @@ from localdiffusion_tpu_torch.models.seg_unet import (
     flax_seg_tree,
     load_seg_npz,
 )
+from localdiffusion_tpu_torch.models.unet import UNet
 from localdiffusion_tpu_torch.ood import patchcore as PC
 from localdiffusion_tpu_torch.ood.bank import (
     build_bank,
@@ -206,7 +230,9 @@ from localdiffusion_tpu_torch.ops.groupnorm import (
     groupnorm_film_silu_reference,
 )
 from localdiffusion_tpu_torch.pipeline import LocalDiffusionPipeline
+from localdiffusion_tpu_torch.scripts import eval_margins
 from localdiffusion_tpu_torch.serving import InferenceServer
+from localdiffusion_tpu_torch.utils.precision import full_float32
 
 KERNELS = ("groupnorm_film_silu", "groupnorm_tiled", "flash_attention", "linear_attention",
            "resnet_block")
@@ -376,6 +402,19 @@ GATE_WRN_F32_REL, GATE_WRN_F32_SCORE_REL = 3e-4, 5e-4
 # the UNet call 1e-3 abs+rel
 STEM_CHAIN_REL, STEM_UNET_F32_TOL = 1e-3, 1e-3
 
+# the shipped checkpoints (tracked in git), each on the card against the
+# CPU: the 256px denoiser in mri256_config() (bf16, the one-UNet-call bar
+# above), the stem denoiser in stem256_config() (f32, 1e-3 abs+rel) and the
+# SegUNet's logits (f32, 1e-4 relative L2, masks equal off |p − 0.5| <=
+# 1e-3); then the margin evaluation on the trained 256px denoiser: n=8 in
+# one batch of 8, DDPM T=250, plain and denoiser, the detector's bank of
+# 200 brains built on the card from the trained taps.  n=8 cannot resolve
+# the margin: it is reported, not judged.
+RESULTS = Path(__file__).resolve().parent / "results"
+SHIPPED = ("mri_synth256_ema.npz", "mri_stem256_ema.npz", "seg256_params.npz")
+SHIPPED_DIR = STAGE_A_DIR.parent / "shipped"
+MARGIN_IMAGES, MARGIN_BATCH, MARGIN_BANK = 8, 8, 200
+
 _T0 = time.perf_counter()
 
 
@@ -390,6 +429,42 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+def tf32_flags() -> tuple:
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
+@contextlib.contextmanager
+def tf32_on_at_entry(label: str):
+    """A float32 phase entered with both TF32 flags on, a user's worst case
+    (PyTorch's default has cuDNN's on): the port's float32 paths must turn
+    them off for themselves.  Prints the flags at entry and checks, at the
+    exit, that every block restored them; then puts back the setting the
+    phase found."""
+    saved = tf32_flags()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    log(f"{label}: entered with cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    try:
+        yield
+        if tf32_flags() != (True, True):
+            raise RuntimeError(f"{label} left the TF32 flags at {tf32_flags()}")
+        log(f"{label}: left with both TF32 flags on again (restored)")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def plain_in_float32(fn):
+    """A kernel phase: its comparisons with the plain versions, whose
+    float32 parts (convolutions, products) the bars assume exact, run
+    inside the port's `full_float32` block, whatever the process's TF32
+    flags."""
+    @functools.wraps(fn)
+    def inner(*args, **kwargs):
+        with full_float32():
+            return fn(*args, **kwargs)
+    return inner
 
 
 def cuda_ms(fn, iters: int = 20, reps: int = 10) -> tuple:
@@ -472,10 +547,8 @@ def phase_device() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
-        f"torch {torch.__version__}, CUDA {torch.version.cuda}; "
+        f"torch {torch.__version__}, CUDA {torch.version.cuda}; PyTorch's TF32 defaults, "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     return smi
@@ -565,6 +638,7 @@ def _gn_close(got, want, tiled) -> tuple:
     return err, bool(ok)
 
 
+@plain_in_float32
 def gn_kernel_phase(launches, dtypes, time_dtype, label, iters=(20, 10)) -> dict:
     """The GN op at each (shape, FiLM) of one UNet call: below the row gate
     the single-pass kernel, past it the tiled pair, each against its plain
@@ -835,13 +909,16 @@ def run_main_path(pipe, lr, hr, chains, per_call, serve_batch, label):
 
 
 def profile_chain(pipe, lr, mask, label, top=12) -> dict:
-    """Where one branched chain's time goes on the card (torch.profiler)."""
+    """Where one branched chain's time goes on the card (torch.profiler,
+    the card's activity only: the host's op events add nothing to the
+    kernels' sums and took ~2 minutes of host time to summarise for the
+    256px chain's 245,000 kernels; the sums agree within 0.01%, NVIDIA H100
+    80GB HBM3, 700 W)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         res = pipe.translate(lr, noise=1, mask=mask)
-    # the card's own kernels only: an aten op's device time repeats theirs
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
@@ -931,6 +1008,7 @@ def flagship() -> dict:
 # the 256px MRI chain
 # ---------------------------------------------------------------------------
 
+@plain_in_float32
 def attention_kernel_phase(seen, expected, dtypes, label) -> dict:
     """The flash kernel against `xla_attention` at the `expected` sites'
     shape (one shape for all), in each of `dtypes`, with q/k/v cut from a
@@ -1004,6 +1082,7 @@ def kv_errors(got, want) -> dict:
     )
 
 
+@plain_in_float32
 def linear_attention_kernel_phase(seen) -> dict:
     """The kv and q kernels against their plain versions, and the whole
     two-pass function against the unfused plain version, at each
@@ -1204,6 +1283,7 @@ def emulated_faults(x, w1, bias1, h1, s1, ss1, plain1, w2, bias2, a1, c1, plain2
             "dropped tile (sums)": max(stats_errors(h1, s_cut, ss_cut, plain1).values())}
 
 
+@plain_in_float32
 def resnet_block_kernel_phase(seen) -> dict:
     """The fused ResnetBlock's kernels at each shape its 13 blocks take in
     one 256px UNet call (bf16, the first such block's random weights, random
@@ -2038,7 +2118,8 @@ def gated256(gd, bank_path) -> dict:
         if not ok:
             raise RuntimeError(f"the forced 'always {name}' chain failed its checks")
         forced[name] = dict(rel_l2=rel, corr=corr, gate_steps=fsteps)
-    forced["reject_float32"] = gated_float32(cut, gd50, mask, lr, classifier_on)
+    with tf32_on_at_entry("gated float32"):
+        forced["reject_float32"] = gated_float32(cut, gd50, mask, lr, classifier_on)
     del gd50
     perf = dict(chain_s=chain_s, img_per_s=MRI_BATCH / chain_s, phase_b_ms=phase_b,
                 phase_b_ms_per_step={k: v / t_fuse for k, v in phase_b.items()},
@@ -2200,29 +2281,30 @@ def _counted_translate(label, pipe, counted, lr, hr, calls) -> tuple:
 
 def scores_tf32(cls, x) -> np.ndarray:
     """The control of the f32 score bar: the classifier's image scores of x
-    with the distance product in TF32 on the card (the port refuses TF32
-    there; its check is lifted for this call only)."""
-    check = PC.check_full_float32
-    PC.check_full_float32 = lambda device: None
+    with the distance product in TF32 on the card (the search turns TF32
+    off for itself; that block is lifted for this call only)."""
+    block, flag = PC.full_float32, torch.backends.cuda.matmul.allow_tf32
+    PC.full_float32 = contextlib.nullcontext
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         return cls.score_raw(x).cpu().numpy()
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        PC.check_full_float32 = check
+        torch.backends.cuda.matmul.allow_tf32 = flag
+        PC.full_float32 = block
 
 
 def seg_wrn256() -> dict:
     """`mri256_bf16_config()` with cuDNN's TF32 on, as PyTorch has it by
     default: Stage A's networks must turn it off themselves (and restore
     it).  See `_seg_wrn256`."""
+    saved = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = True
     try:
         out = _seg_wrn256()
         if not torch.backends.cudnn.allow_tf32:
             raise RuntimeError("Stage A left cuDNN's TF32 off")
     finally:
-        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = saved
     return out
 
 
@@ -2553,6 +2635,166 @@ def stem256() -> dict:
     return dict(attn=attn, gn=gn, counts=counts, perf=perf, checks=checks, **prof)
 
 
+# ---------------------------------------------------------------------------
+# the shipped checkpoints: parity card vs CPU, then a small margin run
+# ---------------------------------------------------------------------------
+
+def sha256(path: Path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def _unet_card_vs_cpu(label, cfg, npz, rng, f32: bool) -> dict:
+    """One UNet call at batch 2 with the snapshot's weights, loaded by
+    `factory.load_params` on the card and on the CPU: bf16 against the
+    one-UNet-call bar, f32 against 1e-3 abs+rel."""
+    card = load_params(cfg, params_npz=str(npz), device="cuda", verbose=False)
+    cpu = load_params(cfg, params_npz=str(npz), device="cpu", verbose=False)
+    s = cfg.diffusion.image_size
+    hi = LocalDiffusionPipeline(cfg, cpu).min_max_val[1]
+    x = rng.standard_normal((2, s, s, 1)).astype(np.float32)
+    cond = rng.uniform(0, hi, (2, s, s, 1)).astype(np.float32)
+    t = np.array([5, 180])
+    got = card.apply_model(torch.as_tensor(x, device="cuda"), torch.as_tensor(cond, device="cuda"),
+                           torch.as_tensor(t, device="cuda")).cpu().numpy()
+    t0 = time.perf_counter()
+    want = cpu.apply_model(torch.as_tensor(x), torch.as_tensor(cond), torch.as_tensor(t)).numpy()
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(got - want).max())
+    rel = _rel_l2(got, want)
+    corr = float(np.corrcoef(got.ravel(), want.ravel())[0, 1])
+    if f32:
+        ok = bool(np.allclose(got, want, rtol=STEM_UNET_F32_TOL, atol=STEM_UNET_F32_TOL))
+        bar = f"{STEM_UNET_F32_TOL:g} abs+rel"
+    else:
+        ok = rel <= MRI_UNET_REL and corr >= MRI_UNET_CORR
+        bar = f"relative L2 <= {MRI_UNET_REL:g}, correlation >= {MRI_UNET_CORR:g}"
+    log(f"shipped check, {label}: one UNet call card vs CPU (batch 2, {card.dtype}, TF32 flags "
+        f"{tf32_flags()} around it): max_abs_err {err:.4g}, relative L2 {rel:.4g}, correlation "
+        f"{corr:.8f} ({bar}) {'ok' if ok else 'FAIL'}; CPU {cpu_s:.1f}s")
+    if not ok:
+        raise RuntimeError(f"the shipped {label} on the card disagrees with the CPU's")
+    return dict(max_abs_err=err, rel_l2=rel, corr=corr)
+
+
+def _seg_card_vs_cpu(npz) -> dict:
+    """The shipped SegUNet's logits at batch 2 (256px tumour brains) through
+    `build_frontend`'s seg detector, card vs CPU."""
+    cfg = mri256_bf16_config()
+    cfg = cfg.replace(ood=dataclasses.replace(cfg.ood, seg_model_path=str(npz)))
+    fe_card, _ = build_frontend(cfg, device="cuda", verbose=False)
+    fe_cpu, _ = build_frontend(cfg, device="cpu", verbose=False)
+    d = cfg.data
+    lr = synthetic_brain_translation(2, cfg.diffusion.image_size, tumor=True, seed=5,
+                                     mean_t1=d.mean_t1, std_t1=d.std_t1,
+                                     mean_flair=d.mean_flair, std_flair=d.std_flair)[1]
+    got = fe_card.seg_apply(lr).cpu().numpy()
+    t0 = time.perf_counter()
+    want = fe_cpu.seg_apply(lr).numpy()
+    cpu_s = time.perf_counter() - t0
+    rel = _rel_l2(got, want)
+    p_card, p_cpu = (1 / (1 + np.exp(-v.astype(np.float64))) for v in (got, want))
+    band = np.abs(p_cpu - 0.5) <= SEG_BAND
+    differ = int(((p_card > 0.5) != (p_cpu > 0.5))[~band].sum())
+    ok = rel <= SEG_LOGIT_REL and differ == 0
+    log(f"shipped check, seg256_params.npz: logits card vs CPU (f32, batch 2 tumour brains at "
+        f"256px): rel L2 {rel:.4g} (tol {SEG_LOGIT_REL:g}), max_abs_err "
+        f"{float(np.abs(got - want).max()):.4g}; masks differ at {differ} pixels off the band "
+        f"|p - 0.5| <= {SEG_BAND:g}, which holds {int(band.sum())} of {band.size}; mask areas "
+        f"{[int(m.sum()) for m in (p_cpu > 0.5)]} {'ok' if ok else 'FAIL'}; CPU {cpu_s:.1f}s")
+    if not ok:
+        raise RuntimeError("the shipped SegUNet on the card disagrees with the CPU's")
+    return dict(rel_l2=rel, band_pixels=int(band.sum()))
+
+
+def shipped256() -> dict:
+    """The shipped checkpoints: each file hashed and read (a missing one
+    raises and names it: no seeded weights stand in), each held card vs
+    CPU; then, with every count at 0, the margin evaluation through its
+    entry point (`scripts.eval_margins.main`) on the trained 256px denoiser:
+    the detector's bank and ladder built on the card, Stage A's masks, the
+    plain and branched DDPM chains; each kernel's launches checked against
+    the UNet calls and tap passes counted by hooks."""
+    t_phase = time.perf_counter()
+    paths = {name: RESULTS / name for name in SHIPPED}
+    for name, path in paths.items():
+        if not path.is_file():
+            raise FileNotFoundError(f"the shipped checkpoint {path} is missing (it is tracked in "
+                                    "git; the card's copy must carry results/*.npz)")
+        log(f"shipped {name}: {path.stat().st_size} bytes, sha256 {sha256(path)}")
+    rng = np.random.default_rng(21)
+    checks = {
+        "mri_synth256": _unet_card_vs_cpu("mri_synth256_ema.npz in mri256_config()",
+                                          mri256_config(), paths["mri_synth256_ema.npz"], rng,
+                                          f32=False),
+        "stem256": _unet_card_vs_cpu("mri_stem256_ema.npz in stem256_config()",
+                                     stem256_config(), paths["mri_stem256_ema.npz"], rng, f32=True),
+        "seg256": _seg_card_vs_cpu(paths["seg256_params.npz"]),
+    }
+
+    calls, taps = [0], [0]
+    down_taps = UNet.down_taps
+
+    def counted_taps(self, *args, **kwargs):
+        taps[0] += 1
+        return down_taps(self, *args, **kwargs)
+
+    def count_call(module, _args):
+        if isinstance(module, UNet):
+            calls[0] += 1
+
+    SHIPPED_DIR.mkdir(parents=True, exist_ok=True)
+    argv = ["--config", "mri256", "--params-npz", str(paths["mri_synth256_ema.npz"]),
+            "--images", str(MARGIN_IMAGES), "--batch", str(MARGIN_BATCH), "--samplers", "ddpm",
+            "--variants", "plain,denoiser", "--bank-images", str(MARGIN_BANK),
+            "--work-dir", str(SHIPPED_DIR), "--out", str(SHIPPED_DIR / "margins.json")]
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(count_call)
+    UNet.down_taps = counted_taps
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        res = eval_margins.main(argv)
+    finally:
+        UNet.down_taps = down_taps
+        hook.remove()
+    margin_s = time.perf_counter() - t0
+    counts = read_counts()
+    want = {k: MRI_PER_CALL.get(k, 0) * calls[0] + STAGE_A_PER_DETECT.get(k, 0) * taps[0]
+            for k in COUNTERS}
+    if counts != want or calls[0] != 2 * mri256_config().diffusion.timesteps:
+        raise RuntimeError(f"shipped margin run: launches {counts}, expected {want} "
+                           f"({calls[0]} UNet calls, {taps[0]} tap passes)")
+    v = res["variants"]
+    ood = {k: v[f"ddpm/{k}"]["ood_region"]["mean"] for k in ("plain", "denoiser")}
+    delta = v["ddpm/denoiser_minus_plain"]
+    for k in ("plain", "denoiser"):
+        per = np.asarray(v[f"ddpm/{k}"]["per_image_ood"] + v[f"ddpm/{k}"]["per_image_whole"])
+        if per.shape != (2 * MARGIN_IMAGES,) or not np.all(np.isfinite(per)):
+            raise RuntimeError(f"shipped margin run, {k}: per-image MSEs {per}")
+    log(f"shipped margin run (python -m localdiffusion_tpu_torch.scripts.eval_margins "
+        f"{' '.join(argv)}): n={res['n']}, DDPM T=250, bf16: OOD-region MSE plain "
+        f"{ood['plain']:.4f}, denoiser {ood['denoiser']:.4f}, delta "
+        f"{delta['ood_delta']['mean']:+.4f} CI {delta['ood_delta']['ci95']} "
+        f"({delta['ood_delta_pct']:+.2f}%); whole-image plain "
+        f"{v['ddpm/plain']['whole']['mean']:.4f}, denoiser {v['ddpm/denoiser']['whole']['mean']:.4f}"
+        f"; reported, not judged (n=8); {margin_s:.1f}s (plain chain {v['ddpm/plain']['wall_s']}s, "
+        f"denoiser chain {v['ddpm/denoiser']['wall_s']}s); {calls[0]} UNet calls and {taps[0]} "
+        f"tap passes, launches {counts}")
+    checks["margin"] = dict(ood_plain=ood["plain"], ood_denoiser=ood["denoiser"],
+                            ood_delta=delta["ood_delta"]["mean"],
+                            ood_delta_ci=delta["ood_delta"]["ci95"],
+                            ood_delta_pct=delta["ood_delta_pct"])
+    phase_s = time.perf_counter() - t_phase
+    log(f"shipped phase: {phase_s:.1f}s")
+    return dict(counts=counts, checks=checks,
+                perf=dict(phase_s=phase_s, margin_s=margin_s,
+                          plain_chain_s=v["ddpm/plain"]["wall_s"],
+                          denoiser_chain_s=v["ddpm/denoiser"]["wall_s"]))
+
+
 def _row(t: dict, warm: bool = False) -> dict:
     """A GN part's numbers under the kernels line's keys (and the replayed
     time of a tiled pass, `warm_ms`)."""
@@ -2564,15 +2806,19 @@ def _row(t: dict, warm: bool = False) -> dict:
 def main() -> None:
     phase_device()
     phase_build()
-    flag = flagship()
+    with tf32_on_at_entry("flagship"):
+        flag = flagship()
     mri = mri256()
     stage_a = stage_a256()
     gated = gated256(stage_a.pop("gd"), stage_a.pop("bank_path"))
     seg_wrn = seg_wrn256()
-    stem = stem256()
+    with tf32_on_at_entry("stem"):
+        stem = stem256()
+    with tf32_on_at_entry("shipped"):
+        shipped = shipped256()
 
     phases = {"flagship": flag, "256px": mri, "stage_a": stage_a, "gated": gated,
-              "seg_wrn": seg_wrn, "stem": stem}
+              "seg_wrn": seg_wrn, "stem": stem, "shipped": shipped}
     launches = {name: {label: ph["counts"][name] for label, ph in phases.items()}
                 for name in COUNTERS}
     total = {name: sum(v.values()) for name, v in launches.items()}
@@ -2665,7 +2911,8 @@ def main() -> None:
                                      for label, ph in phases.items() if "busy_share" in ph)
         + f"; stem checks {json.dumps(stem['checks'])}; Stage A checks "
         + json.dumps(stage_a["checks"]) + f"; gated checks {json.dumps(gated['checks'])}"
-        + f"; seg/WRN checks {json.dumps(seg_wrn['checks'])}")
+        + f"; seg/WRN checks {json.dumps(seg_wrn['checks'])}"
+        + f"; shipped checks {json.dumps(shipped['checks'])}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

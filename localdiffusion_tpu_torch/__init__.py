@@ -7,5 +7,8 @@ serving path: InferenceServer → pipeline.translate → Stage A (ood/: the
 none masks) → the plain and branched DDPM and DDIM samplers →
 GaussianDiffusion → UNet, for the 28px flagship, the 256px MRI chain and
 its s2d-stem variant, with every Pallas kernel of the JAX package as a CUDA
-kernel in `csrc/`.
+kernel in `csrc/`; and the evaluation entry points over the shipped
+checkpoints: `factory.load_params` / `build_pipeline`, `pipeline.run` /
+`translate_volume`, and the test, margin and gated-quality scripts
+(`scripts/`).
 """

@@ -13,7 +13,8 @@ classifier-gated variant (`configs/mri_synthetic_256_gated.yaml`) by
 DDIM variant with the seg detector (`configs/mri_synthetic_256_bf16.yaml`)
 by `mri256_bf16_config()`, and the 64px MRI flow
 (`configs/mri_synthetic.yaml`) by `mri64_config()`;
-`Config.from_dict` takes the parsed contents of such a file.
+`Config.from_dict` takes the parsed contents of such a file, and
+`config_by_name` a builder's name (`CONFIGS`).
 """
 
 from __future__ import annotations
@@ -472,6 +473,26 @@ def mri64_config() -> Config:
         train=TrainConfig(batch_size=16, lr=1e-4, num_steps=400, results_dir="./results",
                           project_name="mri_synth"),
     )
+
+
+# the builders by the names the command-line entry points take (`--config`)
+CONFIGS = {
+    "flagship": flagship_config,
+    "mri256": mri256_config,
+    "mri256_gated": mri256_gated_config,
+    "mri256_bf16": mri256_bf16_config,
+    "stem256": stem256_config,
+    "mri64": mri64_config,
+}
+
+
+def config_by_name(name: str) -> Config:
+    """The configuration a builder name in `CONFIGS` gives; raises on any
+    other name (there is no YAML on the card's machine)."""
+    if name not in CONFIGS:
+        raise ValueError(f"unknown configuration {name!r}: one of {sorted(CONFIGS)} (the port "
+                         "builds its configurations in Python, without YAML)")
+    return CONFIGS[name]()
 
 
 def min_max_val_for(config: Config) -> Tuple[float, float]:

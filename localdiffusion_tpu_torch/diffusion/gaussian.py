@@ -18,6 +18,7 @@ from localdiffusion_tpu_torch.config import Config, DiffusionConfig, ModelConfig
 from localdiffusion_tpu_torch.models.unet import UNet
 from localdiffusion_tpu_torch.ops import diffusion_math as dm
 from localdiffusion_tpu_torch.ops.schedules import Schedule, make_schedule
+from localdiffusion_tpu_torch.utils.precision import full_float32
 
 
 class ModelPrediction(NamedTuple):
@@ -42,7 +43,12 @@ class GaussianDiffusion:
     does) with float32 parameters and a float32 output, so the sampler's
     state stays float32.  It starts with random weights drawn under seed 0;
     load trained ones with `gd.model.load_state_dict(params_from_jax(...))`
-    or `load_params_npz`.
+    or `load_params_npz`, or `factory.load_params`.
+
+    Every call of the UNet runs its float32 convolutions and products in
+    full float32, whatever the process's TF32 flags (`full_float32`): all
+    of a float32 UNet's, and a bf16 UNet's final 1×1 conv, which computes in
+    float32 as in the JAX package.
     """
 
     def __init__(self, model_cfg: ModelConfig, diff_cfg: DiffusionConfig,
@@ -72,12 +78,14 @@ class GaussianDiffusion:
     def apply_model(self, x, cond, t, cond_feat=None):
         """The UNet on NHWC x (and cond, or precomputed cond_feat): float32
         out, as the JAX engine's `apply_model` through `UNet.apply`."""
-        return self.model(x, cond, t, cond_feat=cond_feat)
+        with full_float32():
+            return self.model(x, cond, t, cond_feat=cond_feat)
 
     @torch.no_grad()
     def encode_cond(self, cond):
         """Condition features of NHWC cond, in the compute type."""
-        return self.model.encode_cond(cond)
+        with full_float32():
+            return self.model.encode_cond(cond)
 
     @torch.no_grad()
     def model_predictions(self, x, t, cond_feat, min_max_val: Tuple[float, float],

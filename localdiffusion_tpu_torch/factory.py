@@ -1,20 +1,54 @@
-"""Construction from a configuration: Stage A's OOD front end and the
-classifier gate of the gated phase B.  Port of `build_frontend` and
-`build_classifier_gate` in `localdiffusion_tpu/factory.py` (the engine's
-`build_gd` lives in `diffusion/gaussian.py`).
+"""Construction from a configuration: the denoiser's trained weights,
+Stage A's OOD front end, the classifier gate of the gated phase B and the
+whole pipeline.  Port of `load_params`, `build_frontend`,
+`build_classifier_gate` and `build_pipeline` in
+`localdiffusion_tpu/factory.py` (the engine's `build_gd` lives in
+`diffusion/gaussian.py`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import zipfile
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from localdiffusion_tpu_torch.config import Config
+from localdiffusion_tpu_torch.diffusion.gaussian import GaussianDiffusion, build_gd
 from localdiffusion_tpu_torch.ood.frontend import OODFrontend
+from localdiffusion_tpu_torch.utils.params_io import load_params_npz
+
+EXPORTER = ("the Orbax→npz exporter (ROADMAP queue 1, item 8) writes such a checkpoint as a "
+            "slim npz: pass that as params_npz")
+
+
+def load_params(cfg: Config, gd: Optional[GaussianDiffusion] = None, *, params_npz: str,
+                device="cuda", verbose: bool = True) -> GaussianDiffusion:
+    """The trained weights of a slim npz snapshot (`utils.params_io`, every
+    key consumed) loaded into `gd` (default: `build_gd(cfg, device)`), which
+    is returned.
+
+    The port reads the npz route only: given an Orbax directory (the JAX
+    package's milestones) it raises and names the exporter, and a missing
+    or corrupt file raises.  The JAX package's random-init last resort is
+    not carried: a pipeline never runs on weights nobody trained."""
+    if os.path.isdir(params_npz):
+        raise NotImplementedError(f"{params_npz} is an Orbax checkpoint directory, which the "
+                                  f"port does not read; {EXPORTER}")
+    if not os.path.exists(params_npz):
+        raise FileNotFoundError(f"params snapshot {params_npz} does not exist")
+    gd = gd if gd is not None else build_gd(cfg, device=device)
+    try:
+        state = load_params_npz(params_npz, gd.model)
+    except (OSError, ValueError, zipfile.BadZipFile) as e:
+        raise RuntimeError(f"params snapshot {params_npz} could not be read: {e}") from e
+    gd.model.load_state_dict(state)
+    if verbose:
+        print(f"loaded params snapshot {params_npz}")
+    return gd
 
 
 def ladder_beside(bank_path: str) -> str:
@@ -156,3 +190,39 @@ def build_classifier_gate(cfg: Config, frontend=None, calibration_pairs=None, gd
             print("calibrating the classifier threshold from the pairs")
         cls.calibrate(calibration_pairs)
     return cls.as_sampler_gate(polarity=cfg.sampler.classifier_polarity)
+
+
+def denoiser_for_taps(cfg: Config, gd: GaussianDiffusion,
+                      params_npz: str) -> Optional[GaussianDiffusion]:
+    """The denoiser a denoiser feature source or gate taps: `gd` (holding
+    `params_npz`'s weights) unless `ood.feature_npz` names another file,
+    and then None (the source builds its own from that file)."""
+    feature_npz = cfg.ood.feature_npz
+    if feature_npz is None or os.path.realpath(feature_npz) == os.path.realpath(params_npz):
+        return gd
+    return None
+
+
+def build_pipeline(cfg: Config, params_npz: str, calibration_images=None,
+                   calibration_pairs=None, device="cuda", verbose: bool = True):
+    """The whole pipeline of `cfg` on `device`: the engine (`build_gd`),
+    its weights (`load_params`: the npz route only), Stage A's front end
+    (`build_frontend`) and the classifier gate (`build_classifier_gate`).
+    A denoiser feature source and a denoiser gate tap the pipeline's own
+    denoiser unless `ood.feature_npz` names other weights.  Raises for
+    detector='seg' without a trained SegUNet, as the JAX factory does: the
+    ground-truth-mask fallback is the evaluation script's, not a
+    deployable pipeline's."""
+    from localdiffusion_tpu_torch.pipeline import LocalDiffusionPipeline
+
+    gd = load_params(cfg, params_npz=params_npz, device=device, verbose=verbose)
+    tap = denoiser_for_taps(cfg, gd, params_npz)
+    frontend, cfg = build_frontend(cfg, gd=tap, calibration_images=calibration_images,
+                                   device=device, verbose=verbose)
+    if frontend is None and cfg.ood.detector == "seg":
+        where = cfg.ood.seg_model_path or "the default checkpoints"
+        raise ValueError(f"detector='seg' has no trained SegUNet ({where}): pass "
+                         "ood.seg_model_path")
+    gate = build_classifier_gate(cfg, frontend, calibration_pairs=calibration_pairs, gd=tap,
+                                 device=device, verbose=verbose)
+    return LocalDiffusionPipeline(cfg, gd, frontend=frontend, classifier_gate=gate)

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from localdiffusion_tpu_torch.utils.params_io import params_from_jax, torch_leaf
-from localdiffusion_tpu_torch.utils.precision import float32_convs
+from localdiffusion_tpu_torch.utils.precision import full_float32
 
 GN_EPS = 1e-6  # flax nn.GroupNorm's default
 ENCODER = ("inc", "down1", "down2", "down3", "down4")
@@ -151,7 +151,7 @@ def flax_seg_tree(model: SegUNet) -> Mapping[str, np.ndarray]:
 class SegDetector:
     """A SegUNet as the front end's `seg_apply`: conditioning images
     [B, H, W, 1] (numpy or a tensor) → logits [B, H, W, 1] float32 on the
-    model's device, its convolutions in full float32 (`float32_convs`)."""
+    model's device, its convolutions in full float32 (`full_float32`)."""
 
     def __init__(self, model: SegUNet):
         self.model = model
@@ -161,5 +161,5 @@ class SegDetector:
     def __call__(self, x) -> torch.Tensor:
         if not isinstance(x, torch.Tensor):
             x = torch.as_tensor(np.asarray(x, np.float32))
-        with float32_convs():
+        with full_float32():
             return self.model(x.to(self.device, torch.float32))

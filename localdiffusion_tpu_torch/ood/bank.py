@@ -41,13 +41,8 @@ import numpy as np
 
 import torch
 
-from localdiffusion_tpu_torch.config import (
-    Config,
-    mri64_config,
-    mri256_bf16_config,
-    mri256_config,
-    mri256_gated_config,
-)
+from localdiffusion_tpu_torch import config as C
+from localdiffusion_tpu_torch.config import Config, mri256_config, mri256_gated_config
 from localdiffusion_tpu_torch.data.synthetic import synthetic_brain_translation
 from localdiffusion_tpu_torch.factory import (
     build_classifier_gate,
@@ -61,11 +56,11 @@ from localdiffusion_tpu_torch.ood.patchcore import PatchCore
 from localdiffusion_tpu_torch.ood.thresholds import fit_ladder, save_ladder
 
 
-def _brains(cfg: Config, n: int, tumor: bool, seed: int):
+def brains(cfg: Config, n: int, tumor: bool, seed: int):
     """(hr FLAIR, lr T1, seg) synthetic brains normalized as `cfg` says."""
     if cfg.data.name != "synthetic_brain":
         raise NotImplementedError(f"dataset {cfg.data.name!r}: its reader is a later slice "
-                                  "of the port (ROADMAP queue 1)")
+                                  "of the port (ROADMAP queue 1, item 6: the data readers)")
     d = cfg.data
     return synthetic_brain_translation(
         n, cfg.diffusion.image_size, tumor=tumor, seed=seed, mean_t1=d.mean_t1,
@@ -75,7 +70,7 @@ def _brains(cfg: Config, n: int, tumor: bool, seed: int):
 
 def calibration_images(cfg: Config, n_images: int) -> np.ndarray:
     """The normal conditioning images [n, H, W, 1] a bank is built from."""
-    return _brains(cfg, n_images, False, 42)[1]
+    return brains(cfg, n_images, False, 42)[1]
 
 
 BATCH = 8  # calibration images a feature pass
@@ -122,7 +117,7 @@ def build_classifier_bank(cfg: Config, out: str, gd=None, n_images: int = 64,
     `device` with `cfg.ood.feature_npz`'s weights): a `ratio` coreset (the
     k-center projection from seed 0), saved to `out` (np.save).  Returns
     {'bank', 'seconds': {'taps', 'kcenter'}, 'patches'}."""
-    hr = _brains(cfg, n_images, False, 11)[0]
+    hr = brains(cfg, n_images, False, 11)[0]
     pc = PatchCore(cfg.ood, source=make_feature_source(cfg, denoiser=gd, device=device))
     bank = pc.build_memory_bank([hr[i:i + BATCH] for i in range(0, len(hr), BATCH)],
                                 sampling_ratio=ratio)
@@ -139,11 +134,11 @@ def classifier_calibration_pairs(cfg: Config, n: int = 32, lesion_amp: float = 2
     image's middle half (rng seed 23), a synthetic hallucination residue;
     for 'preserve' the tumour-carrying FLAIR of seed 22."""
     size = cfg.diffusion.image_size
-    normal = _brains(cfg, n, False, 21)[0]
+    normal = brains(cfg, n, False, 21)[0]
     if cfg.sampler.classifier_polarity == "preserve":
-        anomalous = _brains(cfg, n, True, 22)[0]
+        anomalous = brains(cfg, n, True, 22)[0]
     else:
-        anomalous = _brains(cfg, n, False, 22)[0]
+        anomalous = brains(cfg, n, False, 22)[0]
         rng = np.random.default_rng(23)
         yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
         radius = size / 10
@@ -156,7 +151,8 @@ def classifier_calibration_pairs(cfg: Config, n: int = 32, lesion_amp: float = 2
             + [(anomalous[i:i + 1], 1) for i in range(n)])
 
 
-CONFIGS = {"mri256": mri256_config, "mri256_bf16": mri256_bf16_config, "mri64": mri64_config}
+# the detector configurations whose banks the CLI builds
+CONFIGS = {name: C.CONFIGS[name] for name in ("mri256", "mri256_bf16", "mri64")}
 
 
 def main(argv=None) -> dict:

@@ -24,8 +24,9 @@ A source exposes `.layers` (tap names, shallowest first), `.preprocess`
 and ImageNet normalization; 'raw': the conditioning image exactly as the
 diffusion pipeline sees it), `.strides` (each tap's stride in the pixels
 it sees), `.device` and `.apply(x) → {layer: [B, h, w, c] float32}`.  The
-WRN50-2 and the seg encoder apply their convolutions in full float32
-(`utils.precision.float32_convs`).
+WRN50-2 and the seg encoder apply their convolutions in full float32, and
+the denoiser its taps (`utils.precision.full_float32`, as
+`GaussianDiffusion` its every call).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from localdiffusion_tpu_torch.utils.precision import float32_convs
+from localdiffusion_tpu_torch.utils.precision import full_float32
 
 DEFAULT_LAYERS = ("down2_block2", "down3_block2")
 SEG_LAYERS = ("down2", "down3")
@@ -66,7 +67,7 @@ class WRNFeatureSource:
 
     @torch.no_grad()
     def apply(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        with float32_convs():
+        with full_float32():
             return {k: v.float() for k, v in self.backbone(x).items()}
 
 
@@ -85,7 +86,7 @@ class SegEncoderFeatureSource:
 
     @torch.no_grad()
     def apply(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        with float32_convs():
+        with full_float32():
             return self.model.encoder_taps(x, self.layers)
 
 
@@ -126,7 +127,8 @@ class DenoiserFeatureSource:
         out: Dict[str, torch.Tensor] = {}
         for tt in self.ts:
             t = torch.full((b,), tt, dtype=torch.float32, device=x.device)
-            taps = self.gd.model.down_taps(x, t, self.base_layers)
+            with full_float32():
+                taps = self.gd.model.down_taps(x, t, self.base_layers)
             for k in self.base_layers:
                 key = k if len(self.ts) == 1 else f"t{tt}:{k}"
                 out[key] = taps[k].float()
@@ -153,26 +155,33 @@ def wrn_source(ood, device="cuda", generator: Optional[torch.Generator] = None,
                             input_size=ood.input_size, device=device)
 
 
-def load_seg_params(path: Optional[str], model):
-    """(resolved path, `model`'s state dict or None) of the SegUNet
-    checkpoint for the seg detector and the seg-encoder source.
-
-    With no path the JAX package's order applies: `results/seg/best_dice`
-    (an Orbax directory a local training run writes), then the shipped
-    `results/seg256_params.npz`.  A missing file gives None.  The port reads
-    slim npz snapshots only; an Orbax directory raises rather than fall
-    back to the npz, which would be another model than the JAX package's."""
-    from localdiffusion_tpu_torch.models.seg_unet import load_seg_npz
-
+def seg_checkpoint(path: Optional[str]) -> str:
+    """The SegUNet checkpoint the seg detector and the seg-encoder source
+    read: `path`, or with none the JAX package's order:
+    `results/seg/best_dice` (an Orbax directory a local training run
+    writes), then the shipped `results/seg256_params.npz`."""
     if path is None:
         path = next((c for c in SEG_CANDIDATES if os.path.exists(c)), SEG_CANDIDATES[-1])
+    return path
+
+
+def load_seg_params(path: Optional[str], model):
+    """(resolved path (`seg_checkpoint`), `model`'s state dict or None) of
+    the SegUNet checkpoint for the seg detector and the seg-encoder source.
+
+    A missing file gives None.  The port reads slim npz snapshots only; an
+    Orbax directory raises rather than fall back to the npz, which would be
+    another model than the JAX package's."""
+    from localdiffusion_tpu_torch.models.seg_unet import load_seg_npz
+
+    path = seg_checkpoint(path)
     if not os.path.exists(path):
         return path, None
     if not path.endswith(".npz"):
         raise NotImplementedError(
             f"{path} is an Orbax checkpoint, which the port does not read; the exporter to "
             "a slim npz (`utils.params_io.save_params_npz` over `Trainer.load`) is ROADMAP "
-            "queue 1 item 11: export it, and name the npz in ood.seg_model_path")
+            "queue 1 item 8: export it, and name the npz in ood.seg_model_path")
     return path, load_seg_npz(path, model)
 
 

@@ -12,9 +12,9 @@ anomaly maps.  Port of `localdiffusion_tpu/ood/patchcore.py`.
   * the anomaly map as a bilinear upsample and a separable gaussian blur
     (σ = 4, 33 taps).
 
-On a CUDA tensor the distance product must run in full float32, as the CPU
-computes it: it raises while TF32 is on, rather than switch a flag that is
-the whole process's.
+The distance product runs in full float32, as the CPU computes it, whatever
+the process's TF32 flag: the search turns cuBLAS's TF32 off for itself
+(`utils.precision.full_float32`).
 """
 
 from __future__ import annotations
@@ -28,20 +28,10 @@ import torch
 import torch.nn.functional as F
 
 from localdiffusion_tpu_torch.ops.resize import gaussian_blur, resize_bilinear
+from localdiffusion_tpu_torch.utils.precision import full_float32
 
 # queries × bank rows of one chunk of the distance matrix (float32): 512 MiB
 NN_CHUNK_ELEMENTS = 2**27
-
-
-def check_full_float32(device) -> None:
-    """Raise if a float32 product on `device` would run in TF32: the
-    distance product's bar (the card's map within 1e-4 of the CPU's, and the
-    same nearest bank rows) holds only in full float32."""
-    if torch.device(device).type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError(
-            "torch.backends.cuda.matmul.allow_tf32 is on: PatchCore's distance product "
-            "needs full float32 to hold the card's anomaly map within 1e-4 of the CPU's; "
-            "set it to False")
 
 
 def avg_pool_3x3(x: torch.Tensor) -> torch.Tensor:
@@ -81,12 +71,14 @@ def nearest_neighbors(embedding: torch.Tensor, memory_bank: torch.Tensor,
                       n_neighbors: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """(distances, bank rows) of each query's nearest `n_neighbors`: [N] for
     one, else [N, k], nearest first.  The queries go in chunks of at most
-    `NN_CHUNK_ELEMENTS` distances."""
-    check_full_float32(embedding.device)
+    `NN_CHUNK_ELEMENTS` distances, the product in full float32: the bar
+    (the card's map within 1e-4 of the CPU's, and the same nearest bank
+    rows) does not hold in TF32."""
     rows = max(1, NN_CHUNK_ELEMENTS // max(memory_bank.shape[0], 1))
     scores, locations = [], []
     for q in embedding.split(rows):
-        dist = euclidean_dist(q, memory_bank)
+        with full_float32():
+            dist = euclidean_dist(q, memory_bank)
         if n_neighbors == 1:
             loc = dist.argmin(dim=1)
             scores.append(dist.gather(1, loc[:, None])[:, 0])

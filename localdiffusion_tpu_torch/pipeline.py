@@ -1,6 +1,7 @@
 """Local-diffusion inference pipeline: Stage A, then Stage B.
 
-Port of `localdiffusion_tpu/pipeline.py` (`LocalDiffusionPipeline.translate`).
+Port of `localdiffusion_tpu/pipeline.py` (`LocalDiffusionPipeline.translate`,
+the evaluation loop `run` and the per-volume `translate_volume`).
 Stage A is the caller's mask or the front end's (ood/frontend.py): PatchCore
 over the WRN50-2's, the seg encoder's or the denoiser's taps with the
 fitted ladder (and hysteresis refinement where configured), the seg
@@ -15,7 +16,7 @@ device mesh: the pipeline runs on one device.
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -26,6 +27,24 @@ from localdiffusion_tpu_torch.diffusion.gaussian import GaussianDiffusion
 from localdiffusion_tpu_torch.ood.frontend import OODFrontend
 from localdiffusion_tpu_torch.ood.patchcore import StageClock
 from localdiffusion_tpu_torch.utils.metrics import mse, psnr, ssim
+
+RunNoise = Union[None, int, Callable[[int], object]]
+
+
+def batch_seed(base_seed: int, index: int) -> int:
+    """The noise seed of batch `index`."""
+    return int(np.random.SeedSequence([base_seed, index]).generate_state(1)[0])
+
+
+def batch_noise(noise: RunNoise, index: int):
+    """(noise, retry_noise) of batch `index` of a run: with `noise` an int
+    seed (None: 0), the seed `batch_seed(noise, index)` (the retries'
+    stream derives from it); with a callable, what `noise(index)` returns:
+    a seed, a noise source, or a (noise, retry_noise) pair."""
+    if noise is None or isinstance(noise, (int, np.integer)):
+        return batch_seed(0 if noise is None else int(noise), index), None
+    out = noise(index)
+    return out if isinstance(out, tuple) else (out, None)
 
 
 class LocalDiffusionPipeline:
@@ -143,3 +162,99 @@ class LocalDiffusionPipeline:
                     float((err * m).sum() / max(float(m.sum()), 1.0))
                 )
         return result
+
+    def run(self, pairs, noise: RunNoise = None, save_prefix: Optional[str] = None,
+            verbose: bool = True, gt_masks=None) -> Dict[str, np.ndarray]:
+        """The evaluation loop over (hr, lr) batch pairs: each batch through
+        `translate` with its own noise (`batch_noise(noise, i)`), then the
+        stacks hr_all, lr_all, pred_all, ad_masks and fusion_time (each
+        sample's acceptance step; `num_timesteps` where no gate ran),
+        mean_mse and mean_time (Stage B's, the first batch left out when
+        there are more).  `gt_masks` (one per pair) adds
+        mean_mse_ood_region.  With `save_prefix`, the stacks are written as
+        `{save_prefix}{name}.npy`, as the JAX pipeline writes them."""
+        hrs, lrs, preds, masks, losses, times = [], [], [], [], [], []
+        region_losses, fusion_times = [], []
+        for i, (hr, lr) in enumerate(pairs):
+            n, retry = batch_noise(noise, i)
+            gt_m = gt_masks[i] if gt_masks is not None else None
+            r = self.translate(lr, hr=hr, noise=n, retry_noise=retry, gt_region=gt_m)
+            if "mse_ood_region" in r:
+                region_losses.append(float(r["mse_ood_region"]))
+            hrs.append(np.asarray(hr))
+            lrs.append(np.asarray(lr))
+            preds.append(r["pred"])
+            masks.append(r["mask"])
+            losses.append(float(r["mse"]))
+            times.append(float(r["time"]))
+            fusion_times.append(r.get(
+                "fusion_time", np.full((lr.shape[0],), self.gd.num_timesteps, np.int32)))
+            if verbose:
+                extra = f" mse_ood={region_losses[-1]:.5f}" if "mse_ood_region" in r else ""
+                print(f"[{i}] mse={losses[-1]:.5f} ssim={float(r['ssim']):.4f}{extra} "
+                      f"time={times[-1]:.3f}s branched={bool(r['branched'])}")
+        out = {
+            "hr_all": np.concatenate(hrs),
+            "lr_all": np.concatenate(lrs),
+            "pred_all": np.concatenate(preds),
+            "ad_masks": np.concatenate(masks),
+            "fusion_time": np.concatenate(fusion_times),
+            "mean_mse": np.asarray(np.mean(losses)),
+            "mean_time": np.asarray(np.mean(times[1:]) if len(times) > 1 else times[0]),
+        }
+        if region_losses:
+            out["mean_mse_ood_region"] = np.asarray(np.mean(region_losses))
+        if save_prefix is not None:
+            for name in ("hr_all", "lr_all", "pred_all", "ad_masks", "fusion_time"):
+                np.save(f"{save_prefix}{name}.npy", out[name])
+        if verbose:
+            print(f"Test loss: {float(out['mean_mse']):.4f}")
+            if "mean_mse_ood_region" in out:
+                print(f"OOD-region loss: {float(out['mean_mse_ood_region']):.4f}")
+            print(f"Average sampling time: {float(out['mean_time']):.4f}")
+        return out
+
+    def translate_volume(self, dataset, batch_size: int = 8, noise: RunNoise = None,
+                         verbose: bool = True) -> Dict[str, np.ndarray]:
+        """Every slice of a per-volume dataset (items (hr, lr) or (hr, lr,
+        seg), each [H, W, C]) in batches of `batch_size`, each with its own
+        noise (`batch_noise(noise, i)` for batch i): every batch has one
+        shape, the last padded by repeating its last slice, and the pad rows
+        dropped.  Returns pred_volume, mask_volume, hr_volume, lr_volume,
+        mse, branched_batches and, where the segmentation marks a region,
+        mean_mse_ood_region, taken over the volume without the pad rows."""
+        n = len(dataset)
+        items = [dataset[i] for i in range(n)]
+        hr = np.stack([it[0] for it in items])
+        lr = np.stack([it[1] for it in items])
+        seg = np.stack([it[2] for it in items]) if len(items[0]) > 2 else None
+        preds, masks, branched = [], [], []
+        for b, i in enumerate(range(0, n, batch_size)):
+            sel = np.arange(i, min(i + batch_size, n))
+            pad = batch_size - len(sel)
+            idx = np.concatenate([sel, np.repeat(sel[-1:], pad)]) if pad else sel
+            nz, retry = batch_noise(noise, b)
+            r = self.translate(lr[idx], hr=hr[idx], noise=nz, retry_noise=retry)
+            preds.append(r["pred"][: len(sel)])
+            masks.append(r["mask"][: len(sel)])
+            branched.append(bool(r["branched"]))
+            if verbose:
+                print(f"slices {i}-{i + len(sel) - 1}: mse={float(r['mse']):.5f} "
+                      f"branched={bool(r['branched'])}")
+        pred = np.concatenate(preds)
+        out = {
+            "pred_volume": pred,
+            "mask_volume": np.concatenate(masks),
+            "hr_volume": hr,
+            "lr_volume": lr,
+            "mse": np.asarray(np.mean((pred - hr) ** 2)),
+            "branched_batches": int(np.sum(branched)),
+        }
+        if seg is not None and np.any(seg > 0):
+            m = (seg > 0).astype(np.float32)
+            err = (pred.astype(np.float32) - hr.astype(np.float32)) ** 2
+            out["mean_mse_ood_region"] = np.asarray(float((err * m).sum() / max(float(m.sum()), 1.0)))
+        if verbose:
+            print(f"volume MSE: {float(out['mse']):.5f} ({n} slices, "
+                  f"{out['branched_batches']} branched batches)")
+        return out

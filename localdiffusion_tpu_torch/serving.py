@@ -32,10 +32,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-
-def batch_seed(base_seed: int, index: int) -> int:
-    """The noise seed of batch `index`."""
-    return int(np.random.SeedSequence([base_seed, index]).generate_state(1)[0])
+from localdiffusion_tpu_torch.pipeline import batch_seed
 
 
 @dataclass(eq=False)  # identity equality: requests are queue tickets

@@ -5,7 +5,9 @@ A subprocess blocks those modules (an entry of None in sys.modules makes
 their import fail) and imports every module of the port and chip_smoke;
 another runs, at 32px on the CPU, the branches that import lazily: the seg
 detector from the shipped npz, the seg-encoder and WRN50-2 sources, and the
-classifier gate's WRN last resort.
+classifier gate's WRN last resort; a third runs the evaluation entry
+points at 16px (the shipped denoiser, T=3): `factory.load_params` and
+`build_pipeline`, `run`, and the test, margin and gated-quality CLIs.
 """
 
 import os
@@ -60,6 +62,47 @@ BRANCHES = textwrap.dedent(
     """
 )
 
+ENTRY_POINTS = textwrap.dedent(
+    """
+    import dataclasses, sys, tempfile
+    for name in ("jax", "jaxlib", "flax", "orbax", "yaml", "sklearn", "localdiffusion_tpu",
+                 "scripts"):
+        sys.modules[name] = None
+    import numpy as np
+    from localdiffusion_tpu_torch import config as C
+    from localdiffusion_tpu_torch.factory import build_pipeline, load_params
+    from localdiffusion_tpu_torch.scripts import eval_gated_quality, eval_margins, test
+
+    NPZ = "results/mri_synth256_ema.npz"
+
+    def tiny(base, **ood):
+        return base.replace(
+            diffusion=dataclasses.replace(base.diffusion, image_size=16, timesteps=3,
+                                          sampling_timesteps=None),
+            ood=dataclasses.replace(base.ood, input_size=16, **ood),
+            train=dataclasses.replace(base.train, compute_dtype="float32"))
+
+    C.CONFIGS["tiny"] = lambda: tiny(C.mri256_config())
+    C.CONFIGS["tiny_gated"] = lambda: tiny(C.mri256_gated_config())
+    manual = tiny(C.mri256_config(), detector="manual", manual_mask_cols=4)
+    assert load_params(manual, params_npz=NPZ, device="cpu", verbose=False).image_size == 16
+    pipe = build_pipeline(manual, params_npz=NPZ, device="cpu", verbose=False)
+    x = np.ones((2, 16, 16, 1), np.float32)
+    assert pipe.run([(x, x)], noise=1, verbose=False)["pred_all"].shape == (2, 16, 16, 1)
+    with tempfile.TemporaryDirectory() as d:
+        common = ["--params-npz", NPZ, "--images", "2", "--batch", "2", "--bank-images", "2",
+                  "--work-dir", d, "--device", "cpu"]
+        m = eval_margins.main(["--config", "tiny", "--variants", "plain,denoiser,gtd",
+                               "--samplers", "ddpm"] + common)
+        g = eval_gated_quality.main(["--config", "tiny_gated", "--bank-normals", "2",
+                                     "--calib", "2"] + common)
+    t = test.main(["--config", "tiny", "--detector", "manual", "--params-npz", NPZ,
+                   "--max-images", "2", "--device", "cpu"])
+    print(len(m["variants"]), len(g["variants"]["gated"]["fusion_time"]),
+          t["pred_all"].shape[0])
+    """
+)
+
 # modules the port must have (a rename or a lost file shows here)
 REQUIRED = {
     "localdiffusion_tpu_torch.ops.attention",
@@ -86,6 +129,9 @@ REQUIRED = {
     "localdiffusion_tpu_torch.ood.classifier",
     "localdiffusion_tpu_torch.ood.wide_resnet",
     "localdiffusion_tpu_torch.models.seg_unet",
+    "localdiffusion_tpu_torch.scripts.test",
+    "localdiffusion_tpu_torch.scripts.eval_margins",
+    "localdiffusion_tpu_torch.scripts.eval_gated_quality",
 }
 
 
@@ -106,6 +152,15 @@ def test_new_branches_run_without_jax_flax_orbax_yaml():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["WRNFeatureSource"]
+
+
+def test_entry_points_run_without_jax_flax_orbax_yaml():
+    proc = subprocess.run(
+        [sys.executable, "-c", ENTRY_POINTS], cwd=ROOT, capture_output=True, text=True,
+        timeout=300, env={**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "2"},
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-3:] == ["5", "2", "2"]
 
 
 def test_blocked_module_really_fails():

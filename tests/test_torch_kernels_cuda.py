@@ -14,7 +14,9 @@ refuses, and a row alone against the same row in a batch.  Then the
 classifier gate of the gated 256px configuration (its UNet at a 64px
 input, where the fused blocks and linear attention engage): its scores
 on the card against the CPU's, and a gate that always accepts, whose
-chain equals the ungated chain bit for bit.
+chain equals the ungated chain bit for bit.  Last, the precision policy:
+the shipped s2d-stem checkpoint's UNet call, entered with both TF32 flags
+on, against the CPU at the stem's float32 bar.
 
 Every test here needs an NVIDIA GPU and nvcc (the kernels have no CPU mode)
 and skips without one.  The module imports neither JAX nor the JAX package,
@@ -24,15 +26,17 @@ so it runs on a machine that has only PyTorch:
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
 import torch
 
-from localdiffusion_tpu_torch.config import min_max_val_for, mri256_gated_config
+from localdiffusion_tpu_torch.config import min_max_val_for, mri256_gated_config, stem256_config
 from localdiffusion_tpu_torch.data.synthetic import synthetic_brain_translation
 from localdiffusion_tpu_torch.diffusion import sampler as TS
 from localdiffusion_tpu_torch.diffusion.gaussian import build_gd
+from localdiffusion_tpu_torch.factory import load_params
 from localdiffusion_tpu_torch.models.blocks import ResnetBlock
 from localdiffusion_tpu_torch.ops import groupnorm as G
 from localdiffusion_tpu_torch.ops import linear_attention as LA
@@ -1071,3 +1075,27 @@ def test_gated_always_accept_equals_ungated_on_the_card(cuda_device):
     torch.cuda.synchronize()
     assert calls == [4] and ft.tolist() == [4, 4]
     assert torch.equal(gated, ungated)
+
+
+@pytest.mark.cuda
+def test_stem_unet_with_tf32_on_matches_the_cpu(cuda_device):
+    """The shipped s2d-stem denoiser (f32, 256px, batch 2) entered with
+    both TF32 flags on: its every call turns them off for itself, so the
+    card holds the CPU's float32 within 1e-3 abs+rel, and the flags are on
+    again after."""
+    npz = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "results", "mri_stem256_ema.npz")
+    cfg = stem256_config()
+    card = load_params(cfg, params_npz=npz, device=cuda_device, verbose=False)
+    cpu = load_params(cfg, params_npz=npz, device="cpu", verbose=False)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 256, 256, 1)).astype(np.float32)
+    cond = rng.uniform(0, 14, (2, 256, 256, 1)).astype(np.float32)
+    t = np.array([9, 201])
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    got = card.apply_model(torch.as_tensor(x, device=cuda_device),
+                           torch.as_tensor(cond, device=cuda_device),
+                           torch.as_tensor(t, device=cuda_device)).cpu().numpy()
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    want = cpu.apply_model(torch.as_tensor(x), torch.as_tensor(cond), torch.as_tensor(t)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)

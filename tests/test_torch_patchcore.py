@@ -167,15 +167,23 @@ def test_kcenter_default_projection_is_seeded():
 
 
 def test_distance_product_refuses_tf32_on_the_card(monkeypatch):
-    """TF32 on the card would break the float32 bar, so the check raises
-    for a CUDA device and lets the CPU through; it writes no flag."""
+    """TF32 would break the float32 bar, so the search turns cuBLAS's TF32
+    off around the distance product, in every chunk, and restores the flag
+    after it (on the CPU the flag is read but not used: the test watches it
+    from inside the product)."""
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
-    with pytest.raises(RuntimeError, match="allow_tf32"):
-        TP.check_full_float32(torch.device("cuda"))
-    TP.check_full_float32(torch.device("cpu"))
+    monkeypatch.setattr(TP, "NN_CHUNK_ELEMENTS", 10)  # two queries a chunk
+    seen, exact = [], TP.euclidean_dist_sq
+
+    def watched(x, y):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return exact(x, y)
+
+    monkeypatch.setattr(TP, "euclidean_dist_sq", watched)
     q = torch.as_tensor(_rand(2, (5, 8)))
     dist, loc = TP.nearest_neighbors(q, q)
     assert torch.equal(loc, torch.arange(5)) and torch.all(torch.isfinite(dist))
+    assert seen == [False] * 3
     assert torch.backends.cuda.matmul.allow_tf32
 
 

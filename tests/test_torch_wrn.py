@@ -240,7 +240,7 @@ def test_gate_wrn_last_resort_matches_jax(jwrn, tmp_path, monkeypatch):
     assert cfg.sampler.classifier and cfg.ood.layers == ("layer2", "layer3")
     jc = jax_config(cfg)
     pairs = TB.classifier_calibration_pairs(cfg, n=4)
-    x = TB._brains(cfg, 3, True, 30)[0]
+    x = TB.brains(cfg, 3, True, 30)[0]
     gate = build_classifier_gate(cfg, calibration_pairs=pairs, device="cpu", verbose=False)
     jgate = j_build_gate(jc, None, calibration_pairs=pairs, verbose=False)
     pc = gate.classifier.patchcore
