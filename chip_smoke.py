@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -146,8 +146,37 @@ Phases, each printed on its own line with the elapsed seconds:
     against the UNet calls and tap passes; the per-variant OOD-region MSE
     and the delta printed, not judged (n=8 cannot resolve the margin).
 
-The line before the last is one JSON object with the kernels' numbers; the
-last line is the device record.  Any failed check raises, so the exit code
+19. training (`mri256_config()` at full width, batch 8, bf16, seeded
+    weights, the 256 synthetic training brains at 256px): (a) with every
+    count at 0, through `train.trainer.Trainer` one resident epoch (32
+    microbatches, the dataset on the card, the permutation drawn there),
+    one streamed epoch and 4 batch steps, then `scripts.train` for 2
+    resident steps with its eval chain (T=250 on 8 test brains), a
+    checkpoint and an EMA npz under `build/train_smoke/`; each
+    microbatch's forward launches a serving UNet call's kernels and a
+    backward none (each kernel's `torch.autograd.Function` recomputes its
+    backward through its plain reference); wall seconds a step, the
+    forward and backward of a microbatch on the card (CUDA events), the
+    step's peak memory, the eval MSE and the checkpoint's bytes; (b) on
+    the shipped `mri_synth256_ema.npz`, one batch's loss and whole
+    gradient with the kernels against the plain modules on the card
+    (same t and noise) and, at batch 2, against the CPU: loss within 1e-2
+    relative, gradient within 5e-2 relative L2 and cosine >= 0.998, the
+    worst leaf named; (c) the flagship's f32 step, entered with both TF32
+    flags on: 2 batch steps, one step's gradient card vs CPU within 1e-3,
+    both flags off inside every backward and restored after; (d) 30 batch
+    steps from seeded weights lower a fixed-draw loss on 16 held-out
+    brains (the shipped checkpoint's printed beside); (e) `save`/`load`
+    restore the trainer bit for bit, the exported npz serves through
+    `factory.load_params` as the EMA rounded to fp16 and its UNet call is
+    bit-equal to that of the rounded EMA; (f) the 30th step under
+    torch.profiler, split into forward, backward, clip + Adam and EMA on
+    the device's timeline, with the step's busy share.
+
+The line before the last is one JSON object with the kernels' numbers
+(each with `train_launches`, its launches in the training phase's main
+path, and `backward`, what its backward recomputes through); the last
+line is the device record.  Any failed check raises, so the exit code
 is not 0.
 """
 
@@ -158,6 +187,7 @@ import dataclasses
 import functools
 import hashlib
 import json
+import shutil
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -174,8 +204,9 @@ from localdiffusion_tpu_torch.config import (
     mri256_gated_config,
     stem256_config,
 )
+from localdiffusion_tpu_torch.data.loader import ArrayLoader
 from localdiffusion_tpu_torch.data.synthetic import synthetic_brain_translation
-from localdiffusion_tpu_torch.diffusion.gaussian import GaussianDiffusion, build_gd
+from localdiffusion_tpu_torch.diffusion.gaussian import ArrayDraws, GaussianDiffusion, build_gd
 from localdiffusion_tpu_torch.diffusion.sampler import ArrayNoise
 from localdiffusion_tpu_torch.factory import (
     build_classifier_gate,
@@ -231,7 +262,10 @@ from localdiffusion_tpu_torch.ops.groupnorm import (
 )
 from localdiffusion_tpu_torch.pipeline import LocalDiffusionPipeline
 from localdiffusion_tpu_torch.scripts import eval_margins
+from localdiffusion_tpu_torch.scripts import train as train_script
 from localdiffusion_tpu_torch.serving import InferenceServer
+from localdiffusion_tpu_torch.train.trainer import Trainer, clip_by_global_norm, ema_update
+from localdiffusion_tpu_torch.utils.params_io import save_params_npz
 from localdiffusion_tpu_torch.utils.precision import full_float32
 
 KERNELS = ("groupnorm_film_silu", "groupnorm_tiled", "flash_attention", "linear_attention",
@@ -414,6 +448,43 @@ RESULTS = Path(__file__).resolve().parent / "results"
 SHIPPED = ("mri_synth256_ema.npz", "mri_stem256_ema.npz", "seg256_params.npz")
 SHIPPED_DIR = STAGE_A_DIR.parent / "shipped"
 MARGIN_IMAGES, MARGIN_BATCH, MARGIN_BANK = 8, 8, 200
+# the training path (`mri256_config()`: batch 8, bf16, the 256 synthetic
+# training brains at 256px): one resident epoch (32 microbatches), one
+# streamed epoch, 4 batch steps, then `scripts.train` for 2 resident steps
+# and its eval chain (T=250 on 8 test brains).  Each microbatch's forward
+# launches a serving UNet call's kernels (MRI_PER_CALL); a backward
+# launches none: it recomputes through the plain references.  Gradients
+# with the kernels against the plain modules on the card and against the
+# CPU: the one-UNet-call bf16 bars (loss within 1e-2 relative, the whole
+# gradient within 5e-2 relative L2 and cosine >= 0.998) on the shipped
+# checkpoint card vs CPU (both through the Functions: their plain forward
+# on the CPU) and on seeded weights kernels vs plain modules; f32, kernels
+# vs plain and the flagship's step card vs CPU, within 1e-3 relative L2,
+# the flagship's f32 bar.  On the shipped checkpoint in bf16 the kernels vs
+# the plain modules are held to the cosine alone: the trained model's
+# residual is ~1% of its output, below bf16's rounding of the activations,
+# so its gradient moves by 10-20% between bf16 computations (the kernel
+# path in bf16 against f32: 0.176 relative L2, kernels against the plain
+# modules 0.098, cosine 0.99988; NVIDIA H100 80GB HBM3, 700 W) while a
+# missing or wrong gradient turns the cosine; the loss and the L2 are
+# printed beside that bf16-vs-f32 floor.
+TRAIN_DIR = STAGE_A_DIR.parent / "train_smoke"
+TRAIN_BATCH_STEPS, TRAIN_SPLIT_REPS, TRAIN_LEARN_STEPS, TRAIN_HELD_OUT = 4, 5, 30, 16
+TRAIN_SCRIPT_STEPS = 2
+TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_GRAD_COS, TRAIN_F32_GRAD_REL = 1e-2, 5e-2, 0.998, 1e-3
+TRAIN_CPU_BATCH = 2
+# what each kernel's backward recomputes through (the JAX custom_vjp's
+# reference, ported)
+BACKWARD = {
+    "groupnorm_film_silu": "groupnorm_film_silu_reference (ops/groupnorm.py)",
+    "gn_tiled_stats": "groupnorm_film_silu_reference (ops/groupnorm.py)",
+    "gn_tiled_apply": "groupnorm_film_silu_reference (ops/groupnorm.py)",
+    "flash_attention": "xla_attention (ops/attention.py)",
+    "linear_attention_kv": "linear_attention_reference (ops/linear_attention.py)",
+    "linear_attention_q": "linear_attention_reference (ops/linear_attention.py)",
+    "conv3x3_stats": "resnet_block_reference (ops/resnet_block.py)",
+    "epilogue": "resnet_block_reference (ops/resnet_block.py)",
+}
 
 _T0 = time.perf_counter()
 
@@ -2795,6 +2866,395 @@ def shipped256() -> dict:
                           denoiser_chain_s=v["ddpm/denoiser"]["wall_s"]))
 
 
+# ---------------------------------------------------------------------------
+# the training path
+# ---------------------------------------------------------------------------
+
+def _seeded(seed: int) -> torch.Generator:
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def _grads(gd, x, cond, t, noise) -> tuple:
+    """(loss, {name: gradient on the CPU}) of one batch with the given t and
+    noise, the parameters' gradients cleared first."""
+    gd.model.zero_grad(set_to_none=True)
+    dev = gd.device
+    with full_float32():
+        loss = gd.loss(torch.as_tensor(x, device=dev), torch.as_tensor(cond, device=dev),
+                       ArrayDraws(dev, [t], [noise]))
+        loss.backward()
+    grads = {k: p.grad.detach().float().cpu() for k, p in gd.model.named_parameters()}
+    gd.model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def _grad_agreement(label, got, want, loss_bar, rel_bar, cos_bar) -> dict:
+    """Loss relative difference, whole-gradient relative L2 and cosine,
+    and the worst leaf by relative L2; raises past the bars (an infinite
+    bar, or cos_bar None: not judged)."""
+    (lg, g), (lw, w) = got, want
+    a = torch.cat([v.flatten() for v in g.values()]).double()
+    b = torch.cat([w[k].flatten() for k in g]).double()
+    rel = float((a - b).norm() / b.norm())
+    cos = float(a @ b / (a.norm() * b.norm()))
+    loss_rel = abs(lg - lw) / abs(lw)
+    leaf = {k: float((g[k].double() - w[k].double()).norm() / w[k].double().norm().clamp_min(1e-30))
+            for k in g}
+    worst = max(leaf, key=leaf.get)
+    ok = loss_rel <= loss_bar and rel <= rel_bar and (cos_bar is None or cos >= cos_bar)
+    bar = lambda v: f"bar {v:g}" if np.isfinite(v) else "not judged"
+    log(f"training check, {label}: loss {lg:.6g} vs {lw:.6g} (relative {loss_rel:.3g}, "
+        f"{bar(loss_bar)}); whole gradient relative L2 {rel:.4g} ({bar(rel_bar)}), cosine "
+        f"{cos:.7f}{'' if cos_bar is None else f' (bar {cos_bar:g})'}; worst leaf {worst} "
+        f"{leaf[worst]:.4g} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"training check {label} failed")
+    return dict(loss_rel=loss_rel, grad_rel_l2=rel, cos=cos, worst_leaf=worst,
+                worst_leaf_rel=leaf[worst])
+
+
+def _split_step(tr, hr, lr, reps: int) -> dict:
+    """Device ms of a microbatch's forward (the loss) and backward apart, by
+    CUDA events around each on the stream, over `reps` microbatches; the
+    launches of each: the forward a UNet call's, the backward none."""
+    gd = tr.gd
+    x, c = (torch.as_tensor(a[:8], device="cuda") for a in (hr, lr))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    fwd, bwd = [], []
+    for i in range(reps):
+        draws = _seeded(900 + i)
+        before = read_counts()
+        with full_float32():
+            ev[0].record()
+            loss = gd.loss(x, c, draws)
+            ev[1].record()
+            mid = read_counts()
+            loss.backward()
+            ev[2].record()
+        torch.cuda.synchronize()
+        after = read_counts()
+        check_counts({k: mid[k] - before[k] for k in mid}, MRI_PER_CALL, 1, "training forward")
+        launched = {k: after[k] - mid[k] for k in after if after[k] != mid[k]}
+        if launched:
+            raise RuntimeError(f"a backward launched kernels of the eight: {launched}")
+        fwd.append(ev[0].elapsed_time(ev[1]))
+        bwd.append(ev[1].elapsed_time(ev[2]))
+    tr.optimizer.zero_grad(set_to_none=True)
+    return dict(fwd_ms=float(np.median(fwd)), bwd_ms=float(np.median(bwd)))
+
+
+def _profile_step(tr, hr, lr, draws, label) -> dict:
+    """One batch step spelled out as `Trainer.train_batch_step` composes it
+    (forward, backward, clip + Adam, EMA), each part ended by a
+    synchronise, under one torch.profiler window (the card's activity, as
+    `profile_chain`): each part's span on the device's timeline (CUDA events
+    at its ends) and its host wall, and the step's busy share (the kernels'
+    time over the step's wall).  The EMA, at a step where it updates and
+    its decay is still 0, must leave the EMA equal to the parameters."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gd = tr.gd
+    x, c = (torch.as_tensor(a, device="cuda") for a in (hr, lr))
+    tr.optimizer.zero_grad(set_to_none=True)
+    box = {}
+
+    def forward():
+        with full_float32():
+            box["loss"] = gd.loss(x, c, draws)
+
+    def backward():
+        with full_float32():
+            box["loss"].backward()
+
+    def clip_adam():
+        clip_by_global_norm([p.grad for p in tr.params], tr.cfg.max_grad_norm)
+        tr.optimizer.step()
+        tr.step += 1
+
+    def ema():
+        ema_update(tr.ema_model.parameters(), tr.params, tr.step, tr.ema_cfg)
+
+    parts = (("forward", forward), ("backward", backward), ("clip_adam", clip_adam),
+             ("ema", ema))
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(len(parts) + 1)]
+    host = {}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t_step = time.perf_counter()
+        events[0].record()
+        for (name, fn), ev in zip(parts, events[1:]):
+            t0 = time.perf_counter()
+            fn()
+            ev.record()
+            torch.cuda.synchronize()
+            host[name] = 1e3 * (time.perf_counter() - t0)
+        wall_ms = 1e3 * (time.perf_counter() - t_step)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    split = {name: dict(device_ms=a.elapsed_time(b), host_ms=host[name])
+             for (name, _), a, b in zip(parts, events[:-1], events[1:])}
+    log(f"{label} profile: one batch step (step {tr.step}) {wall_ms:.1f}ms wall (profiled, a "
+        f"synchronise after each part), {sum(e.count for e in kernels)} kernels, card busy "
+        f"{busy_ms:.2f}ms = {100 * busy_ms / wall_ms:.1f}%; on the device's timeline "
+        + "; ".join(f"{n} {v['device_ms']:.2f}ms (host {v['host_ms']:.1f}ms)"
+                    for n, v in split.items()))
+    if tr.step % tr.ema_cfg.update_every or tr.step > tr.ema_cfg.update_after_step:
+        raise RuntimeError(f"step {tr.step}: the profiled step must update the EMA with decay 0")
+    if not all(torch.equal(e, p) for e, p in zip(tr.ema_model.parameters(), tr.params)):
+        raise RuntimeError(f"{label} profile: the EMA update did not copy the parameters")
+    return dict(busy_share=busy_ms / wall_ms, busy_ms=busy_ms, step_ms=wall_ms, split=split)
+
+
+def _fixed_loss(gd, hr, lr, t, noise) -> float:
+    """The loss on held-out brains with fixed t and noise, no gradient, in
+    batches of 8."""
+    total = 0.0
+    with torch.no_grad():
+        for i in range(0, len(hr), 8):
+            total += gd.loss(torch.as_tensor(hr[i:i + 8], device="cuda"),
+                             torch.as_tensor(lr[i:i + 8], device="cuda"),
+                             ArrayDraws("cuda", [t[i:i + 8]], [noise[i:i + 8]])).item()
+    return total / (len(hr) // 8)
+
+
+def _state_equal(a: Trainer, b: Trainer) -> bool:
+    same = a.step == b.step
+    for x, y in zip(list(a.model.state_dict().values()) + list(a.ema_model.state_dict().values()),
+                    list(b.model.state_dict().values()) + list(b.ema_model.state_dict().values())):
+        same = same and torch.equal(x, y)
+    for sa, sb in zip(a.optimizer.state_dict()["state"].values(),
+                      b.optimizer.state_dict()["state"].values()):
+        same = same and all(torch.equal(sa[k], sb[k]) for k in sa)
+    return same
+
+
+def training256() -> dict:
+    """(a) the train path at full width and its launches, (b) gradients with
+    and without the kernels on the shipped checkpoint, and card vs CPU, (c)
+    the flagship's f32 step entered with both TF32 flags on, (d) learning,
+    (e) the state's round trips, (f) one profiled batch step."""
+    t_phase = time.perf_counter()
+    base = mri256_config()
+    cfg = base.replace(train=dataclasses.replace(base.train, results_dir=str(TRAIN_DIR)))
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    (hr_tr, lr_tr), (hr_te, lr_te) = train_script.build_dataset(cfg)
+    gd = build_gd(cfg, device="cuda")
+    tr = Trainer(gd, cfg.train)
+    nb = len(hr_tr) // cfg.train.batch_size
+    log(f"training: mri256_config() at full width, {sum(p.numel() for p in tr.params)} params "
+        f"(seeded random), compute {gd.dtype}, float32 params and Adam state, batch "
+        f"{cfg.train.batch_size}, {len(hr_tr)} training brains at {gd.image_size}px")
+    data_hr, data_lr = (torch.as_tensor(a, device="cuda") for a in (hr_tr, lr_tr))
+    tr.train_batch_step(hr_tr[:8], lr_tr[:8], _seeded(0))  # warm-up (not counted)
+    torch.cuda.synchronize()
+
+    # (a) the main path: every count at 0, the Trainer's three steps
+    reset_counts()
+    wall = {}
+    t0 = time.perf_counter()
+    loss_res = tr.train_epoch_resident(data_hr, data_lr, _seeded(1))
+    torch.cuda.synchronize()
+    wall["resident_epoch_s"] = time.perf_counter() - t0
+    check_counts(read_counts(), MRI_PER_CALL, nb, "training resident epoch")
+    before = read_counts()
+    t0 = time.perf_counter()
+    loader = ArrayLoader(hr_tr, lr_tr, batch_size=cfg.train.batch_size, seed=42)
+    loss_epoch = tr.train_epoch_step(loader.epoch_batches(0), _seeded(2))
+    torch.cuda.synchronize()
+    wall["streamed_epoch_s"] = time.perf_counter() - t0
+    check_counts({k: v - before[k] for k, v in read_counts().items()}, MRI_PER_CALL, nb,
+                 "training streamed epoch")
+    before = read_counts()
+    t0 = time.perf_counter()
+    batch_losses = [tr.train_batch_step(hr_tr[8 * i:8 * i + 8], lr_tr[8 * i:8 * i + 8],
+                                        _seeded(3 + i)) for i in range(TRAIN_BATCH_STEPS)]
+    torch.cuda.synchronize()
+    wall["batch_step_s"] = (time.perf_counter() - t0) / TRAIN_BATCH_STEPS
+    check_counts({k: v - before[k] for k, v in read_counts().items()}, MRI_PER_CALL,
+                 TRAIN_BATCH_STEPS, "training batch steps")
+    split = _split_step(tr, hr_tr, lr_tr, TRAIN_SPLIT_REPS)
+    torch.cuda.reset_peak_memory_stats()
+    tr.train_batch_step(hr_tr[:8], lr_tr[:8], _seeded(8))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [loss_res, loss_epoch] + batch_losses
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"training losses not finite: {losses}")
+    log(f"training main path: resident epoch ({nb} microbatches) {wall['resident_epoch_s']:.3f}s, "
+        f"streamed epoch {wall['streamed_epoch_s']:.3f}s, batch step {wall['batch_step_s']:.3f}s "
+        f"wall; a microbatch on the device (CUDA events, median of {TRAIN_SPLIT_REPS}) forward "
+        f"{split['fwd_ms']:.2f}ms, backward {split['bwd_ms']:.2f}ms, none of the eight kernels "
+        f"in a backward; peak memory of a batch step {peak_gib:.2f} GiB; losses "
+        f"{[round(v, 4) for v in losses]}; step {tr.step}")
+
+    before = read_counts()
+    npz = TRAIN_DIR / "ema.npz"
+    t0 = time.perf_counter()
+    out = train_script.main(["--config", "mri256", "--steps", str(TRAIN_SCRIPT_STEPS),
+                             "--step-mode", "resident", "--eval-every", str(TRAIN_SCRIPT_STEPS),
+                             "--results", str(TRAIN_DIR), "--resume", "never",
+                             "--export-npz", str(npz)])
+    torch.cuda.synchronize()
+    script_s = time.perf_counter() - t0
+    eval_calls = cfg.diffusion.timesteps * len(out["evals"])
+    check_counts({k: v - before[k] for k, v in read_counts().items()}, MRI_PER_CALL,
+                 TRAIN_SCRIPT_STEPS * nb + eval_calls, "training script")
+    run = Path(out["results_dir"])
+    ckpt_bytes = (run / "model-latest.pt").stat().st_size
+    if out["step"] != TRAIN_SCRIPT_STEPS or not np.isfinite(out["evals"]).all():
+        raise RuntimeError(f"the training script ended at {out['step']}, evals {out['evals']}")
+    for f in ("train_loss.csv", "best_eval.json", "model-latest.pt"):
+        if not (run / f).exists():
+            raise RuntimeError(f"the training script wrote no {f}")
+    counts = read_counts()
+    log(f"training script: {TRAIN_SCRIPT_STEPS} resident steps and {len(out['evals'])} eval "
+        f"chain(s) ({eval_calls} UNet calls) in {script_s:.1f}s; eval sample MSE "
+        f"{out['evals']}; phase means {json.dumps(out['phase_means_s'])}; checkpoint "
+        f"{ckpt_bytes} bytes, EMA npz {npz.stat().st_size} bytes; main-path launches {counts}")
+
+    # (b) gradients: kernels against the plain modules and the card against the CPU
+    rng = np.random.default_rng(17)
+    t = rng.integers(0, cfg.diffusion.timesteps, 8)
+    noise = rng.standard_normal((8, gd.image_size, gd.image_size, 1)).astype(np.float32)
+    x, c = hr_tr[:8], lr_tr[:8]
+
+    def kernels_vs_plain(engine):
+        with_k = _grads(engine, x, c, t, noise)
+        engine.model.use_plain_kernels(True)
+        try:
+            return with_k, _grads(engine, x, c, t, noise)
+        finally:
+            engine.model.use_plain_kernels(False)
+
+    seeded_k, seeded_p = kernels_vs_plain(build_gd(cfg, device="cuda"))
+    checks = dict(seeded=_grad_agreement(
+        "seeded 256px, kernels vs plain modules on the card (batch 8, bf16)", seeded_k,
+        seeded_p, TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_GRAD_COS))
+    shipped = load_params(cfg, params_npz=str(RESULTS / SHIPPED[0]), device="cuda",
+                          verbose=False)
+    with_k, plain = kernels_vs_plain(shipped)
+    cfg32 = cfg.replace(train=dataclasses.replace(cfg.train, compute_dtype="float32"))
+    f32_k, f32_p = kernels_vs_plain(load_params(cfg32, params_npz=str(RESULTS / SHIPPED[0]),
+                                                device="cuda", verbose=False))
+    checks["shipped_f32"] = _grad_agreement(
+        "shipped 256px, kernels vs plain modules on the card (batch 8, f32: the GroupNorm and "
+        "attention Functions)", f32_k, f32_p, TRAIN_F32_GRAD_REL, TRAIN_F32_GRAD_REL, None)
+    floor = _grad_agreement("shipped 256px, the kernel path in bf16 vs in f32 (batch 8: the "
+                            "bf16 floor, not judged)", with_k, f32_k, np.inf, np.inf, None)
+    checks["shipped"] = _grad_agreement(
+        "shipped 256px, kernels vs plain modules on the card (batch 8, bf16; loss and L2 beside "
+        f"the floor: bf16 vs f32 {floor['loss_rel']:.4g} and {floor['grad_rel_l2']:.4g})",
+        with_k, plain, np.inf, np.inf, TRAIN_GRAD_COS)
+    checks["shipped"]["floor"] = floor
+    whole = float(torch.cat([v.flatten() for v in plain[1].values()]).norm())
+    flat = [k for k, v in with_k[1].items()
+            if float(v.abs().max()) == 0 and float(plain[1][k].norm()) >= 1e-6 * whole]
+    if flat:
+        raise RuntimeError(f"leaves with no gradient through the kernels: {flat}")
+    cpu = build_gd(cfg, device="cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in shipped.model.state_dict().items()})
+    n = TRAIN_CPU_BATCH
+    card_small = _grads(shipped, x[:n], c[:n], t[:n], noise[:n])
+    t0 = time.perf_counter()
+    cpu_small = _grads(cpu, x[:n], c[:n], t[:n], noise[:n])
+    checks["cpu"] = _grad_agreement(f"shipped 256px, card vs CPU (batch {n}, bf16; CPU "
+                                    f"{time.perf_counter() - t0:.1f}s)", card_small, cpu_small,
+                                    TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_GRAD_COS)
+    del cpu
+
+    # (c) the f32 path
+    with tf32_on_at_entry("training f32"):
+        checks["f32"] = _train_f32()
+
+    # (d) learning, (f) profile, (e) state
+    ho_t = rng.integers(0, cfg.diffusion.timesteps, TRAIN_HELD_OUT)
+    ho_noise = rng.standard_normal((TRAIN_HELD_OUT,) + hr_te.shape[1:]).astype(np.float32)
+    ho = (hr_te[:TRAIN_HELD_OUT], lr_te[:TRAIN_HELD_OUT], ho_t, ho_noise)
+    learner = Trainer(build_gd(cfg, device="cuda"), cfg.train)
+    start = _fixed_loss(learner.gd, *ho)
+    for i in range(TRAIN_LEARN_STEPS - 1):
+        j = (8 * i) % len(hr_tr)
+        learner.train_batch_step(hr_tr[j:j + 8], lr_tr[j:j + 8], _seeded(100 + i))
+    j = (8 * (TRAIN_LEARN_STEPS - 1)) % len(hr_tr)
+    prof = _profile_step(learner, hr_tr[j:j + 8], lr_tr[j:j + 8], _seeded(99), "training")
+    end = _fixed_loss(learner.gd, *ho)
+    shipped_loss = _fixed_loss(shipped, *ho)
+    log(f"training learning: fixed-draw loss on {TRAIN_HELD_OUT} held-out brains, seeded "
+        f"weights {start:.6g} -> {end:.6g} after {learner.step} batch steps "
+        f"({'lower' if end < start else 'NOT lower'}); the shipped checkpoint {shipped_loss:.6g}")
+    if not end < start:
+        raise RuntimeError("30 batch steps did not lower the held-out loss")
+    learner.save("smoke")
+    back = Trainer(build_gd(cfg, device="cuda"), cfg.train)
+    back.load("smoke")
+    if not _state_equal(learner, back):
+        raise RuntimeError("save then load did not restore the trainer bit for bit")
+    ema_npz = TRAIN_DIR / "ema_learner.npz"
+    save_params_npz(str(ema_npz), learner.ema_model.state_dict())
+    served = load_params(cfg, params_npz=str(ema_npz), device="cuda", verbose=False)
+    rounded = {k: v.half().float() for k, v in learner.ema_model.state_dict().items()}
+    if not all(torch.equal(served.model.state_dict()[k], v) for k, v in rounded.items()):
+        raise RuntimeError("the exported npz is not the EMA rounded to fp16")
+    ref = build_gd(cfg, device="cuda")
+    ref.model.load_state_dict(rounded)
+    xs = torch.as_tensor(rng.standard_normal((2, gd.image_size, gd.image_size, 1)),
+                         dtype=torch.float32, device="cuda")
+    ts = torch.tensor([5, 180], device="cuda")
+    cond = torch.as_tensor(lr_te[:2], device="cuda")
+    if not torch.equal(served.apply_model(xs, cond, ts), ref.apply_model(xs, cond, ts)):
+        raise RuntimeError("the exported EMA's UNet call differs from the fp16-rounded EMA's")
+    log(f"training state: save/load on the card restores step {back.step}, params, Adam "
+        f"state and EMA bit for bit ({learner.checkpoint_path('smoke')}, "
+        f"{Path(learner.checkpoint_path('smoke')).stat().st_size} bytes); the exported npz "
+        f"serves through factory.load_params as the fp16-rounded EMA, its UNet call bit-equal")
+
+    phase_s = time.perf_counter() - t_phase
+    log(f"training phase: {phase_s:.1f}s")
+    return dict(counts=counts, checks=checks, busy_share=prof["busy_share"],
+                perf=dict(phase_s=phase_s, script_s=script_s, peak_gib=peak_gib,
+                          ckpt_bytes=ckpt_bytes, eval_mse=out["evals"], start_loss=start,
+                          end_loss=end, shipped_loss=shipped_loss, **wall, **split,
+                          profile_step_ms=prof["step_ms"],
+                          profile_split={k: v["device_ms"] for k, v in prof["split"].items()}))
+
+
+def _train_f32() -> dict:
+    """The flagship (f32, batch 64, 28px): 2 batch steps on the card with
+    their launches, then one step's gradient against the CPU's; the TF32
+    flags read inside every backward (a hook on the final conv)."""
+    cfg = flagship_config()
+    gd = build_gd(cfg, device="cuda")
+    tr = Trainer(gd, cfg.train)
+    rng = np.random.default_rng(31)
+    s = gd.image_size
+    hr = rng.uniform(0, 2, (BATCH, s, s, 1)).astype(np.float32)
+    lr = rng.uniform(0, 2, (BATCH, s, s, 1)).astype(np.float32)
+    seen = []
+    hook = gd.model.final_conv.register_full_backward_hook(
+        lambda *_: seen.append(tf32_flags()))
+    try:
+        before = read_counts()
+        losses = [tr.train_batch_step(hr, lr, _seeded(40 + i)) for i in range(2)]
+        check_counts({k: v - before[k] for k, v in read_counts().items()}, FLAGSHIP_PER_CALL, 2,
+                     "training flagship steps")
+        t = rng.integers(0, cfg.diffusion.timesteps, BATCH)
+        noise = rng.standard_normal(hr.shape).astype(np.float32)
+        card = _grads(gd, hr, lr, t, noise)
+    finally:
+        hook.remove()
+    cpu = build_gd(cfg, device="cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in gd.model.state_dict().items()})
+    got = _grad_agreement(f"flagship f32, card vs CPU (batch {BATCH})", card,
+                          _grads(cpu, hr, lr, t, noise), TRAIN_F32_GRAD_REL, TRAIN_F32_GRAD_REL,
+                          None)
+    log(f"training f32: flagship batch steps, losses {[round(v, 5) for v in losses]}; TF32 "
+        f"flags read inside the {len(seen)} backwards {sorted(set(seen))}")
+    if len(seen) != 3 or set(seen) != {(False, False)}:
+        raise RuntimeError(f"TF32 was on inside a backward: {seen}")
+    return got
+
+
 def _row(t: dict, warm: bool = False) -> dict:
     """A GN part's numbers under the kernels line's keys (and the replayed
     time of a tiled pass, `warm_ms`)."""
@@ -2816,9 +3276,10 @@ def main() -> None:
         stem = stem256()
     with tf32_on_at_entry("shipped"):
         shipped = shipped256()
+    training = training256()
 
     phases = {"flagship": flag, "256px": mri, "stage_a": stage_a, "gated": gated,
-              "seg_wrn": seg_wrn, "stem": stem, "shipped": shipped}
+              "seg_wrn": seg_wrn, "stem": stem, "shipped": shipped, "training": training}
     launches = {name: {label: ph["counts"][name] for label, ph in phases.items()}
                 for name in COUNTERS}
     total = {name: sum(v.values()) for name, v in launches.items()}
@@ -2903,7 +3364,9 @@ def main() -> None:
                 "eager_ms": t["eager_ms"], "by_shape": t["by_shape"],
                 "unet_call_eager_ms": rb["unet_call_eager_ms"]} if key == "conv"
                else {"by_site": t["by_site"]}), **block))
-    if any(k["launches"] < 1 for k in kernels):
+    for k in kernels:
+        k.update(train_launches=launches[k["name"]]["training"], backward=BACKWARD[k["name"]])
+    if any(k["launches"] < 1 or k["train_launches"] < 1 for k in kernels):
         raise RuntimeError(f"a kernel never launched on the main paths: {launches}")
     log("end to end: " + "; ".join(f"{label} {json.dumps(ph['perf'])}"
                                    for label, ph in phases.items())
@@ -2912,7 +3375,8 @@ def main() -> None:
         + f"; stem checks {json.dumps(stem['checks'])}; Stage A checks "
         + json.dumps(stage_a["checks"]) + f"; gated checks {json.dumps(gated['checks'])}"
         + f"; seg/WRN checks {json.dumps(seg_wrn['checks'])}"
-        + f"; shipped checks {json.dumps(shipped['checks'])}")
+        + f"; shipped checks {json.dumps(shipped['checks'])}"
+        + f"; training checks {json.dumps(training['checks'])}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -10,5 +10,7 @@ its s2d-stem variant, with every Pallas kernel of the JAX package as a CUDA
 kernel in `csrc/`; and the evaluation entry points over the shipped
 checkpoints: `factory.load_params` / `build_pipeline`, `pipeline.run` /
 `translate_volume`, and the test, margin and gated-quality scripts
-(`scripts/`).
+(`scripts/`); and the training path: `GaussianDiffusion.loss`,
+`train.trainer.Trainer` and `scripts.train`, the kernels differentiable
+through their autograd Functions (`ops/autograd.py`).
 """

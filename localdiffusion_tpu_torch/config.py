@@ -264,7 +264,10 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Training options; the port's inference path reads `compute_dtype`."""
+    """Training options (`train.trainer`, `scripts.train`); the inference
+    path reads `compute_dtype`.  `step_mode` is the JAX file's field
+    ('epoch' or 'batch'); `scripts.train --step-mode` chooses the step,
+    'resident' included, as the JAX script does."""
 
     batch_size: int = 64
     lr: float = 1e-4
@@ -280,6 +283,10 @@ class TrainConfig:
     step_mode: str = "epoch"
     compute_dtype: str = "float32"
     seed: int = 42
+
+    def __post_init__(self):
+        if self.step_mode not in ("epoch", "batch"):
+            raise ValueError(f"bad step_mode {self.step_mode}")
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,8 @@
-"""Gaussian diffusion engine: schedule wiring and model predictions.
+"""Gaussian diffusion engine: schedule wiring, model predictions and the
+training loss.
 
 Port of `localdiffusion_tpu/diffusion/gaussian.py` (`apply_model`,
-`encode_cond`, `model_predictions`).  The JAX package's space-to-depth
+`encode_cond`, `model_predictions`, `p_losses`, `loss`).  The JAX package's space-to-depth
 execution (`apply_unet_s2d`, taken automatically at ≥128px) is a TPU lane
 layout of the same network and is not ported: the port always runs the
 standard layout, which the tests hold equal to it at 128px.  Unlike the JAX engine, which takes params per call, this
@@ -10,8 +11,9 @@ one owns its UNet and the weights in it.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from localdiffusion_tpu_torch.config import Config, DiffusionConfig, ModelConfig
@@ -24,6 +26,61 @@ from localdiffusion_tpu_torch.utils.precision import full_float32
 class ModelPrediction(NamedTuple):
     pred_noise: torch.Tensor
     pred_x_start: torch.Tensor
+
+
+class GeneratorDraws:
+    """The loss's random draws from one `torch.Generator`, on its device:
+    timesteps uniform in [0, T), standard normals, and an epoch's
+    permutation (`train.trainer.Trainer.train_epoch_resident`)."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+        self.device = generator.device
+
+    def timesteps(self, b: int, num_timesteps: int) -> torch.Tensor:
+        return torch.randint(0, num_timesteps, (b,), generator=self.generator,
+                             device=self.device)
+
+    def normal(self, shape) -> torch.Tensor:
+        return torch.randn(tuple(shape), generator=self.generator, device=self.device)
+
+    def permutation(self, n: int) -> torch.Tensor:
+        return torch.randperm(n, generator=self.generator, device=self.device)
+
+
+class ArrayDraws:
+    """Hands out given arrays in order, each of its kind (timesteps,
+    normals, permutations) and checked against the shape asked for: the
+    JAX package's draws replayed (`jax.random` cannot be reproduced without
+    JAX)."""
+
+    def __init__(self, device, timesteps: Sequence = (), normals: Sequence = (),
+                 permutations: Sequence = ()):
+        self.device = torch.device(device)
+        self._queues = {"timesteps": iter(timesteps), "normal": iter(normals),
+                        "permutation": iter(permutations)}
+
+    def _next(self, kind: str, shape, dtype):
+        a = next(self._queues[kind], None)
+        if a is None:
+            raise RuntimeError(f"no {kind} draw left")
+        if tuple(np.shape(a)) != tuple(shape):
+            raise ValueError(f"{kind} draw of shape {np.shape(a)}, asked {tuple(shape)}")
+        return torch.as_tensor(np.array(a, dtype), device=self.device)
+
+    def timesteps(self, b: int, num_timesteps: int) -> torch.Tensor:
+        return self._next("timesteps", (b,), np.int64)
+
+    def normal(self, shape) -> torch.Tensor:
+        return self._next("normal", shape, np.float32)
+
+    def permutation(self, n: int) -> torch.Tensor:
+        return self._next("permutation", (n,), np.int64)
+
+
+def as_draws(draws):
+    """A draws source from a `torch.Generator` or a source as above."""
+    return GeneratorDraws(draws) if isinstance(draws, torch.Generator) else draws
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -73,6 +130,52 @@ class GaussianDiffusion:
         self.is_ddim_sampling = diff_cfg.is_ddim_sampling
         self.objective = diff_cfg.objective
         self.image_size = diff_cfg.image_size
+
+    # ------------------------------------------------------------------
+    # training loss (the JAX engine's `p_losses` / `loss`)
+    # ------------------------------------------------------------------
+    def p_losses(self, x_start, cond, t, noise, offset_noise: Optional[torch.Tensor] = None):
+        """The noise-injection loss on NHWC x_start and cond at timesteps t
+        [B]: x_t = q_sample(x_start, t, noise + s·offset), the UNet run with
+        grad inside `full_float32`, the objective's target (noise, x_start,
+        or v), the per-row MSE weighted by `schedule.loss_weight[t]`, then
+        the mean.  offset_noise: [B, C], added at `offset_noise_strength`.
+        Self-conditioning's pre-pass is not ported: it raises."""
+        if self.model_cfg.self_condition:
+            raise NotImplementedError("self-conditioning: later slice (ROADMAP queue 1, item 5)")
+        sched = self.schedule
+        strength = self.diff_cfg.offset_noise_strength
+        if offset_noise is not None and strength > 0.0:
+            noise = noise + strength * offset_noise[:, None, None, :]
+        x = dm.q_sample(sched, x_start, t, noise)
+        with full_float32():
+            model_out = self.model(x, cond, t)
+        if self.objective == "pred_noise":
+            target = noise
+        elif self.objective == "pred_x0":
+            target = x_start
+        elif self.objective == "pred_v":
+            target = dm.predict_v(sched, x_start, t, noise)
+        else:
+            raise ValueError(self.objective)
+        loss = ((model_out - target) ** 2).mean(dim=(1, 2, 3))
+        return (loss * sched.loss_weight[t]).mean()
+
+    def loss(self, x_start, cond, draws):
+        """t ~ U[0, T), noise and (with offset noise on) a [B, C] offset from
+        `draws` (a `torch.Generator` on this device, or `ArrayDraws`), then
+        `p_losses`; x_start mapped to [-1, 1] first under `auto_normalize`.
+        The draws' order is the JAX engine's split order: t, noise, offset."""
+        draws = as_draws(draws)
+        b = x_start.shape[0]
+        t = draws.timesteps(b, self.num_timesteps)
+        noise = draws.normal(x_start.shape)
+        offset = None
+        if self.diff_cfg.offset_noise_strength > 0.0:
+            offset = draws.normal((b, x_start.shape[-1]))
+        if self.diff_cfg.auto_normalize:
+            x_start = dm.normalize_to_neg_one_to_one(x_start)
+        return self.p_losses(x_start, cond, t, noise, offset)
 
     @torch.no_grad()
     def apply_model(self, x, cond, t, cond_feat=None):

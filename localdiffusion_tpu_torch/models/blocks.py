@@ -11,6 +11,12 @@ returns `dtype`; softmaxes, norm statistics and the GroupNorm kernel's
 arithmetic run in float32 and cast back.  The casts are written out where
 the JAX modules make them (not `torch.autocast`, which keeps another set
 of ops in float32).
+
+Trained, each kernel-bearing module's wrapper records its
+`torch.autograd.Function` (`ops.autograd`: the backward recomputes through
+the plain reference) whenever autograd records the call; the casts here
+are differentiable as written, and `use_kernel = False` still takes the
+plain versions, for comparing a train step with and without the kernels.
 """
 
 from __future__ import annotations

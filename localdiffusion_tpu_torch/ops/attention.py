@@ -8,7 +8,10 @@ heads, head_dim).  At N >= 256 tokens `full_attention` goes to
 (batch·head, tile of query rows), K/V tiles streamed through shared memory
 with an online softmax in float32.  On a CUDA tensor the wrapper launches
 the kernel or raises; on a CPU tensor it computes the plain version,
-`xla_attention`.  There is no fallback between the two.
+`xla_attention`.  There is no fallback between the two.  Where autograd
+records the call, `flash_attention` goes through `FlashAttentionFn`, whose
+backward recomputes through `xla_attention` (the JAX package's
+`_flash_bwd`).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import ctypes
 import torch
 
 from localdiffusion_tpu_torch.ops import _build
+from localdiffusion_tpu_torch.ops.autograd import needs_graph, recompute_grads, refuse_graph
 
 FLASH_MIN_TOKENS = 256
 HEAD_DIM = 32  # the kernel's one instantiation (the configs' attn_dim_head)
@@ -51,6 +55,7 @@ def _check(q, k, v):
 
 def _launch(q, k, v, scale):
     b, n, h, d = q.shape
+    refuse_graph("flash_attention", q, k, v)
     if d != HEAD_DIM:
         raise ValueError(f"head_dim {d}: the kernel is built for {HEAD_DIM}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -73,6 +78,32 @@ def _launch(q, k, v, scale):
     return out
 
 
+def _flash_attention(q, k, v, scale):
+    if q.is_cuda:
+        return _launch(q, k, v, scale)
+    if q.device.type != "cpu":
+        raise ValueError(f"no kernel for device {q.device}")
+    return xla_attention(q, k, v, scale)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """`flash_attention` with a gradient: the forward saves q, k and v as
+    given (the strided views of the qkv projection), and the backward is
+    autograd through `xla_attention` on them (`_flash_bwd`).  Its gradients
+    have the views' shapes, so autograd adds them into the projection's."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v)
+        return _flash_attention(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        fn = lambda q, k, v: xla_attention(q, k, v, ctx.scale)
+        return recompute_grads(fn, ctx.saved_tensors, ctx.needs_input_grad[:3], grad) + (None,)
+
+
 def flash_attention(q, k, v, scale=None):
     """softmax(QKᵀ·scale)·V (scale defaults to D^-½).
 
@@ -80,15 +111,14 @@ def flash_attention(q, k, v, scale=None):
     a unit stride along D (the views `Attention` cuts from its qkv
     projection are taken as they are).  Returns [B, N, H, D] of q's type
     (contiguous from the kernel).  A CUDA tensor runs the kernel; a CPU
-    tensor runs the plain version.
+    tensor runs the plain version.  Where autograd records the call, it
+    goes through `FlashAttentionFn`.
     """
     _check(q, k, v)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    if q.is_cuda:
-        return _launch(q, k, v, scale)
-    if q.device.type != "cpu":
-        raise ValueError(f"no kernel for device {q.device}")
-    return xla_attention(q, k, v, scale)
+    if needs_graph(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, scale)
+    return _flash_attention(q, k, v, scale)
 
 
 flash_attention.launches = 0

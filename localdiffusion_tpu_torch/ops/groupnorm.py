@@ -28,6 +28,13 @@ dtype) goes to the single-pass kernel, a larger one to the tiled pair.
 Both kernels are bound by device memory; see the sources for the designs.
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it computes its plain version.  There is no fallback between the two.
+
+Gradients: with grad enabled and an input requiring grad,
+`groupnorm_film_silu` goes through `GroupNormFilmSiLUFn`, whose forward is
+the call above and whose backward recomputes through
+`groupnorm_film_silu_reference` on both sides of the gate, as the JAX
+package's `_gn_vjp_bwd` does for the single pass and the tiled pair.  The
+kernels' own wrappers refuse such a call (`ops.autograd.refuse_graph`).
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import ctypes
 import torch
 
 from localdiffusion_tpu_torch.ops import _build
+from localdiffusion_tpu_torch.ops.autograd import needs_graph, recompute_grads, refuse_graph
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the JAX package's row gate (`_MAX_VMEM_BLOCK_BYTES`): a larger row leaves
@@ -314,6 +322,7 @@ def _launch(x, gamma, beta, scale, shift, groups, eps, plan=None):
     """The single-pass kernel on x with `gn_plan`'s plan, or with `plan`
     (k, pixels, resident, smem) where a test asks for another."""
     b, h, w, c = x.shape
+    refuse_graph("gn_film_silu", x, gamma, beta, scale, shift)
     _check_chunks(x, "single-pass kernel")
     plan = plan or gn_plan_of(x.shape, groups, x.dtype)
     fn = _fn("groupnorm_film_silu", "gn_film_silu",
@@ -352,6 +361,7 @@ def _launch_stats(x, plan=None):
     """The stats pass on x with `gn_tiled_plan`'s plan, or with `plan` (k,
     pixels) where a test asks for another."""
     b, h, w, c = x.shape
+    refuse_graph("gn_tiled_stats", x)
     _check_chunks(x, "tiled pair")
     plan = plan or _tiled_plan_of(x)
     sums = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
@@ -370,6 +380,7 @@ def _launch_apply(x, sums, gamma, beta, scale, shift, groups, eps, plan=None,
     dispatcher does; it then starts while that pass ends (a programmatic
     dependent launch)."""
     b, h, w, c = x.shape
+    refuse_graph("gn_tiled_apply", x, sums, gamma, beta, scale, shift)
     _check_chunks(x, "tiled pair")
     plan = plan or _tiled_plan_of(x)
     out = torch.empty_like(x)
@@ -414,16 +425,9 @@ def gn_tiled_apply(x, sums, gamma, beta, scale=None, shift=None, groups=8, eps=1
     return _launch_apply(x, sums, gamma, beta, scale, shift, groups, eps)
 
 
-def groupnorm_film_silu(x, gamma, beta, scale=None, shift=None, groups=8, eps=1e-5):
-    """GroupNorm(groups, eps) · γ + β, then FiLM y·(scale+1)+shift, then SiLU.
-
-    x: [B, H, W, C] contiguous, float32 or bfloat16; gamma/beta: [C] float32;
-    scale/shift: [B, C] float32 or None.  Returns x's shape and type.
-    A CUDA tensor runs the single-pass kernel, or past the gate
-    (`large_block`) the tiled pair; a CPU tensor runs the plain version of
-    the same side of the gate.
-    """
-    _check(x, gamma, beta, scale, shift, groups)
+def _groupnorm_film_silu(x, gamma, beta, scale, shift, groups, eps):
+    """The kernels on a CUDA tensor (the single pass, or past the gate the
+    tiled pair), the plain version of the same side on a CPU tensor."""
     if not _device(x):
         return groupnorm_film_silu_plain(x, gamma, beta, scale, shift, groups, eps)
     if not large_block(x.shape):
@@ -432,6 +436,41 @@ def groupnorm_film_silu(x, gamma, beta, scale=None, shift=None, groups=8, eps=1e
     plan = _tiled_plan_of(x)
     return _launch_apply(x, _launch_stats(x, plan), gamma, beta, scale, shift, groups, eps, plan,
                          after_stats=True)
+
+
+class GroupNormFilmSiLUFn(torch.autograd.Function):
+    """`groupnorm_film_silu` with a gradient: the forward saves only its
+    inputs (x, γ, β, scale, shift) and the backward is autograd through
+    `groupnorm_film_silu_reference` on them, the JAX package's
+    `_gn_vjp_bwd`.  Without FiLM, scale and shift are None and get None."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, scale, shift, groups, eps):
+        ctx.groups, ctx.eps = groups, eps
+        ctx.save_for_backward(x, gamma, beta, scale, shift)
+        return _groupnorm_film_silu(x, gamma, beta, scale, shift, groups, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        fn = lambda *a: groupnorm_film_silu_reference(*a, ctx.groups, ctx.eps)
+        return recompute_grads(fn, ctx.saved_tensors, ctx.needs_input_grad[:5], grad) + (None, None)
+
+
+def groupnorm_film_silu(x, gamma, beta, scale=None, shift=None, groups=8, eps=1e-5):
+    """GroupNorm(groups, eps) · γ + β, then FiLM y·(scale+1)+shift, then SiLU.
+
+    x: [B, H, W, C] contiguous, float32 or bfloat16; gamma/beta: [C] float32;
+    scale/shift: [B, C] float32 or None.  Returns x's shape and type.
+    A CUDA tensor runs the single-pass kernel, or past the gate
+    (`large_block`) the tiled pair; a CPU tensor runs the plain version of
+    the same side of the gate.  Where autograd records the call, it goes
+    through `GroupNormFilmSiLUFn`; under `torch.no_grad()` it is the bare
+    call.
+    """
+    _check(x, gamma, beta, scale, shift, groups)
+    if needs_graph(x, gamma, beta, scale, shift):
+        return GroupNormFilmSiLUFn.apply(x, gamma, beta, scale, shift, groups, eps)
+    return _groupnorm_film_silu(x, gamma, beta, scale, shift, groups, eps)
 
 
 groupnorm_film_silu.launches = 0

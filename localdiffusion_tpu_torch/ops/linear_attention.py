@@ -26,6 +26,12 @@ raises outside it; a CPU tensor gets the plain version,
 CPU tensors (`kv_reference`: the blocks' partials, `kv_partials_reference`,
 merged by `merge_kv`; `q_pass_reference`), so `linear_attention_two_pass`
 runs the kernels' algorithm end to end on the CPU.
+
+Where autograd records the call, `linear_attention` goes through
+`LinearAttentionFn`, one Function over kv, the fold and q, whose backward
+recomputes through `linear_attention_reference` (the JAX package's `_bwd`
+through `linear_attention_folded_reference`); the kernels' own wrappers
+refuse such a call.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import threading
 import torch
 
 from localdiffusion_tpu_torch.ops import _build
+from localdiffusion_tpu_torch.ops.autograd import needs_graph, recompute_grads, refuse_graph
 
 HEADS, DIM_HEAD = 4, 32
 HIDDEN = HEADS * DIM_HEAD
@@ -225,6 +232,7 @@ def linear_attention_kv(x, g_in, wk, nb):
         if x.device.type != "cpu":
             raise ValueError(f"no kernel for device {x.device}")
         return kv_reference(x, g_in, wk, nb)
+    refuse_graph("linear_attention_kv", x, g_in, wk)
     _check_aligned(x=x, wk=wk)
     m = torch.empty((b, HIDDEN), dtype=torch.float32, device=x.device)
     l = torch.empty_like(m)
@@ -307,6 +315,7 @@ def linear_attention_q(x, g_in, wq, wtil, b_out, g_out):
         if x.device.type != "cpu":
             raise ValueError(f"no kernel for device {x.device}")
         return q_pass_reference(x, g_in, wq, wtil, b_out, g_out)
+    refuse_graph("linear_attention_q", x, g_in, wq, wtil, b_out, g_out)
     _check_aligned(x=x, wq=wq, wtil=wtil)
     out = torch.empty_like(x)
     fn = _lib().linear_attention_q
@@ -353,13 +362,40 @@ def linear_attention_two_pass(x, g_in, w_qkv, w_out, b_out, g_out):
     return out.reshape(b, h, w, c)
 
 
+def _linear_attention(x, g_in, w_qkv, w_out, b_out, g_out, heads, dim_head):
+    """The two kernels on a CUDA tensor, the plain version on a CPU one."""
+    if x.is_cuda:
+        return linear_attention_two_pass(x, g_in, w_qkv, w_out, b_out, g_out)
+    return linear_attention_reference(x, g_in, w_qkv, w_out, b_out, g_out, heads, dim_head)
+
+
+class LinearAttentionFn(torch.autograd.Function):
+    """`linear_attention` with a gradient, over the whole two-pass function
+    (kv, the fold, q): the forward saves x and the parameters as given
+    (`models.blocks.LinearAttention` hands views of its `nn.Parameter`s,
+    which carry the gradients back), and the backward is autograd through
+    `linear_attention_reference` on them."""
+
+    @staticmethod
+    def forward(ctx, x, g_in, w_qkv, w_out, b_out, g_out, heads, dim_head):
+        ctx.heads, ctx.dim_head = heads, dim_head
+        ctx.save_for_backward(x, g_in, w_qkv, w_out, b_out, g_out)
+        return _linear_attention(x, g_in, w_qkv, w_out, b_out, g_out, heads, dim_head)
+
+    @staticmethod
+    def backward(ctx, grad):
+        fn = lambda *a: linear_attention_reference(*a, ctx.heads, ctx.dim_head)
+        return recompute_grads(fn, ctx.saved_tensors, ctx.needs_input_grad[:6], grad) + (None, None)
+
+
 def linear_attention(x, g_in, w_qkv, w_out, b_out, g_out, heads=HEADS,
                      dim_head=DIM_HEAD):
     """LinearAttention without the residual, x [B, H, W, C].
 
     A CUDA tensor must be contiguous and inside `supports`, and runs the two
     kernels; a CPU tensor runs the plain version,
-    `linear_attention_reference`.
+    `linear_attention_reference`.  Where autograd records the call, it goes
+    through `LinearAttentionFn`.
     """
     if x.is_cuda:
         if not supports(x.shape, heads, dim_head, x.dtype):
@@ -369,7 +405,9 @@ def linear_attention(x, g_in, w_qkv, w_out, b_out, g_out, heads=HEADS,
             )
         if not x.is_contiguous():
             raise ValueError("x must be contiguous")
-        return linear_attention_two_pass(x, g_in, w_qkv, w_out, b_out, g_out)
-    if x.device.type != "cpu":
+    elif x.device.type != "cpu":
         raise ValueError(f"no kernel for device {x.device}")
-    return linear_attention_reference(x, g_in, w_qkv, w_out, b_out, g_out, heads, dim_head)
+    params = (g_in, w_qkv, w_out, b_out, g_out)
+    if needs_graph(x, *params):
+        return LinearAttentionFn.apply(x, *params, heads, dim_head)
+    return _linear_attention(x, *params, heads, dim_head)

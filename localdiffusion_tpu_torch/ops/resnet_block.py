@@ -29,16 +29,26 @@ On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it computes its plain version (`conv_stats_reference`,
 `epilogue_reference`).  The tile grid depends on H and W alone, never on
 the batch, so a row's result does not depend on the rows beside it.
+
+Where autograd records the call, `resnet_block_fused` goes through
+`ResnetBlockFn`, one Function over the three passes, whose inputs are x,
+the FiLM pair and the block's ten parameter tensors (`BlockParams`), so
+that each gets its gradient; its backward recomputes through
+`resnet_block_reference`, the counterpart of the JAX package's
+`_reference_normal` that its `_bwd_wfold` differentiates.  The kernels' own
+wrappers refuse such a call.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from localdiffusion_tpu_torch.ops import _build
+from localdiffusion_tpu_torch.ops.autograd import needs_graph, recompute_grads, refuse_graph
 
 LANES = 128
 MIN_HW = 4096  # the JAX ResnetBlock fuses at this many pixels (h·w)
@@ -283,6 +293,7 @@ def conv3x3_stats(x, w, bias, a=None, b=None):
         _check_param("b", b, (bsz, cin), torch.float32, x.device)
     if not _runs_kernel(x):
         return conv_stats_reference(x, w, bias, a, b)
+    refuse_graph("conv3x3_stats", x, w, bias, a, b)
     _kernel_channels("conv3x3_stats", cout, cin)
     for name, t in (("x", x), ("w", w), ("a", a), ("b", b)):
         if t is not None and t.data_ptr() % 16:
@@ -343,6 +354,7 @@ def _launch_epilogue(h2, x, a, b, w_res, b_res, plan=None):
     (its `blocks`) where a test asks for another."""
     bsz, hh, ww, c = h2.shape
     cin = x.shape[3]
+    refuse_graph("epilogue", h2, x, a, b, w_res, b_res)
     _kernel_channels("epilogue", c, cin)
     for name, t in (("h2", h2), ("x", x), ("a", a), ("b", b), ("w_res", w_res), ("b_res", b_res)):
         if t is not None and t.data_ptr() % 16:
@@ -377,25 +389,106 @@ epilogue.launches = 0
 # the whole block
 # ---------------------------------------------------------------------------
 
-def _three_pass(x, block, scale_shift, conv, epi):
-    """Pass 1, fold, pass 2, fold, pass 3 with the given pass functions.
-    `block` is the port's ResnetBlock module: its float32 parameters are laid
-    out for the kernels on each call."""
-    b1, b2 = block.block1, block.block2
+class BlockParams(NamedTuple):
+    """The parameters of the port's ResnetBlock that the fused block reads,
+    as the module holds them (float32): the 3×3 convs [Cout, Cin, 3, 3]
+    and biases, the GroupNorms' γ and β, and the 1×1 res_conv [Cout, Cin,
+    1, 1] with its bias, or None for the identity."""
+
+    w1: torch.Tensor
+    b1: torch.Tensor
+    g1: torch.Tensor
+    be1: torch.Tensor
+    w2: torch.Tensor
+    b2: torch.Tensor
+    g2: torch.Tensor
+    be2: torch.Tensor
+    w_res: Optional[torch.Tensor]
+    b_res: Optional[torch.Tensor]
+
+
+def block_params(block) -> BlockParams:
+    """The `BlockParams` of a `models.blocks.ResnetBlock` (its own tensors,
+    not copies)."""
+    b1, b2, res = block.block1, block.block2, block.res_conv
+    return BlockParams(b1.proj.weight, b1.proj.bias, b1.norm.weight, b1.norm.bias,
+                       b2.proj.weight, b2.proj.bias, b2.norm.weight, b2.norm.bias,
+                       None if res is None else res.weight, None if res is None else res.bias)
+
+
+def _three_pass(x, p: BlockParams, scale_shift, groups, conv, epi):
+    """Pass 1, fold, pass 2, fold, pass 3 with the given pass functions;
+    the float32 parameters are laid out for the kernels on each call."""
     bsz, hh, ww, _ = x.shape
-    dim_out, groups = b1.proj.out_channels, b1.norm.groups
+    dim_out = p.w1.shape[0]
     n = hh * ww * (dim_out // groups)
     sc, sh = scale_shift if scale_shift is not None else (None, None)
-    h1, s1, ss1 = conv(x, pack_conv3x3(b1.proj.weight), b1.proj.bias.float().contiguous())
-    a1, c1 = gn_affine(s1, ss1, b1.norm.weight, b1.norm.bias, sc, sh, groups, n)
-    h2, s2, ss2 = conv(h1, pack_conv3x3(b2.proj.weight), b2.proj.bias.float().contiguous(),
-                       a1, c1)
-    a2, c2 = gn_affine(s2, ss2, b2.norm.weight, b2.norm.bias, None, None, groups, n)
+    h1, s1, ss1 = conv(x, pack_conv3x3(p.w1), p.b1.float().contiguous())
+    a1, c1 = gn_affine(s1, ss1, p.g1, p.be1, sc, sh, groups, n)
+    h2, s2, ss2 = conv(h1, pack_conv3x3(p.w2), p.b2.float().contiguous(), a1, c1)
+    a2, c2 = gn_affine(s2, ss2, p.g2, p.be2, None, None, groups, n)
     w_res = b_res = None
-    if block.res_conv is not None:
-        w_res = block.res_conv.weight[:, :, 0, 0].to(torch.bfloat16).contiguous()
-        b_res = block.res_conv.bias.float().contiguous()
+    if p.w_res is not None:
+        w_res = p.w_res[:, :, 0, 0].to(torch.bfloat16).contiguous()
+        b_res = p.b_res.float().contiguous()
     return epi(h2, x, a2, c2, w_res, b_res)
+
+
+def _reference(x, p: BlockParams, scale_shift, groups):
+    """The unfused block as `_reference_normal` computes it; see
+    `resnet_block_reference`."""
+
+    def conv(v, w, bias, pad):
+        y = F.conv2d(v.float().permute(0, 3, 1, 2), w.to(torch.bfloat16).float(),
+                     padding=pad).permute(0, 2, 3, 1).to(torch.bfloat16)
+        return y + bias.to(torch.bfloat16)
+
+    def gn(h, gamma, beta, scale, shift):
+        bsz, hh, ww, c = h.shape
+        cg = c // groups
+        hf = h.float()
+        s = hf.sum(dim=(1, 2)).reshape(bsz, groups, cg).sum(-1)
+        ss = (hf * hf).sum(dim=(1, 2)).reshape(bsz, groups, cg).sum(-1)
+        n = hh * ww * cg
+        mean = s / n
+        inv = torch.rsqrt(torch.clamp(ss / n - mean * mean, min=0.0) + 1e-5)
+        mean_c = mean.repeat_interleave(cg, dim=1)[:, None, None, :]
+        a_c = (inv.repeat_interleave(cg, dim=1) * gamma.float())[:, None, None, :]
+        y = (hf - mean_c) * a_c + beta.float()
+        if scale is not None:
+            y = y * (scale.float()[:, None, None, :] + 1.0) + shift.float()[:, None, None, :]
+        return (y * torch.sigmoid(y)).to(torch.bfloat16)
+
+    sc, sh = scale_shift if scale_shift is not None else (None, None)
+    h = gn(conv(x, p.w1, p.b1, 1), p.g1, p.be1, sc, sh)
+    h = gn(conv(h, p.w2, p.b2, 1), p.g2, p.be2, None, None)
+    return h + (x if p.w_res is None else conv(x, p.w_res, p.b_res, 0))
+
+
+class ResnetBlockFn(torch.autograd.Function):
+    """`resnet_block_fused` with a gradient: x, scale, shift and the ten
+    `BlockParams` tensors are the Function's inputs, so each gets its
+    gradient (scale and shift carry it to the block's time MLP); the forward
+    runs the three passes and saves only its inputs, and the backward is
+    autograd through `resnet_block_reference`'s function on them (the JAX
+    package's `_bwd_wfold` through `_reference_normal`)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, shift, groups, *params):
+        ctx.groups = groups
+        ctx.save_for_backward(x, scale, shift, *params)
+        ss = None if scale is None else (scale, shift)
+        return _three_pass(x, BlockParams(*params), ss, groups, conv3x3_stats, epilogue)
+
+    @staticmethod
+    def backward(ctx, grad):
+        def fn(x, scale, shift, *params):
+            ss = None if scale is None else (scale, shift)
+            return _reference(x, BlockParams(*params), ss, ctx.groups)
+
+        needs = ctx.needs_input_grad[:3] + ctx.needs_input_grad[4:]
+        gx, gsc, gsh, *gp = recompute_grads(fn, ctx.saved_tensors, needs, grad)
+        return (gx, gsc, gsh, None, *gp)
 
 
 def resnet_block_fused(x, block, scale_shift=None):
@@ -406,51 +499,31 @@ def resnet_block_fused(x, block, scale_shift=None):
     each [B, dim_out] float32, or None.  Returns [B, H, W, dim_out] bf16.  A
     CUDA tensor must be inside `supports_normal` and launches
     `conv3x3_stats` twice and `epilogue` once; a CPU tensor runs their plain
-    versions."""
+    versions.  Where autograd records the call, it goes through
+    `ResnetBlockFn`."""
     dim_out, groups = block.block1.proj.out_channels, block.block1.norm.groups
     if x.is_cuda and not supports_normal(x.shape, dim_out, groups):
         raise ValueError(f"the fused block does not take {tuple(x.shape)} with "
                          f"dim_out={dim_out} groups={groups}")
-    return _three_pass(x, block, scale_shift, conv3x3_stats, epilogue)
+    p = block_params(block)
+    sc, sh = scale_shift if scale_shift is not None else (None, None)
+    if needs_graph(x, sc, sh, *p):
+        return ResnetBlockFn.apply(x, sc, sh, groups, *p)
+    return _three_pass(x, p, scale_shift, groups, conv3x3_stats, epilogue)
 
 
 def resnet_block_fused_plain(x, block, scale_shift=None):
     """The same three passes through the kernels' plain versions, on any
     device: what `resnet_block_fused` computes, for comparing a chain with
-    and without the kernels."""
-    return _three_pass(x, block, scale_shift, conv_stats_reference, epilogue_reference)
+    and without the kernels (differentiable by autograd as it stands)."""
+    return _three_pass(x, block_params(block), scale_shift, block.block1.norm.groups,
+                       conv_stats_reference, epilogue_reference)
 
 
 def resnet_block_reference(x, block, scale_shift=None):
     """The unfused block as the JAX package's `_reference_normal` computes it
-    (for tests): convs in bf16 with float32 sums and a bf16 bias, the
-    GroupNorm one-pass in float32 then SiLU rounded to bf16, the bf16 1×1
-    res_conv, and the sum in bf16.  Arguments as `resnet_block_fused`."""
-    groups = block.block1.norm.groups
-
-    def conv(v, conv_mod, pad):
-        y = F.conv2d(v.float().permute(0, 3, 1, 2), conv_mod.weight.to(torch.bfloat16).float(),
-                     padding=pad).permute(0, 2, 3, 1).to(torch.bfloat16)
-        return y + conv_mod.bias.to(torch.bfloat16)
-
-    def gn(h, norm, scale, shift):
-        bsz, hh, ww, c = h.shape
-        cg = c // groups
-        hf = h.float()
-        s = hf.sum(dim=(1, 2)).reshape(bsz, groups, cg).sum(-1)
-        ss = (hf * hf).sum(dim=(1, 2)).reshape(bsz, groups, cg).sum(-1)
-        n = hh * ww * cg
-        mean = s / n
-        inv = torch.rsqrt(torch.clamp(ss / n - mean * mean, min=0.0) + 1e-5)
-        mean_c = mean.repeat_interleave(cg, dim=1)[:, None, None, :]
-        a_c = (inv.repeat_interleave(cg, dim=1) * norm.weight.float())[:, None, None, :]
-        y = (hf - mean_c) * a_c + norm.bias.float()
-        if scale is not None:
-            y = y * (scale.float()[:, None, None, :] + 1.0) + shift.float()[:, None, None, :]
-        return (y * torch.sigmoid(y)).to(torch.bfloat16)
-
-    sc, sh = scale_shift if scale_shift is not None else (None, None)
-    b1, b2 = block.block1, block.block2
-    h = gn(conv(x, b1.proj, 1), b1.norm, sc, sh)
-    h = gn(conv(h, b2.proj, 1), b2.norm, None, None)
-    return h + (x if block.res_conv is None else conv(x, block.res_conv, 0))
+    (for tests, and the fused block's backward): convs in bf16 with float32
+    sums and a bf16 bias, the GroupNorm one-pass in float32 then SiLU
+    rounded to bf16, the bf16 1×1 res_conv, and the sum in bf16.  Arguments
+    as `resnet_block_fused`."""
+    return _reference(x, block_params(block), scale_shift, block.block1.norm.groups)

@@ -1,0 +1,186 @@
+"""Train the denoiser of a configuration: the port of `scripts/train.py`.
+
+    python -m localdiffusion_tpu_torch.scripts.train --config mri256 --steps 400
+        [--step-mode resident|epoch|batch] [--batch-size N] [--results DIR]
+        [--eval-every N] [--resume auto|never] [--init-npz NPZ]
+        [--dtype float32|bfloat16] [--export-npz NPZ] [--device cuda|cpu]
+
+`--config` names a configuration of `config.CONFIGS` (no YAML on the card's
+machine).  Steps (`train.trainer.Trainer`): 'resident' (the default) keeps
+the training set on the device and takes one optimizer step an epoch over
+its drop-last batches; 'epoch' streams the epoch's batches from the host
+(the short last batch included) into one step; 'batch' takes one step a
+batch.  Each step's draws come from a generator seeded from (seed, step),
+so a resumed run draws what the uninterrupted run drew.  Every
+`--eval-every` steps (default a quarter of the run) the EMA model samples 8
+test images; the best milestone and `model-latest.pt` are saved under
+`<results>/<project_name>`, with `best_eval.json` and an append-only
+`train_loss.csv`.  `--init-npz` warm-starts the parameters and the EMA
+from a slim npz (the optimizer starts fresh); `--export-npz` writes the
+final EMA as one, which `factory.load_params` and the JAX package's
+`load_params_npz` read.  On the card unless `--device cpu`.
+
+Datasets: `synthetic_brain` (256 training brains, seed 42; 32 test brains,
+seed 7, as the JAX script makes them).  The MNIST, BraTS and MVTec readers
+are not ported yet, and the multi-host and FSDP flags neither.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import time
+
+import numpy as np
+import torch
+
+from localdiffusion_tpu_torch.config import Config, config_by_name, min_max_val_for
+from localdiffusion_tpu_torch.data.loader import ArrayLoader
+from localdiffusion_tpu_torch.data.synthetic import synthetic_brain_translation
+from localdiffusion_tpu_torch.diffusion.gaussian import build_gd, resolve_device
+from localdiffusion_tpu_torch.train.trainer import (
+    Trainer,
+    load_best_eval,
+    record_best_eval,
+    round_milestone,
+)
+from localdiffusion_tpu_torch.utils.logging import CsvLogger, Timer
+from localdiffusion_tpu_torch.utils.params_io import load_params_npz, save_params_npz
+
+EVAL_IMAGES = 8
+
+
+def build_dataset(cfg: Config):
+    """((hr, lr) train, (hr, lr) test) NHWC float32 arrays of the
+    configuration's dataset."""
+    d = cfg.data
+    if d.name != "synthetic_brain":
+        raise NotImplementedError(
+            f"dataset {d.name!r}: the port's data readers (MNIST, BraTS, MVTec) are "
+            "ROADMAP queue 1, item 6; train on 'synthetic_brain'")
+    size = cfg.diffusion.image_size
+    norm = dict(mean_t1=d.mean_t1, std_t1=d.std_t1, mean_flair=d.mean_flair,
+                std_flair=d.std_flair, translate_zero=d.translate_zero)
+    hr, lr, _ = synthetic_brain_translation(256, size, tumor=False, seed=42, **norm)
+    hr_te, lr_te, _ = synthetic_brain_translation(32, size, tumor=False, seed=7, **norm)
+    return (hr, lr), (hr_te, lr_te)
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The seed of a step's draws, from the run's seed and the step alone."""
+    return int(np.random.SeedSequence([int(seed), int(step)]).generate_state(1)[0])
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--config", default="mri256", help="a configuration name of config.CONFIGS")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="optimizer steps (default: the configuration's num_steps)")
+    ap.add_argument("--batch-size", type=int, default=None,
+                    help="default: the configuration's train.batch_size")
+    ap.add_argument("--results", default=None, help="results directory (default: the "
+                    "configuration's train.results_dir)")
+    ap.add_argument("--step-mode", choices=["resident", "epoch", "batch"], default="resident")
+    ap.add_argument("--eval-every", type=int, default=None)
+    ap.add_argument("--resume", choices=["auto", "never"], default="auto",
+                    help="auto: resume from model-latest.pt if it is there")
+    ap.add_argument("--init-npz", default=None,
+                    help="warm-start params and EMA from a slim npz; the optimizer starts fresh")
+    ap.add_argument("--dtype", choices=["float32", "bfloat16"], default=None,
+                    help="compute dtype (default: the configuration's)")
+    ap.add_argument("--export-npz", default=None, help="write the final EMA to this slim npz")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = config_by_name(args.config)
+    over = {"batch_size": args.batch_size or cfg.train.batch_size}
+    if args.results:
+        over["results_dir"] = args.results
+    if args.dtype:
+        over["compute_dtype"] = args.dtype
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, **over))
+    bs = cfg.train.batch_size
+
+    gd = build_gd(cfg, device=device)
+    trainer = Trainer(gd, cfg.train)
+    print(f"Total number of parameters: {sum(p.numel() for p in trainer.params)}")
+    if args.init_npz:
+        gd.model.load_state_dict(load_params_npz(args.init_npz, gd.model))
+        trainer.reset_ema()
+        print(f"warm-started params from {args.init_npz}")
+    latest = trainer.checkpoint_path("latest")
+    if args.resume == "auto" and os.path.exists(latest):
+        trainer.load("latest")
+        print(f"auto-resumed from {latest} at step {trainer.step}")
+    start_step = trainer.step
+
+    (hr_tr, lr_tr), (hr_te, lr_te) = build_dataset(cfg)
+    print(f"train {len(hr_tr)} / test {len(hr_te)} samples")
+    dl = ArrayLoader(hr_tr, lr_tr, batch_size=bs, seed=42)
+    steps = args.steps if args.steps is not None else cfg.train.num_steps
+    save_every = args.eval_every or max(1, steps // 4)
+    best = load_best_eval(trainer.results_dir) if args.resume == "auto" else float("inf")
+    if best < float("inf"):
+        print(f"best-eval tracker resumed at {best:.5f}")
+
+    os.makedirs(trainer.results_dir, exist_ok=True)
+    csv_path = os.path.join(trainer.results_dir, "train_loss.csv")
+    if start_step == 0 and os.path.exists(csv_path):
+        os.replace(csv_path, csv_path + ".prev")  # a fresh run: keep the old log aside
+    logger = CsvLogger(csv_path, ["step", "loss", "time_s"])
+    timer = Timer()
+    sync = torch.cuda.synchronize if device.type == "cuda" else None
+    if args.step_mode == "resident":
+        data_hr, data_lr = (torch.as_tensor(a, device=device) for a in (hr_tr, lr_tr))
+    mmv = min_max_val_for(cfg)
+    losses, evals = [], []
+    t0 = time.time()
+    try:
+        for step in range(start_step, steps):
+            draws = torch.Generator(device=device).manual_seed(step_seed(cfg.train.seed, step))
+            with timer.time("train_step", sync):
+                if args.step_mode == "resident":
+                    loss = trainer.train_epoch_resident(data_hr, data_lr, draws)
+                elif args.step_mode == "epoch":
+                    loss = trainer.train_epoch_step(dl.epoch_batches(step), draws)
+                else:
+                    hr_b, lr_b = next(iter(dl.epoch_batches(step)))
+                    loss = trainer.train_batch_step(hr_b, lr_b, draws)
+            losses.append(loss)
+            logger.log(step=step, loss=loss, time_s=f"{time.time() - t0:.2f}")
+            if step % 10 == 0 or step == steps - 1:
+                print(f"step {step}: loss {loss:.5f} ({time.time() - t0:.1f}s)")
+            if (step + 1) % save_every == 0 or step == steps - 1:
+                with timer.time("eval_sample", sync):
+                    m = trainer.eval_sample_mse(hr_te[:EVAL_IMAGES], lr_te[:EVAL_IMAGES], 0,
+                                                min_max_val=mmv)
+                evals.append(m)
+                print(f"  eval sample MSE: {m:.5f}")
+                if m < best:
+                    best = m
+                    milestone = "best" + round_milestone(step + 1)
+                    trainer.save(milestone)
+                    record_best_eval(trainer.results_dir, m, milestone)
+                    print(f"  saved {milestone}")
+                with timer.time("checkpoint"):
+                    trainer.save("latest")
+        trainer.save("latest")
+    finally:
+        logger.close()
+    if args.export_npz:
+        save_params_npz(args.export_npz, trainer.ema_model.state_dict())
+        print(f"exported the EMA to {args.export_npz}")
+    phase_means = {k: f"{v * 1e3:.1f}ms" for k, v in timer.summary().items()}
+    print(f"phase means: {phase_means}")
+    print("done")
+    return dict(start_step=start_step, step=trainer.step, losses=losses, evals=evals,
+                best=best, phase_means_s=timer.summary(), results_dir=trainer.results_dir)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,260 @@
+"""Training: EMA, clip + Adam, the three step modes, checkpoints.
+
+Port of `localdiffusion_tpu/train/trainer.py`, on one device:
+
+  * the EMA copy follows ema_pytorch's warm-up (`EmaConfig`,
+    `ema_decay_for_step`), updated every `update_every` steps;
+  * the optimizer is optax's `clip_by_global_norm` then Adam(lr, β = (0.9,
+    0.99), eps 1e-8): the clip is written out with optax's formula, Adam is
+    `torch.optim.Adam`, which computes the same update; parameters, their
+    gradients and the optimizer's state stay float32 whatever the compute
+    type;
+  * three steps: one batch (`train_batch_step`), an epoch of streamed
+    batches accumulated into one step (`train_epoch_step`, the reference's
+    full-dataset accumulation), and the same over a dataset that lives on
+    the device (`train_epoch_resident`, drop-last, the permutation drawn on
+    the device);
+  * every forward and backward runs inside `utils.precision.full_float32`:
+    cuDNN and cuBLAS read the TF32 flags when the backward launches them;
+  * a checkpoint is one file, `model-<milestone>.pt` under
+    `results_dir/project_name`, holding the step, the parameters, the
+    optimizer's state and the EMA, written to a temporary file and then
+    renamed into place.  The JAX package writes Orbax directories, which the
+    card's machine cannot read or write (no Orbax there); this format is the
+    port's own.  `utils.params_io.save_params_npz` writes the EMA as the
+    slim npz that both packages load.
+
+The JAX package's mesh, FSDP and multi-host paths are not ported here
+(ROADMAP queue 1, item 11).
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import os
+from dataclasses import dataclass
+from typing import Iterable, Tuple
+
+import numpy as np
+import torch
+
+from localdiffusion_tpu_torch.config import TrainConfig
+from localdiffusion_tpu_torch.diffusion.gaussian import GaussianDiffusion, as_draws
+from localdiffusion_tpu_torch.diffusion.sampler import ddpm_sample_plain
+from localdiffusion_tpu_torch.utils.precision import full_float32
+
+
+@dataclass(frozen=True)
+class EmaConfig:
+    beta: float = 0.995
+    update_every: int = 10
+    update_after_step: int = 100
+    inv_gamma: float = 1.0
+    power: float = 2.0 / 3.0
+    min_value: float = 0.0
+
+
+def ema_decay_for_step(step: int, cfg: EmaConfig) -> float:
+    """ema_pytorch's warm-up decay, in float32 as the JAX package computes
+    it: 0 until `update_after_step`, then clamp(1 − (1 + s/inv_gamma)^−power,
+    min_value, beta) with s = max(step − update_after_step − 1, 0)."""
+    if step <= cfg.update_after_step:
+        return 0.0
+    f = np.float32
+    s = f(max(step - cfg.update_after_step - 1, 0))
+    value = f(1.0) - (f(1.0) + s / f(cfg.inv_gamma)) ** f(-cfg.power)
+    return float(np.clip(value, f(cfg.min_value), f(cfg.beta)))
+
+
+@torch.no_grad()
+def ema_update(ema_params, params, step: int, cfg: EmaConfig) -> None:
+    """e ← e·d + p·(1 − d) in place, d = `ema_decay_for_step(step)`, on the
+    steps where step % update_every == 0; the EMA is left as it is on the
+    others."""
+    if step % cfg.update_every:
+        return
+    decay = np.float32(ema_decay_for_step(step, cfg))
+    ema_params, params = list(ema_params), list(params)
+    torch._foreach_mul_(ema_params, float(decay))
+    torch._foreach_add_(ema_params, torch._foreach_mul(params, float(np.float32(1.0) - decay)))
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
+    """optax's `clip_by_global_norm`, in place: where the global norm ‖g‖
+    (over every gradient) reaches max_norm, each g becomes g / ‖g‖ ·
+    max_norm; below it g is left as it is.  No epsilon is added to the norm
+    (`torch.nn.utils.clip_grad_norm_` adds 1e-6).  The choice is made on the
+    device, so the step waits for no copy to the host.  Returns ‖g‖."""
+    grads = list(grads)
+    norm = torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
+    keep = norm < max_norm
+    one = torch.ones((), device=norm.device)
+    div = torch.where(keep, one, norm)
+    mul = torch.where(keep, one, torch.full((), float(max_norm), device=norm.device))
+    for g in grads:
+        g.div_(div).mul_(mul)
+    return norm
+
+
+def make_optimizer(params, cfg: TrainConfig) -> torch.optim.Adam:
+    """Adam(lr, β = (adam_b1, adam_b2), eps 1e-8), optax's `adam` (eps_root
+    0); the clip runs before it in `Trainer._apply`."""
+    return torch.optim.Adam(params, lr=cfg.lr, betas=(cfg.adam_b1, cfg.adam_b2), eps=1e-8)
+
+
+class Trainer:
+    """Trains the UNet of `gd` in place on its device.
+
+    It holds the step, the optimizer and `ema_model`, a copy of the UNet
+    with its own storage on the same device; `ema_gd` is an engine that
+    samples with it.  Each step's random numbers come from the `draws`
+    given to it (a `torch.Generator` on the device, or
+    `diffusion.gaussian.ArrayDraws`)."""
+
+    def __init__(self, gd: GaussianDiffusion, cfg: TrainConfig, ema_cfg: EmaConfig = EmaConfig()):
+        self.gd = gd
+        self.cfg = cfg
+        self.ema_cfg = ema_cfg
+        self.model = gd.model
+        self.params = list(self.model.parameters())
+        if any(p.dtype != torch.float32 for p in self.params):
+            raise TypeError("the trained parameters must be float32")
+        self.optimizer = make_optimizer(self.params, cfg)
+        self.ema_model = copy.deepcopy(self.model).requires_grad_(False)
+        self.ema_gd = copy.copy(gd)
+        self.ema_gd.model = self.ema_model
+        self.step = 0
+        self.results_dir = os.path.join(cfg.results_dir, cfg.project_name)
+
+    def reset_ema(self) -> None:
+        """EMA ← the current parameters (a warm start's `--init-npz`)."""
+        with torch.no_grad():
+            for e, p in zip(self.ema_model.parameters(), self.params):
+                e.copy_(p)
+
+    def _as_tensors(self, *arrays):
+        return tuple(torch.as_tensor(a, device=self.gd.device) for a in arrays)
+
+    def _accumulate(self, batches: Iterable[Tuple], n: int, draws) -> torch.Tensor:
+        """Σ over the batches of ∇(loss/n) into the parameters' `.grad`, in
+        batch order; returns Σ loss/n (a device scalar)."""
+        self.optimizer.zero_grad(set_to_none=True)
+        total = torch.zeros((), device=self.gd.device)
+        with full_float32():
+            for hr, lr in batches:
+                loss = self.gd.loss(hr, lr, draws) * (1.0 / n)
+                loss.backward()
+                total = total + loss.detach()
+        return total
+
+    def _apply(self) -> None:
+        """Clip, Adam, step + 1, then the EMA of the new step."""
+        clip_by_global_norm([p.grad for p in self.params], self.cfg.max_grad_norm)
+        self.optimizer.step()
+        self.step += 1
+        ema_update(self.ema_model.parameters(), self.params, self.step, self.ema_cfg)
+
+    def train_batch_step(self, hr, lr, draws) -> float:
+        """One optimizer step on one batch (NHWC arrays or tensors); returns
+        its loss."""
+        loss = self._accumulate([self._as_tensors(hr, lr)], 1, draws)
+        self._apply()
+        return float(loss)
+
+    def train_epoch_step(self, batches: Iterable[Tuple], draws) -> float:
+        """One optimizer step over an epoch of (hr, lr) batches: each
+        batch's loss scaled by 1/n, n the number of batches (a short last
+        batch counts as one), the gradients summed.  Returns Σ loss/n."""
+        batches = [self._as_tensors(hr, lr) for hr, lr in batches]
+        loss = self._accumulate(batches, len(batches), draws)
+        self._apply()
+        return float(loss)
+
+    def train_epoch_resident(self, data_hr: torch.Tensor, data_lr: torch.Tensor, draws) -> float:
+        """One optimizer step over a dataset on the device: a permutation of
+        its n rows drawn from `draws` on the device, nb = n // batch_size
+        microbatches of its first nb·batch_size entries (drop-last), each
+        gathered on the device, accumulated as `train_epoch_step` does."""
+        draws = as_draws(draws)
+        n, bs = data_hr.shape[0], self.cfg.batch_size
+        nb = n // bs
+        if nb < 1:
+            raise ValueError(f"{n} rows make no batch of {bs}")
+        for name, t in (("data_hr", data_hr), ("data_lr", data_lr)):
+            if t.device.type != self.gd.device.type or t.shape[0] != n:
+                raise ValueError(f"{name} must hold {n} rows on {self.gd.device}, "
+                                 f"got {tuple(t.shape)} on {t.device}")
+        perm = draws.permutation(n)[: nb * bs]
+        batches = ((data_hr[i], data_lr[i]) for i in perm.reshape(nb, bs))
+        loss = self._accumulate(batches, nb, draws)
+        self._apply()
+        return float(loss)
+
+    def eval_sample_mse(self, hr, lr, noise, min_max_val=None) -> float:
+        """MSE of the EMA model's plain DDPM chain (`ddpm_sample_plain`, T
+        steps from the condition `lr`) against `hr`.  min_max_val is
+        required: the clip range depends on the data
+        (`config.min_max_val_for`)."""
+        if min_max_val is None:
+            raise ValueError("eval_sample_mse requires min_max_val "
+                             "(use localdiffusion_tpu_torch.config.min_max_val_for)")
+        hr, lr = self._as_tensors(hr, lr)
+        out = ddpm_sample_plain(self.ema_gd, lr, min_max_val, noise=noise)
+        return float(((out - hr) ** 2).mean())
+
+    # ------------------------------------------------------------------
+    # checkpoints
+    # ------------------------------------------------------------------
+    def checkpoint_path(self, milestone: str) -> str:
+        return os.path.join(self.results_dir, f"model-{milestone}.pt")
+
+    def save(self, milestone: str) -> str:
+        """Write the step, parameters, optimizer state and EMA to
+        `model-<milestone>.pt`, atomically; returns the path."""
+        path = self.checkpoint_path(milestone)
+        os.makedirs(self.results_dir, exist_ok=True)
+        tmp = path + ".tmp"
+        torch.save(dict(step=self.step, params=self.model.state_dict(),
+                        optimizer=self.optimizer.state_dict(),
+                        ema=self.ema_model.state_dict()), tmp)
+        os.replace(tmp, path)
+        return path
+
+    def load(self, milestone: str) -> None:
+        """Restore what `save` wrote onto this trainer's device (read on the
+        host first, so that Adam's step counts stay where Adam keeps them)."""
+        state = torch.load(self.checkpoint_path(milestone), map_location="cpu",
+                           weights_only=True)
+        self.model.load_state_dict(state["params"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.ema_model.load_state_dict(state["ema"])
+        self.step = int(state["step"])
+
+
+def round_milestone(step: int) -> str:
+    """Rounded milestone names (reference ddpm.py:1529-1530 round_num)."""
+    if step < 100:
+        return str(step)
+    return str(int(round(step / 100.0) * 100))
+
+
+def load_best_eval(results_dir: str) -> float:
+    """Best eval metric recorded by any previous run in results_dir."""
+    path = os.path.join(results_dir, "best_eval.json")
+    try:
+        with open(path) as f:
+            return float(json.load(f)["best"])
+    except (OSError, ValueError, KeyError):
+        return float("inf")
+
+
+def record_best_eval(results_dir: str, value: float, milestone: str) -> None:
+    """Atomically persist the new best eval metric + its milestone name."""
+    os.makedirs(results_dir, exist_ok=True)
+    path = os.path.join(results_dir, "best_eval.json")
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump({"best": float(value), "milestone": milestone}, f)
+    os.replace(tmp, path)

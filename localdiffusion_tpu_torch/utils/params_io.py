@@ -13,6 +13,12 @@ stored in slim npz snapshots as flat keys joined by '/' (fp16 storage).
 A module with another layout passes its own leaf rule (the SegUNet's
 transposed convs, `models/seg_unet.py`).  It raises on any leaf left over
 and on any parameter of the model missing.
+
+`params_to_jax` is the inverse for the denoiser (`torch_leaf`'s rules
+backwards), and `save_params_npz` writes its result as
+`localdiffusion_tpu/utils/params_io.py::save_params_npz` does: flat '/'
+keys, fp16 by default, compressed, so a port-trained model serves through
+`factory.load_params` and loads into the JAX package.
 """
 
 from __future__ import annotations
@@ -86,3 +92,36 @@ def load_params_npz(path: str, model: torch.nn.Module) -> Dict[str, torch.Tensor
     with np.load(path) as data:
         flat = {k: data[k].astype(np.float32) for k in data.files}
     return params_from_jax(flat, model)
+
+
+def jax_leaf(name: str, arr: np.ndarray):
+    """('/'-joined flax path, array) of one state-dict entry: the inverse
+    of `torch_leaf`.  A 1-D `weight` is a GroupNorm's `scale`."""
+    parts = name.split(".")
+    leaf = parts[-1]
+    if leaf == "weight":
+        if arr.ndim == 4:  # conv OIHW → HWIO
+            leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
+        elif arr.ndim == 2:  # Dense [out, in] → [in, out]
+            leaf, arr = "kernel", arr.T
+        else:
+            leaf = "scale"
+    return _SEP.join(["params"] + parts[:-1] + [leaf]), arr
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """A denoiser's `state_dict` as the JAX package's flat params
+    {'params/…/leaf': float32 array} (`jax_leaf` per entry)."""
+    out = {}
+    for name, t in state_dict.items():
+        path, arr = jax_leaf(name, t.detach().float().cpu().numpy())
+        out[path] = np.ascontiguousarray(arr)
+    return out
+
+
+def save_params_npz(path: str, state_dict: Mapping[str, torch.Tensor],
+                    dtype=np.float16) -> None:
+    """`params_to_jax(state_dict)` as one compressed npz, each leaf stored
+    as `dtype` (fp16 by default, as the JAX package's snapshots)."""
+    flat = {k: v.astype(dtype) for k, v in params_to_jax(state_dict).items()}
+    np.savez_compressed(path, **flat)

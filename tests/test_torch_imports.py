@@ -1,5 +1,5 @@
-"""The port imports nothing of JAX, flax, Orbax, YAML, scikit-learn or the
-JAX package.
+"""The port imports nothing of JAX, flax, optax, Orbax, YAML, scikit-learn
+or the JAX package.
 
 A subprocess blocks those modules (an entry of None in sys.modules makes
 their import fail) and imports every module of the port and chip_smoke;
@@ -7,7 +7,9 @@ another runs, at 32px on the CPU, the branches that import lazily: the seg
 detector from the shipped npz, the seg-encoder and WRN50-2 sources, and the
 classifier gate's WRN last resort; a third runs the evaluation entry
 points at 16px (the shipped denoiser, T=3): `factory.load_params` and
-`build_pipeline`, `run`, and the test, margin and gated-quality CLIs.
+`build_pipeline`, `run`, and the test, margin and gated-quality CLIs; a
+fourth the training CLI at 16px, a step in each mode, and its EMA npz
+back through `factory.load_params`.
 """
 
 import os
@@ -20,7 +22,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = textwrap.dedent(
     """
     import importlib, pkgutil, sys
-    for name in ("jax", "jaxlib", "flax", "orbax", "yaml", "sklearn", "localdiffusion_tpu"):
+    for name in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "sklearn",
+                 "localdiffusion_tpu"):
         sys.modules[name] = None
     import localdiffusion_tpu_torch as pkg
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -34,7 +37,8 @@ SCRIPT = textwrap.dedent(
 BRANCHES = textwrap.dedent(
     """
     import dataclasses, sys
-    for name in ("jax", "jaxlib", "flax", "orbax", "yaml", "sklearn", "localdiffusion_tpu"):
+    for name in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "sklearn",
+                 "localdiffusion_tpu"):
         sys.modules[name] = None
     import numpy as np
     from localdiffusion_tpu_torch import config as C
@@ -65,8 +69,8 @@ BRANCHES = textwrap.dedent(
 ENTRY_POINTS = textwrap.dedent(
     """
     import dataclasses, sys, tempfile
-    for name in ("jax", "jaxlib", "flax", "orbax", "yaml", "sklearn", "localdiffusion_tpu",
-                 "scripts"):
+    for name in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "sklearn",
+                 "localdiffusion_tpu", "scripts"):
         sys.modules[name] = None
     import numpy as np
     from localdiffusion_tpu_torch import config as C
@@ -103,6 +107,35 @@ ENTRY_POINTS = textwrap.dedent(
     """
 )
 
+TRAIN = textwrap.dedent(
+    """
+    import dataclasses, os, sys, tempfile
+    for name in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "sklearn",
+                 "localdiffusion_tpu", "scripts"):
+        sys.modules[name] = None
+    from localdiffusion_tpu_torch import config as C
+    from localdiffusion_tpu_torch.factory import load_params
+    from localdiffusion_tpu_torch.scripts import train
+
+    base = C.mri256_config()
+    C.CONFIGS["tiny"] = lambda: base.replace(
+        model=dataclasses.replace(base.model, dim=8, dim_mults=(1, 2), full_attn=(False, True),
+                                  cond_encoder_depth="auto", resnet_block_groups=4,
+                                  attn_heads=2, attn_dim_head=8),
+        diffusion=dataclasses.replace(base.diffusion, image_size=16, timesteps=3,
+                                      sampling_timesteps=None),
+        train=dataclasses.replace(base.train, compute_dtype="float32", batch_size=128))
+    with tempfile.TemporaryDirectory() as d:
+        for mode in ("resident", "epoch", "batch"):
+            npz = os.path.join(d, mode + ".npz")
+            out = train.main(["--config", "tiny", "--steps", "1", "--step-mode", mode,
+                              "--results", os.path.join(d, mode), "--export-npz", npz,
+                              "--device", "cpu"])
+            load_params(C.CONFIGS["tiny"](), params_npz=npz, device="cpu", verbose=False)
+            print("TRAINED", mode, out["step"])
+    """
+)
+
 # modules the port must have (a rename or a lost file shows here)
 REQUIRED = {
     "localdiffusion_tpu_torch.ops.attention",
@@ -132,6 +165,11 @@ REQUIRED = {
     "localdiffusion_tpu_torch.scripts.test",
     "localdiffusion_tpu_torch.scripts.eval_margins",
     "localdiffusion_tpu_torch.scripts.eval_gated_quality",
+    "localdiffusion_tpu_torch.ops.autograd",
+    "localdiffusion_tpu_torch.train.trainer",
+    "localdiffusion_tpu_torch.data.loader",
+    "localdiffusion_tpu_torch.utils.logging",
+    "localdiffusion_tpu_torch.scripts.train",
 }
 
 
@@ -161,6 +199,16 @@ def test_entry_points_run_without_jax_flax_orbax_yaml():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split()[-3:] == ["5", "2", "2"]
+
+
+def test_train_cli_runs_without_jax_flax_optax_orbax_yaml():
+    proc = subprocess.run(
+        [sys.executable, "-c", TRAIN], cwd=ROOT, capture_output=True, text=True,
+        timeout=300, env={**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "2"},
+    )
+    assert proc.returncode == 0, proc.stderr
+    done = [ln.split()[1:] for ln in proc.stdout.splitlines() if ln.startswith("TRAINED")]
+    assert done == [["resident", "1"], ["epoch", "1"], ["batch", "1"]]
 
 
 def test_blocked_module_really_fails():

@@ -16,7 +16,10 @@ input, where the fused blocks and linear attention engage): its scores
 on the card against the CPU's, and a gate that always accepts, whose
 chain equals the ungated chain bit for bit.  Last, the precision policy:
 the shipped s2d-stem checkpoint's UNet call, entered with both TF32 flags
-on, against the CPU at the stem's float32 bar.
+on, against the CPU at the stem's float32 bar.  Then training: each
+kernel's autograd Function at the 256px shapes, its gradients with the
+kernel's forward against the plain forward's autograd, and a row alone
+against the same row in a batch.
 
 Every test here needs an NVIDIA GPU and nvcc (the kernels have no CPU mode)
 and skips without one.  The module imports neither JAX nor the JAX package,
@@ -1099,3 +1102,117 @@ def test_stem_unet_with_tf32_on_matches_the_cpu(cuda_device):
     assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
     want = cpu.apply_model(torch.as_tensor(x), torch.as_tensor(cond), torch.as_tensor(t)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' autograd Functions (training)
+# ---------------------------------------------------------------------------
+# Each Function's backward is autograd through the plain reference on the
+# saved inputs, so with the kernel's forward its gradients are the plain
+# forward's autograd on the same inputs, within 1e-3 relative L2: cuDNN
+# may split the same convolution's backward otherwise from call to call,
+# which moves a bf16 value by a rounding step (105 of 12.6 million at the
+# res_conv block's x; 1 of 9,216 in a conv weight's float32 gradient,
+# which the conv reads in bf16; NVIDIA H100 80GB HBM3, 700 W).  A row alone against the same row in a batch:
+# PyTorch may reduce another batch in another order, which moves a bf16
+# gradient by a rounding step here and there: relative L2 <= 2e-3.
+
+def _grads_of(fn, inputs, cot):
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    return out, torch.autograd.grad(out, leaves, cot)
+
+
+def _assert_same_grads(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert float((g.float() - w.float()).norm() / w.float().norm()) <= 1e-3
+
+
+def _row0_alone(fn, batched_inputs, row_inputs, cot):
+    """Row 0's gradients (of the batched inputs) from a batch of B and from
+    row 0 alone."""
+    _, whole = _grads_of(fn, batched_inputs, cot)
+    _, alone = _grads_of(fn, [t[:1].clone() for t in row_inputs]
+                         + [t for t in batched_inputs[len(row_inputs):]], cot[:1].clone())
+    for g, a in zip(whole[:len(row_inputs)], alone[:len(row_inputs)]):
+        rel = float((g[:1].float() - a.float()).norm() / a.float().norm())
+        assert rel <= 2e-3, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 32, 32, 128), (8, 32, 32, 256)], ids=["single", "tiled"])
+def test_groupnorm_function_gradient_is_the_plain_autograd(cuda_device, shape):
+    x, g, b, s, h = _inputs(shape, True, torch.bfloat16, cuda_device)
+    cot = torch.randn(shape, device=cuda_device).to(torch.bfloat16)
+    counter = G.gn_tiled_apply if G.large_block(shape) else groupnorm_film_silu
+    before = counter.launches
+    out, got = _grads_of(lambda *a: groupnorm_film_silu(*a, groups=8), (x, g, b, s, h), cot)
+    assert counter.launches == before + 1  # the forward is the kernel's
+    assert type(out.grad_fn).__name__ == "GroupNormFilmSiLUFnBackward"
+    _, want = _grads_of(lambda *a: groupnorm_film_silu_reference(*a, groups=8), (x, g, b, s, h),
+                        cot)
+    _assert_same_grads(got, want)
+    fn = lambda xx, ss, hh, gg, bb: groupnorm_film_silu(xx, gg, bb, ss, hh, groups=8)
+    _row0_alone(fn, [x, s, h, g, b], [x, s, h], cot)
+
+
+@pytest.mark.cuda
+def test_attention_function_gradient_is_the_plain_autograd(cuda_device):
+    b, n, heads, d = 8, 1024, 4, 32
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    qkv = torch.randn(b, 3 * heads * d, 32, 32, generator=gen, device=cuda_device)
+    qkv = qkv.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    cot = torch.randn(b, n, heads, d, generator=gen, device=cuda_device).to(torch.bfloat16)
+
+    def views(t):
+        return [u.permute(0, 3, 1, 2) for u in t.reshape(t.shape[0], 3, heads, d, n).unbind(1)]
+
+    before = flash_attention.launches
+    out, got = _grads_of(lambda t: flash_attention(*views(t)), [qkv], cot)
+    assert flash_attention.launches == before + 1
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    _, want = _grads_of(lambda t: xla_attention(*views(t)), [qkv], cot)
+    _assert_same_grads(got, want)
+    _row0_alone(lambda t: flash_attention(*views(t)), [qkv], [qkv], cot)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 256, 256, 32), (8, 128, 128, 64), (8, 64, 64, 128)])
+def test_linear_attention_function_gradient_is_the_plain_autograd(cuda_device, shape):
+    x, params = _linatt_inputs(shape, cuda_device)
+    cot = (torch.randn(shape, device=cuda_device) * 0.1).to(torch.bfloat16)
+    before = LA.linear_attention_kv.launches, LA.linear_attention_q.launches
+    out, got = _grads_of(LA.linear_attention, [x, *params], cot)
+    assert (LA.linear_attention_kv.launches, LA.linear_attention_q.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert type(out.grad_fn).__name__ == "LinearAttentionFnBackward"
+    _, want = _grads_of(LA.linear_attention_reference, [x, *params], cot)
+    _assert_same_grads(got, want)
+    _row0_alone(LA.linear_attention, [x, *params], [x], cot)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dim_out", [((8, 256, 256, 32), 32), ((8, 128, 128, 96), 64)],
+                         ids=["identity", "res_conv"])
+def test_fused_block_function_gradient_is_the_plain_autograd(cuda_device, shape, dim_out):
+    mod = _rb_block(shape[-1], dim_out, cuda_device)
+    x, ss = _rb_inputs(shape, dim_out, cuda_device)
+    cot = (torch.randn(shape[:3] + (dim_out,), device=cuda_device) * 0.1).to(torch.bfloat16)
+    named = [(n, p) for n, p in mod.named_parameters() if not n.startswith("mlp.")]
+    names, params = [n for n, _ in named], [p for _, p in named]  # the FiLM comes as ss
+    before = RB.conv3x3_stats.launches, RB.epilogue.launches
+    leaves = [t.detach().requires_grad_(True) for t in (x, *ss)]
+    out = RB.resnet_block_fused(leaves[0], mod, (leaves[1], leaves[2]))
+    assert (RB.conv3x3_stats.launches, RB.epilogue.launches) == (before[0] + 2, before[1] + 1)
+    assert type(out.grad_fn).__name__ == "ResnetBlockFnBackward"
+    got = torch.autograd.grad(out, leaves + params, cot)
+    ref = RB.resnet_block_reference(leaves[0], mod, (leaves[1], leaves[2]))
+    want = torch.autograd.grad(ref, leaves + params, cot)
+    assert all(float(g.abs().max()) > 0 for g in got), names  # every parameter reached
+    _assert_same_grads(got, want)
+    row = [t[:1].clone().requires_grad_(True) for t in (x, *ss)]
+    alone = torch.autograd.grad(RB.resnet_block_fused(row[0], mod, (row[1], row[2])), row,
+                                cot[:1].clone())
+    for g, a in zip(got[:3], alone):
+        assert float((g[:1].float() - a.float()).norm() / a.float().norm()) <= 2e-3
