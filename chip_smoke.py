@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, training and dataset paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -8,8 +8,8 @@ Phases, each printed on its own line with the elapsed seconds:
 1. device: requires CUDA, prints the card's name and power limit and
    PyTorch's TF32 flags, which the script leaves at their defaults: the
    float32 phases (flagship, stem, the gated chain's float32 part, the
-   shipped checkpoints) are entered with both flags on, a user's worst
-   case, print them at entry and check at their exit that every block of
+   shipped checkpoints, the datasets) are entered with both flags on, a
+   user's worst case, print them at entry and check at their exit that every block of
    the port's precision policy (`utils/precision.py`) restored them; the
    kernel phases' comparisons with the plain versions run inside that
    policy's `full_float32` block;
@@ -173,6 +173,37 @@ Phases, each printed on its own line with the elapsed seconds:
     torch.profiler, split into forward, backward, clip + Adam and EMA on
     the device's timeline, with the step's busy share.
 
+20. datasets (entered with both TF32 flags on; the real MNIST, BraTS and
+    MVTec files are not in the repository, and the card's machine has no
+    PIL for the BraTS and MVTec PNGs): 2,048 + 2,048 seeded synthetic
+    digits written as MNIST idx files (images raw, labels gzipped, train
+    and t10k) under `build/datasets/`, read back exactly by
+    `load_mnist_arrays`; with every count at 0, through the command lines:
+    `scripts.train` on `mnist_train_config()` (2 epoch steps at batch 64,
+    T=250, f32, and its eval chain; the training set the idx files' digit
+    8), the bank CLI on `mnist_gated_config()` (the WRN50-2 at 84px over
+    200 digits), `scripts.test` on `mnist_8to5`, `mnist_usegt` and
+    `mnist_gated` (its gate on that bank) at 8 t10k images each; then
+    `mvtec_synthetic_config()` (64px, 3 channels, f32: 32 single-pass GN
+    and 3 f32 attention launches a UNet call): `scripts.train` for 4
+    resident steps over the 192 training textures at batch 16,
+    `scripts.test` on 16 defective textures (img/s, launches per chain),
+    its chain against the plain versions (same noise, 1e-3) and one UNet
+    call against the CPU (1e-3 abs+rel); one `scripts.test` batch of
+    `mvtec_denoise_config()`; each run's launches checked against its UNet
+    calls;
+21. self_cond (`mri256_config()` with self-conditioning and learned Fourier
+    time features, bf16, batch 8, seeded weights): a loss with the coin on
+    heads launches each kernel twice a UNet call's count (the no-grad
+    pre-pass and the grad pass), on tails once, its backward none; 4
+    batch steps through `Trainer` (coins heads, tails, heads, tails) with
+    learned features, then with random ones, whose weights come out
+    bit-unchanged; gradients with the kernels against the plain modules on
+    both coins (same t and noise; the training phase's bf16 bars); the
+    trained model's T=250 branched chain at batch 4 (zeros for the
+    estimate, as the samplers pass none) against its plain versions (the
+    256px chain bars).
+
 The line before the last is one JSON object with the kernels' numbers
 (each with `train_launches`, its launches in the training phase's main
 path, and `backward`, what its backward recomputes through); the last
@@ -185,10 +216,14 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gzip
 import hashlib
+import io
 import json
 import shutil
+import struct
 import subprocess
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -199,18 +234,27 @@ import torch.nn.functional as F
 
 from localdiffusion_tpu_torch.config import (
     flagship_config,
+    mnist_8to5_config,
+    mnist_gated_config,
+    mnist_train_config,
+    mnist_usegt_config,
     mri256_bf16_config,
     mri256_config,
     mri256_gated_config,
+    mvtec_denoise_config,
+    mvtec_synthetic_config,
     stem256_config,
 )
+from localdiffusion_tpu_torch.data.datasets import bank_images, test_arrays, train_arrays
+from localdiffusion_tpu_torch.data.mnist import MNISTDataset, load_mnist_arrays
 from localdiffusion_tpu_torch.data.loader import ArrayLoader
-from localdiffusion_tpu_torch.data.synthetic import synthetic_brain_translation
+from localdiffusion_tpu_torch.data.synthetic import synthetic_brain_translation, synthetic_digits
 from localdiffusion_tpu_torch.diffusion.gaussian import ArrayDraws, GaussianDiffusion, build_gd
 from localdiffusion_tpu_torch.diffusion.sampler import ArrayNoise
 from localdiffusion_tpu_torch.factory import (
     build_classifier_gate,
     build_frontend,
+    build_pipeline,
     classifier_bank_beside,
     load_params,
 )
@@ -231,7 +275,6 @@ from localdiffusion_tpu_torch.ood import patchcore as PC
 from localdiffusion_tpu_torch.ood.bank import (
     build_bank,
     build_classifier_bank,
-    calibration_images,
     classifier_calibration_pairs,
 )
 from localdiffusion_tpu_torch.ood.bank import main as bank_main
@@ -262,6 +305,7 @@ from localdiffusion_tpu_torch.ops.groupnorm import (
 )
 from localdiffusion_tpu_torch.pipeline import LocalDiffusionPipeline
 from localdiffusion_tpu_torch.scripts import eval_margins
+from localdiffusion_tpu_torch.scripts import test as test_script
 from localdiffusion_tpu_torch.scripts import train as train_script
 from localdiffusion_tpu_torch.serving import InferenceServer
 from localdiffusion_tpu_torch.train.trainer import Trainer, clip_by_global_norm, ema_update
@@ -675,9 +719,10 @@ def record_calls(gd, batch: int, cond_max: float) -> dict:
     handles = [m.register_forward_pre_hook(hooks[type(m)])
                for m in gd.model.modules() if type(m) in hooks]
     try:
-        s = gd.image_size
-        x = torch.randn(batch, s, s, 1, device="cuda")
-        feat = gd.encode_cond(torch.rand(batch, s, s, 1, device="cuda") * cond_max)
+        s, mc = gd.image_size, gd.model.cfg
+        x = torch.randn(batch, s, s, mc.channels, device="cuda")
+        feat = gd.encode_cond(torch.rand(batch, s, s, mc.resolved_cond_channels,
+                                         device="cuda") * cond_max)
         gd.apply_model(x, None, torch.full((batch,), 10, device="cuda"), cond_feat=feat)
         torch.cuda.synchronize()
     finally:
@@ -1722,7 +1767,7 @@ def stage_a256() -> dict:
 
     # (a) the bank: 200 normal brains → 819,200 patches → a 10% coreset
     t0 = time.perf_counter()
-    calib = calibration_images(cfg, STAGE_A_CALIB)
+    calib = bank_images(cfg, STAGE_A_CALIB)
     data_s = time.perf_counter() - t0
     STAGE_A_DIR.mkdir(parents=True, exist_ok=True)
     bank_path = str(STAGE_A_DIR / "memory_bank_mri256_denoiser.npy")
@@ -2528,7 +2573,7 @@ def _seg_wrn256() -> dict:
     checks["wrn_taps_rel_l2"] = rels
     n, k = WRN_KCENTER_CHECK
     emb = built["patchcore"].embed(OODFrontend(wcfg, patchcore=built["patchcore"])
-                                   ._preprocess_patchcore(calibration_images(wcfg, 20)))[:n]
+                                   ._preprocess_patchcore(bank_images(wcfg, 20)))[:n]
     proj = random_projection(emb.shape[1])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2874,16 +2919,18 @@ def _seeded(seed: int) -> torch.Generator:
     return torch.Generator(device="cuda").manual_seed(seed)
 
 
-def _grads(gd, x, cond, t, noise) -> tuple:
-    """(loss, {name: gradient on the CPU}) of one batch with the given t and
-    noise, the parameters' gradients cleared first."""
+def _grads(gd, x, cond, t, noise, coin=None) -> tuple:
+    """(loss, {name: gradient on the CPU}) of one batch with the given t,
+    noise and (self-conditioning) coin, the parameters' gradients cleared
+    first; a parameter that takes no gradient is left out."""
     gd.model.zero_grad(set_to_none=True)
     dev = gd.device
     with full_float32():
         loss = gd.loss(torch.as_tensor(x, device=dev), torch.as_tensor(cond, device=dev),
-                       ArrayDraws(dev, [t], [noise]))
+                       ArrayDraws(dev, [t], [noise], coins=[] if coin is None else [coin]))
         loss.backward()
-    grads = {k: p.grad.detach().float().cpu() for k, p in gd.model.named_parameters()}
+    grads = {k: p.grad.detach().float().cpu() for k, p in gd.model.named_parameters()
+             if p.requires_grad}
     gd.model.zero_grad(set_to_none=True)
     return loss.item(), grads
 
@@ -2973,7 +3020,7 @@ def _profile_step(tr, hr, lr, draws, label) -> dict:
         tr.step += 1
 
     def ema():
-        ema_update(tr.ema_model.parameters(), tr.params, tr.step, tr.ema_cfg)
+        ema_update(tr.ema_model.parameters(), tr.model.parameters(), tr.step, tr.ema_cfg)
 
     parts = (("forward", forward), ("backward", backward), ("clip_adam", clip_adam),
              ("ema", ema))
@@ -3002,7 +3049,8 @@ def _profile_step(tr, hr, lr, draws, label) -> dict:
                     for n, v in split.items()))
     if tr.step % tr.ema_cfg.update_every or tr.step > tr.ema_cfg.update_after_step:
         raise RuntimeError(f"step {tr.step}: the profiled step must update the EMA with decay 0")
-    if not all(torch.equal(e, p) for e, p in zip(tr.ema_model.parameters(), tr.params)):
+    if not all(torch.equal(e, p) for e, p in zip(tr.ema_model.parameters(),
+                                                  tr.model.parameters())):
         raise RuntimeError(f"{label} profile: the EMA update did not copy the parameters")
     return dict(busy_share=busy_ms / wall_ms, busy_ms=busy_ms, step_ms=wall_ms, split=split)
 
@@ -3039,7 +3087,7 @@ def training256() -> dict:
     base = mri256_config()
     cfg = base.replace(train=dataclasses.replace(base.train, results_dir=str(TRAIN_DIR)))
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-    (hr_tr, lr_tr), (hr_te, lr_te) = train_script.build_dataset(cfg)
+    (hr_tr, lr_tr), (hr_te, lr_te) = train_arrays(cfg)
     gd = build_gd(cfg, device="cuda")
     tr = Trainer(gd, cfg.train)
     nb = len(hr_tr) // cfg.train.batch_size
@@ -3255,6 +3303,369 @@ def _train_f32() -> dict:
     return got
 
 
+# ---------------------------------------------------------------------------
+# the data readers and the MNIST and MVTec-style configurations on them
+# ---------------------------------------------------------------------------
+
+DATA_DIR = STAGE_A_DIR.parent / "datasets"
+# seeded synthetic digits written as MNIST idx files, train and t10k (the
+# real files are not in the repository); the MNIST test configurations at
+# 8 images each; the MVTec-style configuration's 4 resident steps over its
+# 192 training textures at batch 16 and 16 test images
+DATA_DIGITS, DATA_MNIST_STEPS, DATA_MNIST_IMAGES, DATA_MNIST_BANK = 2048, 2, 8, 200
+DATA_MVTEC_STEPS, DATA_MVTEC_IMAGES, DATA_MVTEC_CHECK = 4, 16, 4
+IDX_UINT8 = 0x08
+
+
+def write_idx(path: str, arr: np.ndarray) -> None:
+    """A uint8 IDX file of `arr`, gzipped where the name ends in .gz."""
+    arr = np.ascontiguousarray(arr, np.uint8)
+    head = struct.pack(">BBBB", 0, 0, IDX_UINT8, arr.ndim)
+    head += struct.pack(">" + "I" * arr.ndim, *arr.shape)
+    with (gzip.open if path.endswith(".gz") else open)(path, "wb") as f:
+        f.write(head + arr.tobytes())
+
+
+def _echoed(fn, *args):
+    """(fn(*args), what it printed), the print shown after it."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = fn(*args)
+    finally:
+        print(buf.getvalue(), end="", flush=True)
+    return out, buf.getvalue()
+
+
+def _script_counts(label, before, per_call, calls) -> dict:
+    got = {k: v - before[k] for k, v in read_counts().items()}
+    check_counts(got, per_call, calls, label)
+    return got
+
+
+def datasets_phase() -> dict:
+    """MNIST idx files written here, read by the port's reader; the train
+    CLI on `mnist_train_config()`, the bank CLI on `mnist_gated_config()`,
+    the test CLI on the three MNIST test configurations; the train and test
+    CLIs on `mvtec_synthetic_config()` with its chain checked against the
+    plain versions and one UNet call against the CPU; one test batch of
+    `mvtec_denoise_config()`."""
+    t_phase = time.perf_counter()
+    DATA_DIR.mkdir(parents=True, exist_ok=True)
+    perf, checks = {}, {}
+    reset_counts()
+    with tempfile.TemporaryDirectory(dir=DATA_DIR) as tmp:
+        written = {}
+        for split, seed in (("train", 11), ("t10k", 12)):
+            imgs, labels = synthetic_digits(DATA_DIGITS, seed=seed)
+            write_idx(f"{tmp}/{split}-images-idx3-ubyte", imgs)
+            write_idx(f"{tmp}/{split}-labels-idx1-ubyte.gz", labels)
+            written[split] = (imgs, labels.astype(np.uint8))
+        # the images raw, the labels gzipped, found by read_idx from the bare name
+        data = ["--mnist-path", f"{tmp}/train-images-idx3-ubyte",
+                "--mnist-labels-path", f"{tmp}/train-labels-idx1-ubyte"]
+        base = mnist_train_config()
+        cfg = base.replace(data=dataclasses.replace(base.data, mnist_path=data[1],
+                                                    mnist_labels_path=data[3]))
+        got = load_mnist_arrays(cfg.data.mnist_path, cfg.data.mnist_labels_path)
+        if not all(g.dtype == w.dtype and np.array_equal(g, w)
+                   for g, w in zip(got, written["train"])):
+            raise RuntimeError("load_mnist_arrays did not return the written idx arrays")
+        split = int(0.7 * DATA_DIGITS)
+        (hr_tr, _), _ = train_arrays(cfg)
+        want = MNISTDataset(written["train"][0][:split], written["train"][1][:split], num=[8])
+        if not np.array_equal(hr_tr, want.as_arrays()[0]):
+            raise RuntimeError("the MNIST training set is not the idx files' digit 8")
+        log(f"datasets: {DATA_DIGITS} + {DATA_DIGITS} seeded digits written as idx files "
+            f"(images raw, labels .gz); load_mnist_arrays returns them exactly; the training "
+            f"set {len(hr_tr)} digit-8 images of the first {split}")
+
+        # MNIST (the flagship's UNet, FLAGSHIP_PER_CALL): train, bank, test
+        npz = f"{tmp}/mnist_ema.npz"
+        before = read_counts()
+        t0 = time.perf_counter()
+        out, said = _echoed(train_script.main, [
+            "--config", "mnist_train", "--steps", str(DATA_MNIST_STEPS), "--step-mode", "epoch",
+            "--eval-every", str(DATA_MNIST_STEPS), "--results", f"{tmp}/results", "--resume",
+            "never", "--export-npz", npz, *data])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        if "synthetic" in said or out["step"] != DATA_MNIST_STEPS:
+            raise RuntimeError("the MNIST training run did not read the idx files")
+        microbatches = -(-len(hr_tr) // cfg.train.batch_size)
+        calls = DATA_MNIST_STEPS * microbatches + cfg.diffusion.timesteps * len(out["evals"])
+        _script_counts("MNIST training script", before, FLAGSHIP_PER_CALL, calls)
+        perf["mnist_train_step_s"] = out["phase_means_s"]["train_step"]
+        log(f"datasets MNIST training: {DATA_MNIST_STEPS} epoch steps ({microbatches} "
+            f"microbatches of {cfg.train.batch_size}, T={cfg.diffusion.timesteps}, f32) and "
+            f"{len(out['evals'])} eval chain(s) in {train_s:.1f}s; a step "
+            f"{perf['mnist_train_step_s'] * 1e3:.1f}ms; losses {out['losses']}; launches as "
+            f"{calls} UNet calls")
+        bank = f"{tmp}/memory_bank_mnist.npy"
+        before = read_counts()
+        t0 = time.perf_counter()
+        res = bank_main(["--config", "mnist_gated", "--out", bank, "--n-images",
+                         str(DATA_MNIST_BANK), *data])
+        perf["mnist_bank_s"] = time.perf_counter() - t0
+        _script_counts("MNIST bank", before, {}, 0)
+        log(f"datasets MNIST bank (WRN50-2 at {mnist_gated_config().ood.input_size}px, seed 0): "
+            f"{res['bank'].shape} in {perf['mnist_bank_s']:.1f}s")
+        t10k = written["t10k"]
+        for name, cfg_fn in (("mnist_8to5", mnist_8to5_config), ("mnist_usegt", mnist_usegt_config),
+                             ("mnist_gated", mnist_gated_config)):
+            tcfg = cfg_fn()
+            extra = ["--memory-bank", bank] if tcfg.sampler.classifier else []
+            before = read_counts()
+            t0 = time.perf_counter()
+            res = test_script.main(["--config", name, "--params-npz", npz, "--max-images",
+                                    str(DATA_MNIST_IMAGES), *data, *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n, T = len(res["pred_all"]), tcfg.diffusion.timesteps
+            # use_gt starts each chain at use_gt_timestep from the noised ground
+            # truth; the gate (a WRN50-2, none of the eight kernels) adds a [2B]
+            # retry call at each post-fusion step up to the image's acceptance
+            steps = tcfg.sampler.use_gt_timestep if tcfg.sampler.use_gt else T
+            t_fuse = min(tcfg.sampler.start_timestep, T - 1)
+            retries = int(sum(t_fuse - ft for ft in res["fusion_time"] if ft < T))
+            _script_counts(f"{name} test", before, FLAGSHIP_PER_CALL, n * steps + retries)
+            want = MNISTDataset(*t10k, num=[tcfg.data.anomaly_name], max_file=DATA_MNIST_IMAGES)
+            if not np.array_equal(res["hr_all"], want.as_arrays()[0]):
+                raise RuntimeError(f"{name}: the test set is not the t10k idx files' digit "
+                                   f"{tcfg.data.anomaly_name}")
+            _check_images(f"{name} test", res["pred_all"], (n, 28, 28, 1), 0.0, 2.0)
+            perf[f"{name}_img_per_s"] = 1.0 / float(res["mean_time"])
+            log(f"datasets {name}: {n} t10k digit-{tcfg.data.anomaly_name} images, one chain "
+                f"each ({steps} UNet calls of T={T}, {retries} retry calls in all, manual mask"
+                f"{', classifier gate on the bank above' if extra else ''}): "
+                f"{perf[f'{name}_img_per_s']:.2f} img/s (mean chain {float(res['mean_time']):.3f}s), "
+                f"{wall:.1f}s wall; test loss {float(res['mean_mse']):.4f}; fusion times "
+                f"{res['fusion_time'].tolist()}")
+
+    # MVTec-style: synthetic textures, 64px, 3 channels, f32
+    cfg = mvtec_synthetic_config()
+    with tempfile.TemporaryDirectory(dir=DATA_DIR) as tmp:
+        gd_probe = build_gd(cfg, device="cuda")
+        before = read_counts()
+        seen = record_calls(gd_probe, 2, 2.0)
+        mv_call = {k: v - before[k] for k, v in read_counts().items()}
+        del gd_probe
+        check_gn_sites(seen["gn"], mv_call, "mvtec_synthetic")
+        if mv_call.get("flash_attention", 0) != 3 or len(seen["attn"]) != 3:
+            raise RuntimeError(f"mvtec_synthetic: full attention launches {mv_call}, expected 3 "
+                               f"at 16x16 (256 tokens)")
+        npz = f"{tmp}/mvtec_ema.npz"
+        (hr_tr, _), _ = train_arrays(cfg)
+        before = read_counts()
+        t0 = time.perf_counter()
+        out = train_script.main([
+            "--config", "mvtec_synthetic", "--steps", str(DATA_MVTEC_STEPS), "--step-mode",
+            "resident", "--eval-every", str(DATA_MVTEC_STEPS), "--results", f"{tmp}/results",
+            "--resume", "never", "--export-npz", npz])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        nb = len(hr_tr) // cfg.train.batch_size
+        calls = DATA_MVTEC_STEPS * nb + cfg.diffusion.timesteps * len(out["evals"])
+        _script_counts("mvtec_synthetic training", before, mv_call, calls)
+        perf["mvtec_train_step_s"] = out["phase_means_s"]["train_step"]
+        log(f"datasets mvtec_synthetic training: {DATA_MVTEC_STEPS} resident steps over "
+            f"{len(hr_tr)} textures ({nb} microbatches of {cfg.train.batch_size}) and "
+            f"{len(out['evals'])} eval chain(s) in {train_s:.1f}s; a step "
+            f"{perf['mvtec_train_step_s'] * 1e3:.1f}ms; losses {out['losses']}; per UNet call "
+            f"{ {k: v for k, v in mv_call.items() if v} }")
+        before = read_counts()
+        t0 = time.perf_counter()
+        res = test_script.main(["--config", "mvtec_synthetic", "--params-npz", npz,
+                                "--max-images", str(DATA_MVTEC_IMAGES)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = len(res["pred_all"])
+        got = _script_counts("mvtec_synthetic test", before, mv_call, n * cfg.diffusion.timesteps)
+        _check_images("mvtec_synthetic test", res["pred_all"], (n, 64, 64, 3), 0.0, 2.0)
+        perf["mvtec_img_per_s"] = 1.0 / float(res["mean_time"])
+        per_chain = {k: got[k] // n for k in ("groupnorm_film_silu", "gn_tiled_stats",
+                                              "gn_tiled_apply", "flash_attention")}
+        log(f"datasets mvtec_synthetic test: {n} defective textures, one branched chain each "
+            f"(T={cfg.diffusion.timesteps}, manual {cfg.ood.manual_mask_cols}-column mask): "
+            f"{perf['mvtec_img_per_s']:.2f} img/s (mean chain {float(res['mean_time']):.3f}s), "
+            f"{wall:.1f}s wall; test loss {float(res['mean_mse']):.4f}, OOD-region "
+            f"{float(res['mean_mse_ood_region']):.4f}; launches per chain {per_chain}")
+
+        # the chain with kernels against the plain versions, one call against the CPU
+        pipe = build_pipeline(cfg, npz, device="cuda", verbose=False)
+        hr, lr, _ = test_arrays(cfg, DATA_MVTEC_CHECK)
+        kern = pipe.translate(lr, hr=hr, noise=1)
+        pipe.gd.model.use_plain_kernels(True)
+        try:
+            plain = pipe.translate(lr, hr=hr, noise=1)
+        finally:
+            pipe.gd.model.use_plain_kernels(False)
+        err = float(np.abs(kern["pred"] - plain["pred"]).max())
+        checks["mvtec_chain_max_abs_err"] = err
+        log(f"datasets check: mvtec_synthetic chain (batch {DATA_MVTEC_CHECK}, branched "
+            f"{bool(kern['branched'])}), kernels vs plain versions (same noise) max_abs_err "
+            f"{err:.3g} (tol {CHAIN_TOL:g})")
+        if not (bool(kern["branched"]) and err <= CHAIN_TOL):
+            raise RuntimeError("the mvtec_synthetic chain disagrees with its plain-version chain")
+        cpu = load_params(cfg, params_npz=npz, device="cpu", verbose=False)
+        rng = np.random.default_rng(21)
+        x = rng.standard_normal((2, 64, 64, 3)).astype(np.float32)
+        cond = rng.uniform(0, 2, (2, 64, 64, 3)).astype(np.float32)
+        t = np.array([4, 77])
+        got = pipe.gd.apply_model(torch.as_tensor(x, device="cuda"),
+                                  torch.as_tensor(cond, device="cuda"),
+                                  torch.as_tensor(t, device="cuda")).cpu().numpy()
+        want = cpu.apply_model(torch.as_tensor(x), torch.as_tensor(cond),
+                               torch.as_tensor(t)).numpy()
+        err = float(np.abs(got - want).max())
+        ok = bool(np.allclose(got, want, rtol=MRI_UNET_F32_TOL, atol=MRI_UNET_F32_TOL))
+        checks["mvtec_unet_card_vs_cpu_max_abs_err"] = err
+        log(f"datasets check: mvtec_synthetic UNet call card vs CPU (batch 2, f32) max_abs_err "
+            f"{err:.3g} ({MRI_UNET_F32_TOL:g} abs+rel) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("the mvtec_synthetic UNet on the card disagrees with the CPU's")
+
+        before = read_counts()
+        res = test_script.main(["--config", "mvtec_denoise", "--params-npz", npz,
+                                "--max-images", "1"])
+        _script_counts("mvtec_denoise test", before, mv_call, mvtec_denoise_config().diffusion
+                       .timesteps)
+        _check_images("mvtec_denoise test", res["pred_all"], (1, 64, 64, 3), 0.0, 2.0)
+        log(f"datasets mvtec_denoise: one test batch (salt-and-pepper conditioning), test loss "
+            f"{float(res['mean_mse']):.4f}, chain {float(res['mean_time']):.3f}s")
+
+    counts = read_counts()
+    perf["phase_s"] = time.perf_counter() - t_phase
+    log(f"datasets phase: {perf['phase_s']:.1f}s; launches {counts}")
+    return dict(counts=counts, perf=perf, checks=checks)
+
+
+# ---------------------------------------------------------------------------
+# the denoiser variants: self-conditioning, learned and random Fourier features
+# ---------------------------------------------------------------------------
+
+SC_STEPS, SC_COINS = 4, (True, False, True, False)
+
+
+def _sc_trainer(cfg):
+    gd = build_gd(cfg, device="cuda")
+    return gd, Trainer(gd, cfg.train)
+
+
+def self_cond_phase() -> dict:
+    """`mri256_config()` with self-conditioning and learned Fourier
+    features (bf16, batch 8): the pre-pass's and the grad pass's launches,
+    none in a backward; 4 batch steps with the coin both ways, then the
+    same with random features; gradients kernels vs plain modules; one
+    T=250 branched chain of the trained model against its plain versions."""
+    t_phase = time.perf_counter()
+    base = mri256_config()
+    cfg = base.replace(model=dataclasses.replace(base.model, self_condition=True,
+                                                 learned_sinusoidal_cond=True))
+    d, s = cfg.data, cfg.diffusion.image_size
+    hr, lr, _ = synthetic_brain_translation(
+        2 * cfg.train.batch_size, s, tumor=False, seed=42, mean_t1=d.mean_t1, std_t1=d.std_t1,
+        mean_flair=d.mean_flair, std_flair=d.std_flair, translate_zero=d.translate_zero)
+    rng = np.random.default_rng(41)
+    bs = cfg.train.batch_size
+    checks, perf = {}, {}
+    reset_counts()
+
+    # (a) launches of the pre-pass, the grad pass and the backward
+    gd, tr = _sc_trainer(cfg)
+    x, c = (torch.as_tensor(a[:bs], device="cuda") for a in (hr, lr))
+    t = rng.integers(0, cfg.diffusion.timesteps, bs)
+    noise = rng.standard_normal((bs, s, s, 1)).astype(np.float32)
+    for coin in (True, False):
+        before = read_counts()
+        with full_float32():
+            loss = gd.loss(x, c, ArrayDraws("cuda", [t], [noise], coins=[coin]))
+            torch.cuda.synchronize()
+            mid = read_counts()
+            loss.backward()
+        torch.cuda.synchronize()
+        check_counts({k: v - before[k] for k, v in mid.items()}, MRI_PER_CALL, 2 if coin else 1,
+                     f"self-conditioned loss, coin {'heads' if coin else 'tails'}")
+        launched = {k: v - mid[k] for k, v in read_counts().items() if v != mid[k]}
+        if launched:
+            raise RuntimeError(f"a self-conditioned backward launched kernels: {launched}")
+        gd.model.zero_grad(set_to_none=True)
+    log("self_cond: the loss on heads launches every kernel twice a UNet call's count (the "
+        "no-grad pre-pass and the grad pass), on tails once; the backward none")
+
+    # (b) 4 batch steps, the coin both ways, learned then random features
+    for label, flags in (("learned", {}), ("random", dict(random_fourier_features=True))):
+        c2 = cfg.replace(model=dataclasses.replace(cfg.model, **flags))
+        gd2, tr2 = (gd, tr) if not flags else _sc_trainer(c2)
+        w0 = gd2.model.time_mlp.pos_emb.weights.detach().clone()
+        before = read_counts()
+        t0 = time.perf_counter()
+        losses = []
+        for i, coin in enumerate(SC_COINS):
+            j = (bs * i) % len(hr)
+            ti = rng.integers(0, cfg.diffusion.timesteps, bs)
+            ni = rng.standard_normal((bs, s, s, 1)).astype(np.float32)
+            losses.append(tr2.train_batch_step(hr[j:j + bs], lr[j:j + bs],
+                                               ArrayDraws("cuda", [ti], [ni], coins=[coin])))
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / SC_STEPS
+        check_counts({k: v - before[k] for k, v in read_counts().items()}, MRI_PER_CALL,
+                     SC_STEPS + sum(SC_COINS), f"self_cond {label} steps")
+        same = torch.equal(gd2.model.time_mlp.pos_emb.weights, w0)
+        log(f"self_cond {label} Fourier features: {SC_STEPS} bf16 batch steps (coins "
+            f"{list(SC_COINS)}) {step_s:.3f}s a step, losses {[round(v, 4) for v in losses]}; "
+            f"pos_emb weights {'unchanged (bit-equal)' if same else 'moved'}")
+        if not np.all(np.isfinite(losses)) or same != bool(flags):
+            raise RuntimeError(f"self_cond {label}: losses {losses}, weights unchanged {same}")
+        perf[f"{label}_step_s"] = step_s
+
+    # (c) gradients with the kernels against the plain modules, both coins
+    ref, _ = _sc_trainer(cfg)
+    for coin in (True, False):
+        with_k = _grads(ref, hr[:bs], lr[:bs], t, noise, coin)
+        ref.model.use_plain_kernels(True)
+        try:
+            plain = _grads(ref, hr[:bs], lr[:bs], t, noise, coin)
+        finally:
+            ref.model.use_plain_kernels(False)
+        checks[f"grad_{'heads' if coin else 'tails'}"] = _grad_agreement(
+            f"self-conditioned 256px, coin {'heads' if coin else 'tails'}, kernels vs plain "
+            f"modules on the card (batch {bs}, bf16)", with_k, plain, TRAIN_LOSS_REL,
+            TRAIN_GRAD_REL, TRAIN_GRAD_COS)
+    del ref
+
+    # (d) one T=250 branched chain of the trained model, zeros for x_self_cond
+    pipe = LocalDiffusionPipeline(cfg, gd)
+    lo, hi = pipe.min_max_val
+    lr4 = rng.uniform(0, hi, (MRI_BATCH, s, s, 1)).astype(np.float32)
+    mask = disc_masks(MRI_BATCH, s)
+    before = read_counts()
+    res = pipe.translate(lr4, noise=1, mask=mask)
+    check_counts({k: v - before[k] for k, v in read_counts().items()}, MRI_PER_CALL,
+                 gd.num_timesteps, "self_cond chain")
+    _check_images("self_cond chain", res["pred"], lr4.shape, lo, hi)
+    counts = read_counts()
+    gd.model.use_plain_kernels(True)
+    try:
+        plain = pipe.translate(lr4, noise=1, mask=mask)
+    finally:
+        gd.model.use_plain_kernels(False)
+    a, p = res["pred"].ravel(), plain["pred"].ravel()
+    rel = float(np.linalg.norm(a - p) / np.linalg.norm(p))
+    corr = float(np.corrcoef(a, p)[0, 1])
+    checks["chain"] = dict(rel_l2=rel, corr=corr)
+    perf["chain_s"] = float(res["time"])
+    log(f"self_cond check: the trained model's branched chain (T={gd.num_timesteps}, batch "
+        f"{MRI_BATCH}, {float(res['time']):.2f}s, {MRI_BATCH / float(res['time']):.3f} img/s) "
+        f"vs its plain versions: relative L2 {rel:.4g} (tol {MRI_CHAIN_REL:g}), correlation "
+        f"{corr:.6f} (tol {MRI_CHAIN_CORR:g})")
+    if not (bool(res["branched"]) and rel <= MRI_CHAIN_REL and corr >= MRI_CHAIN_CORR):
+        raise RuntimeError("the self-conditioned chain disagrees with its plain-version chain")
+    perf["phase_s"] = time.perf_counter() - t_phase
+    log(f"self_cond phase: {perf['phase_s']:.1f}s; launches {counts}")
+    return dict(counts=counts, perf=perf, checks=checks)
+
+
 def _row(t: dict, warm: bool = False) -> dict:
     """A GN part's numbers under the kernels line's keys (and the replayed
     time of a tiled pass, `warm_ms`)."""
@@ -3277,9 +3688,13 @@ def main() -> None:
     with tf32_on_at_entry("shipped"):
         shipped = shipped256()
     training = training256()
+    with tf32_on_at_entry("datasets"):
+        datasets = datasets_phase()
+    self_cond = self_cond_phase()
 
     phases = {"flagship": flag, "256px": mri, "stage_a": stage_a, "gated": gated,
-              "seg_wrn": seg_wrn, "stem": stem, "shipped": shipped, "training": training}
+              "seg_wrn": seg_wrn, "stem": stem, "shipped": shipped, "training": training,
+              "datasets": datasets, "self_cond": self_cond}
     launches = {name: {label: ph["counts"][name] for label, ph in phases.items()}
                 for name in COUNTERS}
     total = {name: sum(v.values()) for name, v in launches.items()}
@@ -3376,7 +3791,9 @@ def main() -> None:
         + json.dumps(stage_a["checks"]) + f"; gated checks {json.dumps(gated['checks'])}"
         + f"; seg/WRN checks {json.dumps(seg_wrn['checks'])}"
         + f"; shipped checks {json.dumps(shipped['checks'])}"
-        + f"; training checks {json.dumps(training['checks'])}")
+        + f"; training checks {json.dumps(training['checks'])}"
+        + f"; datasets checks {json.dumps(datasets['checks'])}"
+        + f"; self_cond checks {json.dumps(self_cond['checks'])}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -12,7 +12,11 @@ classifier-gated variant (`configs/mri_synthetic_256_gated.yaml`) by
 (`configs/mri_synthetic_256_stem.yaml`) by `stem256_config()`, its bf16
 DDIM variant with the seg detector (`configs/mri_synthetic_256_bf16.yaml`)
 by `mri256_bf16_config()`, and the 64px MRI flow
-(`configs/mri_synthetic.yaml`) by `mri64_config()`;
+(`configs/mri_synthetic.yaml`) by `mri64_config()`, the MNIST training and
+test files (`configs/mnist_train.yaml`, `mnist_8to5.yaml`,
+`mnist_gated.yaml`, `mnist_usegt.yaml`) and the MVTec-style pair
+(`configs/mvtec_synthetic.yaml`, `mvtec_denoise.yaml`) by their
+`*_config()` builders;
 `Config.from_dict` takes the parsed contents of such a file, and
 `config_by_name` a builder's name (`CONFIGS`).
 """
@@ -482,6 +486,105 @@ def mri64_config() -> Config:
     )
 
 
+def _mnist_model() -> ModelConfig:
+    """The 28px MNIST UNet of every `configs/mnist*.yaml`."""
+    return ModelConfig(dim=32, init_dim=32, dim_mults=(1, 2, 4),
+                       full_attn=(False, False, True), channels=1,
+                       cond_encoder_depth="shallow")
+
+
+# the idx files the MNIST YAMLs name (both the t10k set), in DataConfig's
+# default directory: the YAMLs' own absolute directory is outside the
+# repository, and a command line's --mnist-path points at the files
+MNIST_DIR = "./MNIST/raw"
+MNIST_IMAGES = f"{MNIST_DIR}/t10k-images-idx3-ubyte"
+MNIST_LABELS = f"{MNIST_DIR}/t10k-labels-idx1-ubyte"
+
+
+def mnist_train_config() -> Config:
+    """`configs/mnist_train.yaml`, the flagship's training configuration,
+    built without YAML: the 28px UNet, T=250, the plain chain for the
+    eval samples, batch 64, the streamed-epoch step."""
+    return Config(
+        model=_mnist_model(),
+        diffusion=DiffusionConfig(image_size=28, timesteps=250, objective="pred_x0",
+                                  beta_schedule="sigmoid"),
+        sampler=SamplerConfig(branch_out=False, start_intermediate=False),
+        data=DataConfig(name="mnist", mnist_path=MNIST_IMAGES, mnist_labels_path=MNIST_LABELS),
+        train=TrainConfig(batch_size=64, lr=1e-4, num_steps=3000, step_mode="epoch",
+                          results_dir="./results", project_name="mnist_x250"),
+    )
+
+
+def _mnist_test_config(mnist_cls: str, anomaly_name: int, **sampler) -> Config:
+    """The MNIST test configurations' shared body (`configs/mnist_8to5.yaml`
+    and its siblings): T=50 ancestral DDPM, branched with the manual
+    7-column mask, the WRN50-2's bank path at an 84px input; `sampler`
+    overrides the sampler's fields."""
+    return Config(
+        model=_mnist_model(),
+        diffusion=DiffusionConfig(image_size=28, timesteps=50, sampling_timesteps=None,
+                                  objective="pred_x0", beta_schedule="sigmoid"),
+        sampler=SamplerConfig(**{**dict(branch_out=True, start_intermediate=True,
+                                        start_timestep=2, mask_x=True, mask_x_policy="cond",
+                                        cond_in_floor=0.5, ood_ad=True, classifier=False),
+                                 **sampler}),
+        ood=OODConfig(detector="manual", input_size=84,
+                      memory_bank_path="results/memory_bank_mnist.npy", num_neighbors=9,
+                      coreset_ratio=0.1, manual_mask_cols=7),
+        data=DataConfig(name="mnist", mnist_path=MNIST_IMAGES, mnist_labels_path=MNIST_LABELS,
+                        mnist_cls=mnist_cls, anomaly_name=anomaly_name),
+        train=TrainConfig(results_dir="./results", project_name="mnist_x250"),
+    )
+
+
+def mnist_8to5_config() -> Config:
+    """`configs/mnist_8to5.yaml`: digit 5 as the anomaly."""
+    return _mnist_test_config("8to5", 5)
+
+
+def mnist_gated_config() -> Config:
+    """`configs/mnist_gated.yaml`: digit 3, the classifier-gated phase B
+    with a fixed threshold of 3.5; with the manual detector the gate is
+    `build_classifier_gate`'s WRN50-2 PatchCore on `ood.memory_bank_path`."""
+    base = _mnist_test_config("8to3", 3, classifier=True)
+    return base.replace(ood=dataclasses.replace(base.ood, classifier_threshold=3.5))
+
+
+def mnist_usegt_config() -> Config:
+    """`configs/mnist_usegt.yaml`: digit 3, the ground truth's noised
+    in-distribution region substituted until t=20 (`use_gt`)."""
+    return _mnist_test_config("8to3", 3, use_gt=True, use_gt_timestep=20)
+
+
+def mvtec_synthetic_config(name: str = "synthetic_texture",
+                           project_name: str = "mvtec_synth") -> Config:
+    """`configs/mvtec_synthetic.yaml`, the 3-channel MVTec-style flow on
+    synthetic textures, built without YAML: the 3-stage UNet at 64px, T=100
+    ancestral DDPM, branched with the manual 12-column mask, the 'cond'
+    mask_x policy at floor 0.95, float32, batch 16 at lr 2e-4."""
+    return Config(
+        model=ModelConfig(dim=32, init_dim=32, dim_mults=(1, 2, 4),
+                          full_attn=(False, False, True), channels=3,
+                          cond_encoder_depth="shallow"),
+        diffusion=DiffusionConfig(image_size=64, timesteps=100, objective="pred_x0",
+                                  beta_schedule="sigmoid"),
+        sampler=SamplerConfig(branch_out=True, start_intermediate=True, start_timestep=2,
+                              mask_x=True, mask_x_policy="cond", cond_in_floor=0.95,
+                              ood_ad=True),
+        ood=OODConfig(detector="manual", input_size=64, manual_mask_cols=12),
+        data=DataConfig(name=name),
+        train=TrainConfig(batch_size=16, lr=2e-4, num_steps=300, results_dir="./results",
+                          project_name=project_name),
+    )
+
+
+def mvtec_denoise_config() -> Config:
+    """`configs/mvtec_denoise.yaml`: `mvtec_synthetic_config()` with
+    salt-and-pepper conditioning (`synthetic_texture_denoise`)."""
+    return mvtec_synthetic_config("synthetic_texture_denoise", "mvtec_denoise")
+
+
 # the builders by the names the command-line entry points take (`--config`)
 CONFIGS = {
     "flagship": flagship_config,
@@ -490,6 +593,12 @@ CONFIGS = {
     "mri256_bf16": mri256_bf16_config,
     "stem256": stem256_config,
     "mri64": mri64_config,
+    "mnist_train": mnist_train_config,
+    "mnist_8to5": mnist_8to5_config,
+    "mnist_gated": mnist_gated_config,
+    "mnist_usegt": mnist_usegt_config,
+    "mvtec_synthetic": mvtec_synthetic_config,
+    "mvtec_denoise": mvtec_denoise_config,
 }
 
 

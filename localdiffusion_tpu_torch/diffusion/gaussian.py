@@ -30,8 +30,9 @@ class ModelPrediction(NamedTuple):
 
 class GeneratorDraws:
     """The loss's random draws from one `torch.Generator`, on its device:
-    timesteps uniform in [0, T), standard normals, and an epoch's
-    permutation (`train.trainer.Trainer.train_epoch_resident`)."""
+    timesteps uniform in [0, T), standard normals, an epoch's permutation
+    (`train.trainer.Trainer.train_epoch_resident`) and the
+    self-conditioning coin."""
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
@@ -47,18 +48,22 @@ class GeneratorDraws:
     def permutation(self, n: int) -> torch.Tensor:
         return torch.randperm(n, generator=self.generator, device=self.device)
 
+    def coin(self) -> bool:
+        """Heads with probability 1/2 (one uniform draw, read on the host)."""
+        return bool(torch.rand((), generator=self.generator, device=self.device) < 0.5)
+
 
 class ArrayDraws:
     """Hands out given arrays in order, each of its kind (timesteps,
-    normals, permutations) and checked against the shape asked for: the
-    JAX package's draws replayed (`jax.random` cannot be reproduced without
-    JAX)."""
+    normals, permutations, coins) and checked against the shape asked for:
+    the JAX package's draws replayed (`jax.random` cannot be reproduced
+    without JAX)."""
 
     def __init__(self, device, timesteps: Sequence = (), normals: Sequence = (),
-                 permutations: Sequence = ()):
+                 permutations: Sequence = (), coins: Sequence = ()):
         self.device = torch.device(device)
         self._queues = {"timesteps": iter(timesteps), "normal": iter(normals),
-                        "permutation": iter(permutations)}
+                        "permutation": iter(permutations), "coin": iter(coins)}
 
     def _next(self, kind: str, shape, dtype):
         a = next(self._queues[kind], None)
@@ -76,6 +81,9 @@ class ArrayDraws:
 
     def permutation(self, n: int) -> torch.Tensor:
         return self._next("permutation", (n,), np.int64)
+
+    def coin(self) -> bool:
+        return bool(self._next("coin", (), np.bool_))
 
 
 def as_draws(draws):
@@ -134,22 +142,33 @@ class GaussianDiffusion:
     # ------------------------------------------------------------------
     # training loss (the JAX engine's `p_losses` / `loss`)
     # ------------------------------------------------------------------
-    def p_losses(self, x_start, cond, t, noise, offset_noise: Optional[torch.Tensor] = None):
+    def p_losses(self, x_start, cond, t, noise, offset_noise: Optional[torch.Tensor] = None,
+                 self_cond: bool = False):
         """The noise-injection loss on NHWC x_start and cond at timesteps t
         [B]: x_t = q_sample(x_start, t, noise + s·offset), the UNet run with
         grad inside `full_float32`, the objective's target (noise, x_start,
         or v), the per-row MSE weighted by `schedule.loss_weight[t]`, then
         the mean.  offset_noise: [B, C], added at `offset_noise_strength`.
-        Self-conditioning's pre-pass is not ported: it raises."""
-        if self.model_cfg.self_condition:
-            raise NotImplementedError("self-conditioning: later slice (ROADMAP queue 1, item 5)")
+
+        With `model_cfg.self_condition`, `self_cond` is the whole batch's
+        coin (reference ddpm.py:1176-1182): heads, a pre-pass predicts x₀
+        without gradient (`model_output_to_x_start`) and the UNet takes it
+        as `x_self_cond`; tails, it takes zeros.  The JAX engine computes
+        the pre-pass either way and zeroes it on tails; the port, as the
+        reference, runs it on heads only: the same loss."""
+        if self.model_cfg.self_condition != self.model.cfg.self_condition:
+            raise ValueError("the engine's model_cfg and its UNet disagree on self_condition")
         sched = self.schedule
         strength = self.diff_cfg.offset_noise_strength
         if offset_noise is not None and strength > 0.0:
             noise = noise + strength * offset_noise[:, None, None, :]
         x = dm.q_sample(sched, x_start, t, noise)
+        x_self_cond = None
+        if self.model_cfg.self_condition and self_cond:
+            with torch.no_grad(), full_float32():
+                x_self_cond = dm.model_output_to_x_start(sched, self.model(x, cond, t), x, t)
         with full_float32():
-            model_out = self.model(x, cond, t)
+            model_out = self.model(x, cond, t, x_self_cond=x_self_cond)
         if self.objective == "pred_noise":
             target = noise
         elif self.objective == "pred_x0":
@@ -165,9 +184,12 @@ class GaussianDiffusion:
         """t ~ U[0, T), noise and (with offset noise on) a [B, C] offset from
         `draws` (a `torch.Generator` on this device, or `ArrayDraws`), then
         `p_losses`; x_start mapped to [-1, 1] first under `auto_normalize`.
-        The draws' order is the JAX engine's split order: t, noise, offset."""
+        The draws' order is the JAX engine's split order: t, noise, offset,
+        with self-conditioning's coin drawn first and only then, so a
+        default configuration draws what it drew without the option."""
         draws = as_draws(draws)
         b = x_start.shape[0]
+        self_cond = draws.coin() if self.model_cfg.self_condition else False
         t = draws.timesteps(b, self.num_timesteps)
         noise = draws.normal(x_start.shape)
         offset = None
@@ -175,7 +197,7 @@ class GaussianDiffusion:
             offset = draws.normal((b, x_start.shape[-1]))
         if self.diff_cfg.auto_normalize:
             x_start = dm.normalize_to_neg_one_to_one(x_start)
-        return self.p_losses(x_start, cond, t, noise, offset)
+        return self.p_losses(x_start, cond, t, noise, offset, self_cond)
 
     @torch.no_grad()
     def apply_model(self, x, cond, t, cond_feat=None):

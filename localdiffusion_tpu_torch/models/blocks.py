@@ -104,13 +104,41 @@ class SinusoidalPosEmb(nn.Module):
         return torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
 
 
+class RandomOrLearnedSinusoidalPosEmb(nn.Module):
+    """Random (frozen) or learned Fourier time features (reference
+    ddpm.py:151-166): w of dim/2 entries drawn N(0, 1), then [t,
+    sin(2π·t·w), cos(2π·t·w)] of width dim + 1, in float32.  Random
+    features keep w a parameter that takes no gradient (`requires_grad`
+    off), so the state dict, the JAX key `time_mlp/pos_emb/weights` and the
+    npz round trip are the learned variant's; the JAX module's
+    `stop_gradient` gives it a zero gradient, which Adam leaves unmoved."""
+
+    def __init__(self, dim: int, is_random: bool = False):
+        super().__init__()
+        if dim % 2:
+            raise ValueError(f"learned_sinusoidal_dim {dim} must be even")
+        self.weights = nn.Parameter(torch.randn(dim // 2), requires_grad=not is_random)
+
+    def forward(self, t):
+        tb = t.float()[:, None]
+        freqs = tb * self.weights[None, :] * (2.0 * math.pi)
+        return torch.cat([tb, torch.sin(freqs), torch.cos(freqs)], dim=-1)
+
+
 class TimeMlp(nn.Module):
-    """sinusoidal (float32) → Linear → exact GELU → Linear, in `dtype`."""
+    """(sinusoidal | random or learned Fourier features, float32) → Linear
+    → exact GELU → Linear, in `dtype`."""
 
     def __init__(self, dim: int, time_dim: int, theta: int = 10000,
-                 dtype=torch.float32):
+                 dtype=torch.float32, learned_sinusoidal_cond: bool = False,
+                 random_fourier_features: bool = False, learned_sinusoidal_dim: int = 16):
         super().__init__()
-        self.pos_emb = SinusoidalPosEmb(dim, theta)
+        if learned_sinusoidal_cond or random_fourier_features:
+            self.pos_emb = RandomOrLearnedSinusoidalPosEmb(
+                learned_sinusoidal_dim, is_random=random_fourier_features)
+            dim = learned_sinusoidal_dim + 1
+        else:
+            self.pos_emb = SinusoidalPosEmb(dim, theta)
         self.fc1 = Linear(dim, time_dim, compute_dtype=dtype)
         self.fc2 = Linear(time_dim, time_dim, compute_dtype=dtype)
 

@@ -11,6 +11,12 @@ NHWC kernel without a copy.
 it, every layer computes in it, and the final 1×1 conv runs in float32, so
 the output is float32 whichever the compute type; parameters stay float32.
 
+With `self_condition` the forward takes `x_self_cond`, the previous x₀
+estimate, as extra input channels (zeros when None: the samplers pass
+none, as in the JAX package); `learned_sinusoidal_cond` and
+`random_fourier_features` switch the time MLP to Fourier features of
+`learned_sinusoidal_dim` (`blocks.RandomOrLearnedSinusoidalPosEmb`).
+
 `stem_space_to_depth` f > 1 (the s2d-stem configuration) folds f×f pixel
 blocks into channels before `init_conv` and unfolds the final conv's
 `out_dim·f²` channels after it, so the network runs at 1/f of the input's
@@ -56,10 +62,6 @@ class UNet(nn.Module):
 
     def __init__(self, cfg: ModelConfig, dtype=torch.float32):
         super().__init__()
-        if cfg.learned_sinusoidal_cond or cfg.random_fourier_features:
-            raise NotImplementedError("learned/random Fourier time features: later slice")
-        if cfg.self_condition:
-            raise NotImplementedError("self-conditioning: later slice")
         self.cfg = cfg
         self.dtype = dtype
         dim = cfg.dim
@@ -81,8 +83,11 @@ class UNet(nn.Module):
             return Conv2d(di, do, 3, padding=1, compute_dtype=dtype)
 
         f2 = cfg.stem_space_to_depth ** 2
-        self.init_conv = Conv2d(cfg.channels * f2, init_dim, 7, padding=3, compute_dtype=dtype)
-        self.time_mlp = TimeMlp(dim, time_dim, cfg.time_emb_theta, dtype)
+        in_channels = cfg.channels * (2 if cfg.self_condition else 1)
+        self.init_conv = Conv2d(in_channels * f2, init_dim, 7, padding=3, compute_dtype=dtype)
+        self.time_mlp = TimeMlp(dim, time_dim, cfg.time_emb_theta, dtype,
+                                cfg.learned_sinusoidal_cond, cfg.random_fourier_features,
+                                cfg.learned_sinusoidal_dim)
         n = len(in_out)
         for i, (di, do) in enumerate(in_out):
             self.add_module(f"down{i}_block1", res(di, di))
@@ -129,13 +134,20 @@ class UNet(nn.Module):
         sampler calls this once."""
         return _nhwc(self.cond_model(_nchw(cond).to(self.dtype)))
 
-    def _stem(self, x):
-        """NHWC input → init_conv output (NCHW, channels_last, compute type)."""
+    def _stem(self, x, x_self_cond=None):
+        """NHWC input → init_conv output (NCHW, channels_last, compute type).
+        With self-conditioning the previous x₀ estimate (zeros when None)
+        goes before x on the channel axis, ahead of the s2d fold, as in the
+        JAX UNet."""
         f = self.cfg.stem_space_to_depth
         factor = self.cfg.downsample_factor * f
         if x.shape[1] % factor or x.shape[2] % factor:
             raise ValueError(f"input dims {tuple(x.shape[1:3])} must be divisible by {factor}")
-        x = _nchw(x.to(self.dtype))
+        x = x.to(self.dtype)
+        if self.cfg.self_condition:
+            sc = torch.zeros_like(x) if x_self_cond is None else x_self_cond.to(self.dtype)
+            x = torch.cat([sc, x], dim=-1)
+        x = _nchw(x)
         if f > 1:
             x = F.pixel_unshuffle(x, f)
         return self.init_conv(x.contiguous(memory_format=torch.channels_last))
@@ -168,9 +180,9 @@ class UNet(nn.Module):
             x = getattr(self, f"down{i}_down")(x)
         return out
 
-    def forward(self, x, cond, time, cond_feat=None):
+    def forward(self, x, cond, time, cond_feat=None, x_self_cond=None):
         f = self.cfg.stem_space_to_depth
-        x = self._stem(x)
+        x = self._stem(x, x_self_cond)
         r = x
         t = self.time_mlp(time)
 

@@ -1,8 +1,10 @@
 """Build a PatchCore memory bank and its fitted threshold ladder.
 
-The port's counterpart of `scripts/anomaly_model_train.py` for the
-`synthetic_brain` data: normal conditioning images (seed 42) go through the
-front end's preprocessing and the feature source, their patch embeddings are
+The port's counterpart of `scripts/anomaly_model_train.py`: a dataset's
+normal conditioning images (`data.datasets.bank_images`, the JAX script's
+branches: MNIST's digit 8, synthetic textures, normal synthetic brains of
+seed 42, BraTS training slices, MVTec `good` images) go through the front
+end's preprocessing and the feature source, their patch embeddings are
 coreset-subsampled by k-center greedy, and the bank is saved; then the
 ladder is fitted on the same images' anomaly maps and saved beside the bank
 as `<bank>_ladder.json`, where `build_frontend` finds it.
@@ -18,7 +20,11 @@ the torchvision state dict of `--backbone-weights`; at 256px layer2 ⊕
 layer3, 204,800 patches × 1,536 → 20,480 rows), `seg_encoder` (the
 SegUNet of `--seg-npz`, down2 ⊕ down3, 768 channels at 64×64) or
 `denoiser`.  `--seed` also seeds the k-center projection, as the JAX
-script's does.  Other datasets wait for their readers.
+script's does.  `--config` takes any builder of `config.CONFIGS`:
+`mnist_gated` (the WRN50-2 at an 84px input on 28px digits) reads the idx
+files of `--mnist-path`/`--mnist-labels-path`, `mvtec_synthetic` the
+synthetic textures; `synthetic_texture_denoise` has no bank branch and
+raises, as in the JAX script.
 
     python -m localdiffusion_tpu_torch.ood.bank --classifier --out /path/to/memory_bank.npy
 
@@ -43,6 +49,7 @@ import torch
 
 from localdiffusion_tpu_torch import config as C
 from localdiffusion_tpu_torch.config import Config, mri256_config, mri256_gated_config
+from localdiffusion_tpu_torch.data.datasets import add_data_args, bank_images, with_data_paths
 from localdiffusion_tpu_torch.data.synthetic import synthetic_brain_translation
 from localdiffusion_tpu_torch.factory import (
     build_classifier_gate,
@@ -57,20 +64,17 @@ from localdiffusion_tpu_torch.ood.thresholds import fit_ladder, save_ladder
 
 
 def brains(cfg: Config, n: int, tumor: bool, seed: int):
-    """(hr FLAIR, lr T1, seg) synthetic brains normalized as `cfg` says."""
+    """(hr FLAIR, lr T1, seg) synthetic brains normalized as `cfg` says:
+    the sets of the classifier gate and the margin evaluations, which exist
+    for `synthetic_brain` only."""
     if cfg.data.name != "synthetic_brain":
-        raise NotImplementedError(f"dataset {cfg.data.name!r}: its reader is a later slice "
-                                  "of the port (ROADMAP queue 1, item 6: the data readers)")
+        raise NotImplementedError(f"dataset {cfg.data.name!r}: these sets are synthetic "
+                                  "brains ('synthetic_brain')")
     d = cfg.data
     return synthetic_brain_translation(
         n, cfg.diffusion.image_size, tumor=tumor, seed=seed, mean_t1=d.mean_t1,
         std_t1=d.std_t1, mean_flair=d.mean_flair, std_flair=d.std_flair,
         translate_zero=d.translate_zero)
-
-
-def calibration_images(cfg: Config, n_images: int) -> np.ndarray:
-    """The normal conditioning images [n, H, W, 1] a bank is built from."""
-    return brains(cfg, n_images, False, 42)[1]
 
 
 BATCH = 8  # calibration images a feature pass
@@ -86,11 +90,11 @@ def build_bank(cfg: Config, out: str, gd=None, n_images: int = 200, images=None,
 
     gd: the denoiser to tap (default: built on `device` with
     `cfg.ood.feature_npz`'s weights); a WRN is seeded from `seed`.  images:
-    the calibration images (default `calibration_images(cfg, n_images)`),
+    the calibration images (default `bank_images(cfg, n_images)`),
     `BATCH` at a time.  Returns {'bank', 'ladder', 'ladder_path', 'seconds':
     {'taps', 'kcenter', 'ladder'}, 'patches', 'patchcore'}."""
     cfg = cfg.replace(ood=dataclasses.replace(cfg.ood, detector="patchcore"))
-    lr = calibration_images(cfg, n_images) if images is None else np.asarray(images, np.float32)
+    lr = bank_images(cfg, n_images) if images is None else np.asarray(images, np.float32)
     pc = PatchCore(cfg.ood, source=make_feature_source(
         cfg, denoiser=gd, device=device, generator=torch.Generator().manual_seed(seed)))
     # the bank shares the inference front end's preprocessing
@@ -151,10 +155,6 @@ def classifier_calibration_pairs(cfg: Config, n: int = 32, lesion_amp: float = 2
             + [(anomalous[i:i + 1], 1) for i in range(n)])
 
 
-# the detector configurations whose banks the CLI builds
-CONFIGS = {name: C.CONFIGS[name] for name in ("mri256", "mri256_bf16", "mri64")}
-
-
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", required=True,
@@ -163,7 +163,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--classifier", action="store_true",
                     help="build the classifier gate's bank of mri256_gated_config() and "
                          "ROC-calibrate its threshold")
-    ap.add_argument("--config", choices=sorted(CONFIGS), default="mri256",
+    ap.add_argument("--config", choices=sorted(C.CONFIGS), default="mri256",
                     help="the detector's configuration (default mri256)")
     ap.add_argument("--feature-source", choices=["denoiser", "wrn", "seg_encoder"],
                     default=None, help="the taps (default: the configuration's)")
@@ -181,8 +181,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the WRN50-2's random weights and the k-center projection")
     ap.add_argument("--device", default="cuda")
+    add_data_args(ap)
     args = ap.parse_args(argv)
-    cfg = mri256_gated_config() if args.classifier else CONFIGS[args.config]()
+    cfg = mri256_gated_config() if args.classifier else C.CONFIGS[args.config]()
+    cfg = with_data_paths(cfg, args)
     over = dict(feature_npz=args.feature_npz)
     if args.feature_source:
         over["feature_source"] = args.feature_source

@@ -5,12 +5,19 @@
         --params-npz results/mri_synth256_ema.npz --max-images 8 [--device cpu]
 
 `--config` names a builder of `config.CONFIGS` (there is no YAML on the
-card's machine).  The test set is the JAX script's for `synthetic_brain`:
-up to 32 tumour brains of seed 0; another dataset raises until its reader
-is ported.  The pipeline is `factory.build_pipeline`'s, its weights a
-slim npz (the JAX script's Orbax milestones wait for the exporter).  A seg
+card's machine).  The test set is the JAX script's
+(`data.datasets.test_arrays`): up to 32 tumour brains of seed 0, up to 16
+defective synthetic textures (their defect masks the ground truth), the
+anomalous digit of the MNIST t10k idx files (`data.anomaly_name`, synthetic
+digits where the files are missing), the BraTS tumour slices or the MVTec
+defect class `data.anomaly_name`; `--mnist-path` and its siblings point the
+configuration at the files.  The classifier gate (`sampler.classifier`)
+acts on the ancestral DDPM chain only.  The pipeline is
+`factory.build_pipeline`'s, its weights a slim npz (the JAX script's Orbax
+milestones wait for the exporter).  A seg
 detector without a checkpoint gives way to the ground-truth masks, one
-image a batch, as in the JAX script.  Each
+image a batch, as in the JAX script (so does a PatchCore detector with
+`sampler.ood_ad` off, which has no front end).  Each
 batch's noise is seeded from 10 (`pipeline.batch_noise`).  With
 `--save-prefix` the stacks are written as `{prefix}hr_all.npy` and so on,
 `fusion_time.npy` among them (the JAX script also writes that one into the
@@ -26,8 +33,8 @@ import os
 import numpy as np
 
 from localdiffusion_tpu_torch.config import CONFIGS, config_by_name
+from localdiffusion_tpu_torch.data import datasets
 from localdiffusion_tpu_torch.factory import build_pipeline
-from localdiffusion_tpu_torch.ood.bank import brains
 from localdiffusion_tpu_torch.ood.features import seg_checkpoint
 from localdiffusion_tpu_torch.pipeline import batch_noise
 
@@ -54,13 +61,14 @@ def parse_args(argv=None):
     ap.add_argument("--memory-bank", default=None,
                     help="override ood.memory_bank_path (its ladder is found beside it)")
     ap.add_argument("--device", default="cuda")
+    datasets.add_data_args(ap)
     return ap.parse_args(argv)
 
 
 def configure(args):
     """The configuration with the command line's overrides, as the JAX
     script applies them."""
-    cfg = config_by_name(args.config)
+    cfg = datasets.with_data_paths(config_by_name(args.config), args)
     if args.dtype:
         cfg = cfg.replace(train=dataclasses.replace(cfg.train, compute_dtype=args.dtype))
     over = {}
@@ -82,11 +90,14 @@ def configure(args):
 def main(argv=None) -> dict:
     args = parse_args(argv)
     cfg = configure(args)
-    hr, lr, seg = brains(cfg, min(args.max_images, 32), True, 0)
-    gt_masks_only = (cfg.ood.detector == "seg"
-                     and not os.path.exists(seg_checkpoint(cfg.ood.seg_model_path)))
+    hr, lr, seg = datasets.test_arrays(cfg, args.max_images)
+    # no front end (as the JAX factory builds none) and ground truth to hand
+    det = cfg.ood.detector
+    no_frontend = ((det == "seg" and not os.path.exists(seg_checkpoint(cfg.ood.seg_model_path)))
+                   or (det == "patchcore" and not cfg.sampler.ood_ad))
+    gt_masks_only = seg is not None and no_frontend
     if gt_masks_only:
-        print("no seg checkpoint: using the ground-truth seg masks")
+        print("no front end: using the ground-truth seg masks")
         cfg = cfg.replace(ood=dataclasses.replace(cfg.ood, detector="manual"))
     # the ROC calibration pairs where no threshold is configured: the JAX
     # script's, ground truth labelled 1 and conditioning images 0
@@ -118,7 +129,7 @@ def main(argv=None) -> dict:
         print(f"Average sampling time: {float(out['mean_time']):.4f}")
         return out
     pairs = [(hr[i:i + 1], lr[i:i + 1]) for i in range(len(hr))]
-    gt_masks = [seg[i:i + 1] for i in range(len(hr))]
+    gt_masks = None if seg is None else [seg[i:i + 1] for i in range(len(hr))]
     out = pipe.run(pairs, noise=NOISE_SEED, save_prefix=args.save_prefix, gt_masks=gt_masks)
     if cfg.sampler.classifier:
         print(f"fusion_time (acceptance t per image): {out['fusion_time'].tolist()}")

@@ -4,6 +4,7 @@
         [--step-mode resident|epoch|batch] [--batch-size N] [--results DIR]
         [--eval-every N] [--resume auto|never] [--init-npz NPZ]
         [--dtype float32|bfloat16] [--export-npz NPZ] [--device cuda|cpu]
+        [--mnist-path IDX --mnist-labels-path IDX | --mri-files GLOB | --mvtec-path GLOB]
 
 `--config` names a configuration of `config.CONFIGS` (no YAML on the card's
 machine).  Steps (`train.trainer.Trainer`): 'resident' (the default) keeps
@@ -20,9 +21,12 @@ from a slim npz (the optimizer starts fresh); `--export-npz` writes the
 final EMA as one, which `factory.load_params` and the JAX package's
 `load_params_npz` read.  On the card unless `--device cpu`.
 
-Datasets: `synthetic_brain` (256 training brains, seed 42; 32 test brains,
-seed 7, as the JAX script makes them).  The MNIST, BraTS and MVTec readers
-are not ported yet, and the multi-host and FSDP flags neither.
+Datasets (`data.datasets.train_arrays`, the JAX script's branches):
+`mnist` (the digit-8 images of the idx files, a 70% split; synthetic digits
+where the files are missing), `synthetic_brain`, `synthetic_texture[_denoise]`,
+`synthetic`, `mri` (BraTS PNG triplets) and `mvtec*`; `--mnist-path`,
+`--mnist-labels-path`, `--mri-files` and `--mvtec-path` point the
+configuration at the files.  The multi-host and FSDP flags are not ported.
 """
 
 from __future__ import annotations
@@ -35,9 +39,9 @@ import time
 import numpy as np
 import torch
 
-from localdiffusion_tpu_torch.config import Config, config_by_name, min_max_val_for
+from localdiffusion_tpu_torch.config import config_by_name, min_max_val_for
+from localdiffusion_tpu_torch.data.datasets import add_data_args, train_arrays, with_data_paths
 from localdiffusion_tpu_torch.data.loader import ArrayLoader
-from localdiffusion_tpu_torch.data.synthetic import synthetic_brain_translation
 from localdiffusion_tpu_torch.diffusion.gaussian import build_gd, resolve_device
 from localdiffusion_tpu_torch.train.trainer import (
     Trainer,
@@ -49,22 +53,6 @@ from localdiffusion_tpu_torch.utils.logging import CsvLogger, Timer
 from localdiffusion_tpu_torch.utils.params_io import load_params_npz, save_params_npz
 
 EVAL_IMAGES = 8
-
-
-def build_dataset(cfg: Config):
-    """((hr, lr) train, (hr, lr) test) NHWC float32 arrays of the
-    configuration's dataset."""
-    d = cfg.data
-    if d.name != "synthetic_brain":
-        raise NotImplementedError(
-            f"dataset {d.name!r}: the port's data readers (MNIST, BraTS, MVTec) are "
-            "ROADMAP queue 1, item 6; train on 'synthetic_brain'")
-    size = cfg.diffusion.image_size
-    norm = dict(mean_t1=d.mean_t1, std_t1=d.std_t1, mean_flair=d.mean_flair,
-                std_flair=d.std_flair, translate_zero=d.translate_zero)
-    hr, lr, _ = synthetic_brain_translation(256, size, tumor=False, seed=42, **norm)
-    hr_te, lr_te, _ = synthetic_brain_translation(32, size, tumor=False, seed=7, **norm)
-    return (hr, lr), (hr_te, lr_te)
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -91,13 +79,14 @@ def parse_args(argv=None):
                     help="compute dtype (default: the configuration's)")
     ap.add_argument("--export-npz", default=None, help="write the final EMA to this slim npz")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    add_data_args(ap)
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
     device = resolve_device(args.device)
-    cfg = config_by_name(args.config)
+    cfg = with_data_paths(config_by_name(args.config), args)
     over = {"batch_size": args.batch_size or cfg.train.batch_size}
     if args.results:
         over["results_dir"] = args.results
@@ -119,7 +108,7 @@ def main(argv=None) -> dict:
         print(f"auto-resumed from {latest} at step {trainer.step}")
     start_step = trainer.step
 
-    (hr_tr, lr_tr), (hr_te, lr_te) = build_dataset(cfg)
+    (hr_tr, lr_tr), (hr_te, lr_te) = train_arrays(cfg)
     print(f"train {len(hr_tr)} / test {len(hr_te)} samples")
     dl = ArrayLoader(hr_tr, lr_tr, batch_size=bs, seed=42)
     steps = args.steps if args.steps is not None else cfg.train.num_steps

@@ -107,8 +107,9 @@ def make_optimizer(params, cfg: TrainConfig) -> torch.optim.Adam:
 class Trainer:
     """Trains the UNet of `gd` in place on its device.
 
-    It holds the step, the optimizer and `ema_model`, a copy of the UNet
-    with its own storage on the same device; `ema_gd` is an engine that
+    It holds the step, the optimizer over the parameters that take a
+    gradient (`params`), and `ema_model`, a copy of the whole UNet with its
+    own storage on the same device; `ema_gd` is an engine that
     samples with it.  Each step's random numbers come from the `draws`
     given to it (a `torch.Generator` on the device, or
     `diffusion.gaussian.ArrayDraws`)."""
@@ -118,9 +119,12 @@ class Trainer:
         self.cfg = cfg
         self.ema_cfg = ema_cfg
         self.model = gd.model
-        self.params = list(self.model.parameters())
-        if any(p.dtype != torch.float32 for p in self.params):
+        if any(p.dtype != torch.float32 for p in self.model.parameters()):
             raise TypeError("the trained parameters must be float32")
+        # what the optimizer and the clip see: random Fourier features' frozen
+        # weights take no gradient (the JAX module's stop_gradient: Adam, and
+        # the EMA of an unchanged value, leave them as they are)
+        self.params = [p for p in self.model.parameters() if p.requires_grad]
         self.optimizer = make_optimizer(self.params, cfg)
         self.ema_model = copy.deepcopy(self.model).requires_grad_(False)
         self.ema_gd = copy.copy(gd)
@@ -131,7 +135,7 @@ class Trainer:
     def reset_ema(self) -> None:
         """EMA ← the current parameters (a warm start's `--init-npz`)."""
         with torch.no_grad():
-            for e, p in zip(self.ema_model.parameters(), self.params):
+            for e, p in zip(self.ema_model.parameters(), self.model.parameters()):
                 e.copy_(p)
 
     def _as_tensors(self, *arrays):
@@ -154,7 +158,7 @@ class Trainer:
         clip_by_global_norm([p.grad for p in self.params], self.cfg.max_grad_norm)
         self.optimizer.step()
         self.step += 1
-        ema_update(self.ema_model.parameters(), self.params, self.step, self.ema_cfg)
+        ema_update(self.ema_model.parameters(), self.model.parameters(), self.step, self.ema_cfg)
 
     def train_batch_step(self, hr, lr, draws) -> float:
         """One optimizer step on one batch (NHWC arrays or tensors); returns

@@ -36,6 +36,29 @@ def test_flagship_config_is_configs_mnist_yaml():
                 getattr(getattr(want, section), f.name), (section, f.name)
 
 
+# each builder and its file; the MNIST files' idx paths name a directory
+# outside the repository, so the builders keep the file names in
+# DataConfig's default directory (`config.MNIST_DIR`)
+BUILDERS = {"mnist_train": "mnist_train.yaml", "mnist_8to5": "mnist_8to5.yaml",
+            "mnist_gated": "mnist_gated.yaml", "mnist_usegt": "mnist_usegt.yaml",
+            "mvtec_synthetic": "mvtec_synthetic.yaml", "mvtec_denoise": "mvtec_denoise.yaml"}
+
+
+@pytest.mark.parametrize("name", sorted(BUILDERS))
+def test_builder_is_its_yaml(name):
+    want = jcfg.Config.load_yaml(os.path.join(ROOT, "configs", BUILDERS[name]))
+    got = tcfg.config_by_name(name)
+    assert got == getattr(tcfg, f"{name}_config")()
+    for section in SECTIONS:
+        for f in dataclasses.fields(getattr(got, section)):
+            g, w = getattr(getattr(got, section), f.name), getattr(getattr(want, section), f.name)
+            if (section, f.name) in NOT_COPIED:
+                assert os.path.basename(g) == os.path.basename(w), (section, f.name)
+                assert os.path.dirname(g) == tcfg.MNIST_DIR or w == g, (section, f.name)
+                continue
+            assert g == w, (section, f.name)
+
+
 def test_from_dict_reads_the_yaml_contents():
     with open(os.path.join(ROOT, "configs/mnist.yaml")) as f:
         raw = yaml.safe_load(f)

@@ -8,8 +8,9 @@ detector from the shipped npz, the seg-encoder and WRN50-2 sources, and the
 classifier gate's WRN last resort; a third runs the evaluation entry
 points at 16px (the shipped denoiser, T=3): `factory.load_params` and
 `build_pipeline`, `run`, and the test, margin and gated-quality CLIs; a
-fourth the training CLI at 16px, a step in each mode, and its EMA npz
-back through `factory.load_params`.
+fourth the MNIST reader on idx files it writes, the training CLI at 16px on
+a self-conditioned model with random Fourier features, a step in each mode,
+and its EMA npz back through `factory.load_params`.
 """
 
 import os
@@ -125,7 +126,30 @@ TRAIN = textwrap.dedent(
         diffusion=dataclasses.replace(base.diffusion, image_size=16, timesteps=3,
                                       sampling_timesteps=None),
         train=dataclasses.replace(base.train, compute_dtype="float32", batch_size=128))
+    C.CONFIGS["tiny_sc"] = lambda: C.CONFIGS["tiny"]().replace(
+        model=dataclasses.replace(C.CONFIGS["tiny"]().model, self_condition=True,
+                                  random_fourier_features=True))
     with tempfile.TemporaryDirectory() as d:
+        import gzip, struct
+        import numpy as np
+        from localdiffusion_tpu_torch.data import datasets, synthetic
+        imgs, labels = synthetic.synthetic_digits(64, seed=1)
+        for name, arr in (("images-idx3-ubyte", imgs), ("labels-idx1-ubyte.gz", labels)):
+            arr = arr.astype(np.uint8)
+            head = struct.pack(">BBBB", 0, 0, 8, arr.ndim) + struct.pack(
+                ">" + "I" * arr.ndim, *arr.shape)
+            with (gzip.open if name.endswith(".gz") else open)(
+                    os.path.join(d, "t10k-" + name), "wb") as f:
+                f.write(head + arr.tobytes())
+        mn = C.mnist_8to5_config()
+        mn = mn.replace(data=dataclasses.replace(
+            mn.data, mnist_path=os.path.join(d, "t10k-images-idx3-ubyte"),
+            mnist_labels_path=os.path.join(d, "t10k-labels-idx1-ubyte")))
+        hr, lr, seg = datasets.test_arrays(mn, 4)
+        assert hr.shape == (4, 28, 28, 1) and seg is None
+        out = train.main(["--config", "tiny_sc", "--steps", "1", "--step-mode", "batch",
+                          "--results", os.path.join(d, "sc"), "--device", "cpu"])
+        print("TRAINED", "self_cond", out["step"])
         for mode in ("resident", "epoch", "batch"):
             npz = os.path.join(d, mode + ".npz")
             out = train.main(["--config", "tiny", "--steps", "1", "--step-mode", mode,
@@ -170,6 +194,12 @@ REQUIRED = {
     "localdiffusion_tpu_torch.data.loader",
     "localdiffusion_tpu_torch.utils.logging",
     "localdiffusion_tpu_torch.scripts.train",
+    "localdiffusion_tpu_torch.data.mnist",
+    "localdiffusion_tpu_torch.data.mvtec",
+    "localdiffusion_tpu_torch.data.brats",
+    "localdiffusion_tpu_torch.data.mha",
+    "localdiffusion_tpu_torch.data.folder",
+    "localdiffusion_tpu_torch.data.datasets",
 }
 
 
@@ -208,7 +238,7 @@ def test_train_cli_runs_without_jax_flax_optax_orbax_yaml():
     )
     assert proc.returncode == 0, proc.stderr
     done = [ln.split()[1:] for ln in proc.stdout.splitlines() if ln.startswith("TRAINED")]
-    assert done == [["resident", "1"], ["epoch", "1"], ["batch", "1"]]
+    assert done == [["self_cond", "1"], ["resident", "1"], ["epoch", "1"], ["batch", "1"]]
 
 
 def test_blocked_module_really_fails():

@@ -1216,3 +1216,58 @@ def test_fused_block_function_gradient_is_the_plain_autograd(cuda_device, shape,
                                 cot[:1].clone())
     for g, a in zip(got[:3], alone):
         assert float((g[:1].float() - a.float()).norm() / a.float().norm()) <= 2e-3
+
+
+# ---------------------------------------------------------------------------
+# the self-conditioned denoiser (learned Fourier time features)
+# ---------------------------------------------------------------------------
+
+COUNTED = (G.groupnorm_film_silu, G.gn_tiled_stats, G.gn_tiled_apply, flash_attention,
+           LA.linear_attention_kv, LA.linear_attention_q, RB.conv3x3_stats, RB.epilogue)
+
+
+@pytest.mark.cuda
+def test_self_conditioned_bf16_unet_kernels_match_plain_versions(cuda_device):
+    """`mri256_config()` with self-conditioning and learned Fourier
+    features, bf16, batch 2 at 256px, `x_self_cond` given: one UNet call
+    with the kernels (each of the eight launched) against the plain
+    versions on the card at the one-UNet-call bars (relative L2 <= 5e-2,
+    correlation >= 0.999); then a loss with the coin on heads launches
+    each kernel twice a call's count (the pre-pass and the grad pass) and
+    its backward none."""
+    from localdiffusion_tpu_torch.config import mri256_config
+    from localdiffusion_tpu_torch.diffusion.gaussian import ArrayDraws
+
+    base = mri256_config()
+    cfg = base.replace(model=dataclasses.replace(base.model, self_condition=True,
+                                                 learned_sinusoidal_cond=True))
+    gd = build_gd(cfg, device=cuda_device)
+    rng = np.random.default_rng(5)
+    x, sc = (torch.as_tensor(rng.standard_normal((2, 256, 256, 1)), dtype=torch.float32,
+                             device=cuda_device) for _ in range(2))
+    cond = torch.as_tensor(rng.uniform(0, 14, (2, 256, 256, 1)), dtype=torch.float32,
+                           device=cuda_device)
+    t = torch.tensor([7, 180], device=cuda_device)
+    before = [k.launches for k in COUNTED]
+    with torch.no_grad():
+        got = gd.model(x, cond, t, x_self_cond=sc).float().cpu()
+    call = [k.launches - b for k, b in zip(COUNTED, before)]
+    assert all(n > 0 for n in call), call
+    gd.model.use_plain_kernels(True)
+    try:
+        with torch.no_grad():
+            want = gd.model(x, cond, t, x_self_cond=sc).float().cpu()
+    finally:
+        gd.model.use_plain_kernels(False)
+    rel = float((got - want).norm() / want.norm())
+    corr = float(np.corrcoef(got.numpy().ravel(), want.numpy().ravel())[0, 1])
+    assert rel <= 5e-2 and corr >= 0.999, (rel, corr)
+    before = [k.launches for k in COUNTED]
+    draws = ArrayDraws(cuda_device, [t.cpu().numpy()], [np.zeros((2, 256, 256, 1), np.float32)],
+                       coins=[True])
+    loss = gd.loss(x.clamp(0, 2), cond, draws)
+    assert [k.launches - b for k, b in zip(COUNTED, before)] == [2 * n for n in call]
+    mid = [k.launches for k in COUNTED]
+    loss.backward()
+    assert [k.launches for k in COUNTED] == mid
+    assert float(gd.model.time_mlp.pos_emb.weights.grad.abs().max()) > 0

@@ -109,14 +109,15 @@ def test_narrow_f32_loss_and_gradients_match_jax(objective, min_snr, offset, aut
 
 
 def test_p_losses_refuses_self_conditioning():
-    """The self-conditioning pre-pass is not ported: it raises rather than
-    train without it."""
+    """Self-conditioning on an engine whose UNet was built without it (no
+    input channels for the estimate) raises rather than train without the
+    pre-pass; `test_torch_self_cond.py` holds the pre-pass against JAX."""
     dc = tcfg.DiffusionConfig(image_size=16, timesteps=4)
     _, _, tgd = make_pair(small_model_cfg(), dc, numpy_init=True)
     tgd.model_cfg = dataclasses.replace(tgd.model_cfg, self_condition=True)
     x = torch.zeros(1, 16, 16, 1)
-    with pytest.raises(NotImplementedError, match="self-conditioning"):
-        tgd.p_losses(x, x, torch.zeros(1, dtype=torch.long), x)
+    with pytest.raises(ValueError, match="self_condition"):
+        tgd.p_losses(x, x, torch.zeros(1, dtype=torch.long), x, self_cond=True)
 
 
 def test_array_draws_check_what_they_hand_out():

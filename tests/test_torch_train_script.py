@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from localdiffusion_tpu_torch import config as tcfg
+from localdiffusion_tpu_torch.data.datasets import train_arrays
 from localdiffusion_tpu_torch.factory import load_params
 from localdiffusion_tpu_torch.scripts import train
 from test_torch_support import small_model_cfg
@@ -106,13 +107,17 @@ def test_init_npz_warm_starts_params_and_ema(tmp_path):
 
 
 def test_dataset_is_the_jax_scripts():
+    """`data.datasets.train_arrays`, which the script reads, against the JAX
+    script's `build_dataset` on the brains and on MNIST (its idx files
+    absent: the synthetic digits); `test_torch_data.py` holds every other
+    dataset name."""
     cfg = _tiny()
-    for got, want in zip(train.build_dataset(cfg), jax_build_dataset(cfg)):
-        for g, w in zip(got, want):
-            assert np.array_equal(g, np.asarray(w))
-    other = cfg.replace(data=dataclasses.replace(cfg.data, name="mnist"))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        train.build_dataset(other)
+    missing = dataclasses.replace(cfg.data, name="mnist", mnist_path="./absent/train-images",
+                                  mnist_labels_path="./absent/train-labels")
+    for c in (cfg, cfg.replace(data=missing)):
+        for got, want in zip(train_arrays(c), jax_build_dataset(c)):
+            for g, w in zip(got, want):
+                assert np.array_equal(g, np.asarray(w))
 
 
 def test_step_seed_depends_on_seed_and_step_only():
