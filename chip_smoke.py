@@ -202,7 +202,40 @@ Phases, each printed on its own line with the elapsed seconds:
     both coins (same t and noise; the training phase's bf16 bars); the
     trained model's T=250 branched chain at batch 4 (zeros for the
     estimate, as the samplers pass none) against its plain versions (the
-    256px chain bars).
+    256px chain bars);
+22. serve (`mri256_bf16_config()`: the shipped denoiser and seg detector,
+    DDIM-50, bf16, batch 4): `python -m localdiffusion_tpu_torch.scripts.serve
+    --port 0` started in a new process, as a user starts it (the seconds to
+    bind and of its warm-up, one request without a mask, /healthz, stopped
+    by an interrupt); then, in this process, `scripts.serve.build_server`
+    (warmed up) behind loopback HTTP with every count at 0: 12 requests,
+    four at a time (a half mask, all ones, none: the seg detector decides),
+    each four one batch; every status 200, /stats, /healthz, a 3-channel
+    body's 400; the launches as the chains' UNet calls; each dispatch run
+    again through `pipe.translate` with its batch's noise, and each served
+    pred bit for bit its row; latency median and maximum;
+23. sampler_api: `sample` on `mri256_config()` (full width, T cut to 25)
+    with an all-ones mask and a half mask, bit for bit the direct sampler
+    call with the same launches; `interpolate` at full width, batch 4,
+    bf16, T=250 from t = T-1, against its plain-version chain (the 256px
+    chain bars); `return_debug` on the trained flagship (the exported
+    `results_torch/mnist_x250_best10000.npz`), its six entries card vs CPU
+    with the same numpy noise (the flagship's bar);
+24. mnist_trained (entered with both TF32 flags on): the two exported MNIST
+    checkpoints (`results_torch/*.npz`, size and sha256 printed), one UNet
+    call each card vs CPU (1e-4), the test CLI on 8 seeded t10k digits
+    (idx files written under `build/mnist_trained/`, the manual mask) on
+    the card and on the CPU with the same numpy noise (mean MSE within the
+    flagship's bar), and an `InferenceServer` answering 8 requests from
+    the mnist_u150 weights;
+25. aux (entered with both TF32 flags on): `scripts.train_seg` at 256px (2
+    epochs, batch 4) into `build/aux/`, its npz served by the seg
+    detector (one detect); `scripts.train_mnist_cls` (2 epochs on the
+    seeded t10k digits) and `scripts.eval_translation` of the trained
+    flagship's translations; `scripts.convert_mha` of three seeded 8-slice
+    MetaImage volumes (one zlib-compressed), bit for bit `load_mha`'s, and
+    `scripts.translate_volume` on them (`mri256_bf16_config()`, batch 4),
+    its launches as its chains' calls.
 
 The line before the last is one JSON object with the kernels' numbers
 (each with `train_launches`, its launches in the training phase's main
@@ -220,6 +253,7 @@ import gzip
 import hashlib
 import io
 import json
+import os
 import shutil
 import struct
 import subprocess
@@ -243,6 +277,7 @@ from localdiffusion_tpu_torch.config import (
     mri256_gated_config,
     mvtec_denoise_config,
     mvtec_synthetic_config,
+    min_max_val_for,
     stem256_config,
 )
 from localdiffusion_tpu_torch.data.datasets import bank_images, test_arrays, train_arrays
@@ -3666,6 +3701,569 @@ def self_cond_phase() -> dict:
     return dict(counts=counts, perf=perf, checks=checks)
 
 
+# ---------------------------------------------------------------------------
+# serving, the sampler's API, the trained MNIST weights, the aux models
+# ---------------------------------------------------------------------------
+
+ROOT = Path(__file__).resolve().parent
+SHIPPED_DENOISER = RESULTS / "mri_synth256_ema.npz"
+# the serving front end on `mri256_bf16_config()` (DDIM-50, bf16, the shipped
+# denoiser and seg detector) at batch 4: per kind 4 requests (a half mask,
+# branched; all ones, plain; no mask, the seg detector decides), each kind
+# sent together after the last kind's answers, so each forms one batch
+SERVE_KINDS, SERVE_PER_KIND, SERVE_WAIT_MS = ("branched", "plain", "detector"), 4, 1000
+SERVE_CLI_TIMEOUT_S = 300
+# the sampler's API: `sample` against the direct sampler calls on
+# `mri256_config()` at full width with T cut to 25 for time (its dispatch is
+# the same at any T); `interpolate` at full width, batch 4, bf16, T=250 from
+# t = T-1, against its plain-version chain at the 256px chain bars;
+# `return_debug` on the trained flagship, card vs CPU at the flagship's bar
+SAMPLE_T, INTERP_BATCH, INTERP_LAM = 25, 4, 0.3
+# the exported MNIST checkpoints (tracked in git, `scripts/export_orbax_npz.py`)
+MNIST_NPZ = {"mnist_x250": ROOT / "results_torch" / "mnist_x250_best10000.npz",
+             "mnist_u150": ROOT / "results_torch" / "mnist_u150_best200.npz"}
+MNIST_DIR = STAGE_A_DIR.parent / "mnist_trained"
+MNIST_TEST_IMAGES, MNIST_SERVE, MNIST_UNET_TOL = 8, 8, 1e-4
+# the aux models: the seg detector trained at 256px for 2 epochs (64 brains at
+# batch 4), the classifier for 2 epochs on the seeded t10k digits, and the
+# volume CLIs on an 8-slice seeded MetaImage volume at 256px, batch 4
+AUX_DIR = STAGE_A_DIR.parent / "aux"
+AUX_SEG_EPOCHS, AUX_CLS_EPOCHS, AUX_SLICES, AUX_VOLUME_BATCH = 2, 2, 8, 4
+
+
+class NumpyNoise:
+    """A noise source drawing from a seeded numpy generator and copying to
+    `device`: the same stream on the card and on the CPU (a torch generator
+    on the card draws another stream than one on the CPU)."""
+
+    def __init__(self, seed, device):
+        self.rng = np.random.default_rng(seed)
+        self.device = device
+
+    def __call__(self, shape):
+        return torch.as_tensor(self.rng.standard_normal(shape).astype(np.float32),
+                               device=self.device)
+
+
+@contextlib.contextmanager
+def numpy_run_noise(device):
+    """Within the block, `pipeline.run`'s batch i draws from
+    `NumpyNoise([seed, i], device)`, so a CLI run on the card and one on the
+    CPU sample with the same noise."""
+    import localdiffusion_tpu_torch.pipeline as P
+
+    real = P.batch_noise
+
+    def batch_noise(noise, index):
+        return NumpyNoise([0 if noise is None else int(noise), index], device), None
+
+    P.batch_noise = batch_noise
+    try:
+        yield
+    finally:
+        P.batch_noise = real
+
+
+def _http(url, body=None, timeout=600):
+    """(status, parsed JSON) of a GET, or a POST of `body` (a dict)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    try:
+        with urllib.request.urlopen(urllib.request.Request(url, data=data), timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _serve_cli(npz: Path) -> dict:
+    """`python -m localdiffusion_tpu_torch.scripts.serve` as a user starts it
+    (a new process, cold): the warm-up it prints, then one request without a
+    mask, /healthz, and an interrupt; the process is stopped in any case."""
+    import queue
+    import signal
+    import sys
+    import threading
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "localdiffusion_tpu_torch.scripts.serve", "--config",
+         "mri256_bf16", "--params-npz", str(npz), "--port", "0",
+         "--batch-size", str(MRI_SERVE_BATCH)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "PYTHONUNBUFFERED": "1"})
+    lines: "queue.Queue" = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True).start()
+    t0 = time.perf_counter()
+    said, url = [], None
+    try:
+        while url is None:
+            try:
+                ln = lines.get(timeout=1.0)
+            except queue.Empty:
+                if proc.poll() is not None:
+                    raise RuntimeError(f"the serve CLI exited with {proc.returncode}: {said}")
+                if time.perf_counter() - t0 > SERVE_CLI_TIMEOUT_S:
+                    raise RuntimeError(f"the serve CLI did not bind in {SERVE_CLI_TIMEOUT_S}s: "
+                                       f"{said}")
+                continue
+            said.append(ln.rstrip())
+            if ln.startswith("serving on "):
+                url = ln.split()[2]
+        start_s = time.perf_counter() - t0
+        warm = [float(ln.split()[1][:-1]) for ln in said if ln.startswith("warm-up ")]
+        lr = test_arrays(mri256_bf16_config(), 1)[1][0]
+        t1 = time.perf_counter()
+        code, out = _http(url + "/v1/translate", {"image": lr[..., 0].tolist()})
+        first_s = time.perf_counter() - t1
+        health = _http(url + "/healthz")
+        if code != 200 or health != (200, {"ok": True}) or len(warm) != 1:
+            raise RuntimeError(f"the serve CLI answered {code} / {health}: {said}")
+        pred = np.asarray(out["pred"], np.float32)
+        if pred.shape != lr.shape or not np.all(np.isfinite(pred)):
+            raise RuntimeError(f"the serve CLI's pred {pred.shape}")
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    log(f"serve CLI (cold process): bound after {start_s:.1f}s, warm-up {warm[0]:.2f}s; first "
+        f"request {first_s * 1e3:.1f}ms round trip (server latency "
+        f"{out['latency_s'] * 1e3:.1f}ms, branched {out['branched']}); /healthz ok; "
+        f"exit {rc} on SIGINT")
+    return dict(cli_start_s=start_s, cli_warmup_s=warm[0], cli_first_request_s=first_s,
+                cli_first_latency_s=out["latency_s"])
+
+
+def serve_phase() -> dict:
+    """`scripts.serve` on `mri256_bf16_config()` with the shipped denoiser and
+    seg detector: the CLI in a cold process, then `build_server` (warmed)
+    in this one answering 12 requests over loopback HTTP with every count at
+    0; each served pred bit for bit against `pipe.translate` of its padded
+    batch with that batch's noise."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor as Pool
+
+    from localdiffusion_tpu_torch.scripts import serve as serve_script
+
+    t_phase = time.perf_counter()
+    perf = _serve_cli(SHIPPED_DENOISER)
+    args = serve_script.parse_args([
+        "--config", "mri256_bf16", "--params-npz", str(SHIPPED_DENOISER), "--port", "0",
+        "--batch-size", str(MRI_SERVE_BATCH), "--max-wait-ms", str(SERVE_WAIT_MS)])
+    t0 = time.perf_counter()
+    (httpd, srv), said = _echoed(serve_script.build_server, args)
+    perf["build_s"] = time.perf_counter() - t0
+    perf["warmup_s"] = float([ln for ln in said.splitlines() if ln.startswith("warm-up ")][0]
+                             .split()[1][:-1])
+    pipe = srv.pipe
+    calls = pipe.gd.diff_cfg.resolved_sampling_timesteps
+    dispatches = []
+    real = pipe.translate
+
+    def recorded(lr, **kw):  # the sampler thread's dispatches, in order
+        res = real(lr, **kw)
+        dispatches.append((np.array(lr), kw, res))
+        return res
+
+    pipe.translate = recorded
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    _, lr, _ = test_arrays(pipe.config, len(SERVE_KINDS) * SERVE_PER_KIND)
+    s = pipe.gd.image_size
+    half = np.zeros((s, s), np.float32)
+    half[:, : s // 2] = 1.0
+    masks = {"branched": half, "plain": np.ones((s, s), np.float32), "detector": None}
+    answers = []
+    try:
+        reset_counts()
+        with Pool(SERVE_PER_KIND) as pool:
+            for k, kind in enumerate(SERVE_KINDS):
+                rows = range(k * SERVE_PER_KIND, (k + 1) * SERVE_PER_KIND)
+                bodies = [dict(image=lr[i, ..., 0].tolist(),
+                               **({} if masks[kind] is None else {"mask": masks[kind].tolist()}))
+                          for i in rows]
+                for i, (code, out) in zip(rows, pool.map(
+                        lambda b: _http(url + "/v1/translate", b), bodies)):
+                    answers.append((kind, i, code, out))
+        counts = read_counts()
+        stats = _http(url + "/stats")[1]
+        health = _http(url + "/healthz")
+        bad = _http(url + "/v1/translate", {"image": np.zeros((s, s, 3)).tolist()})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.stop()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise RuntimeError("the HTTP server thread did not stop")
+    if any(code != 200 for _, _, code, _ in answers):
+        raise RuntimeError(f"serve: statuses {[a[2] for a in answers]}")
+    if health != (200, {"ok": True}):
+        raise RuntimeError(f"serve: /healthz {health}")
+    if bad != (400, {"error": f"expected 1 channel(s), got {(s, s, 3)}"}):
+        raise RuntimeError(f"serve: a 3-channel body got {bad}")
+    n = len(SERVE_KINDS) * SERVE_PER_KIND
+    if (stats["requests"] != n or stats["plain_dispatches"] < 1
+            or stats["branched_dispatches"] < 1 or len(dispatches) != stats["batches"]):
+        raise RuntimeError(f"serve: stats {stats}, {len(dispatches)} dispatches")
+    flags = {kind: [out["branched"] for k, _, _, out in answers if k == kind]
+             for kind in SERVE_KINDS}
+    if flags["branched"] != [True] * SERVE_PER_KIND or flags["plain"] != [False] * SERVE_PER_KIND:
+        raise RuntimeError(f"serve: branched flags {flags}")
+    check_counts(counts, MRI_PER_CALL, calls * len(dispatches), "serve")
+
+    # each dispatch again, outside the count: the same pred bit for bit
+    for d_lr, kw, res in dispatches:
+        again = real(d_lr, **kw)
+        if not np.array_equal(again["pred"], res["pred"]):
+            raise RuntimeError("serve: a dispatch's pred differs from pipe.translate's")
+    for kind, i, _, out in answers:
+        rows = [(res, j) for d_lr, _, res in dispatches for j in range(len(d_lr))
+                if np.array_equal(d_lr[j], lr[i])]
+        if not rows or not np.array_equal(np.asarray(out["pred"], np.float32)[None],
+                                          rows[0][0]["pred"][rows[0][1]][None]):
+            raise RuntimeError(f"serve: request {i} ({kind}) is not its batch's row")
+        _check_images(f"serve request {i}", np.asarray(out["pred"], np.float32), (s, s, 1),
+                      *pipe.min_max_val)
+    lat = np.asarray([out["latency_s"] for *_, out in answers])
+    perf.update(latency_median_s=float(np.median(lat)), latency_max_s=float(lat.max()),
+                batches=stats["batches"], phase_s=time.perf_counter() - t_phase)
+    log(f"serve (mri256_bf16, shipped denoiser and seg detector, batch {MRI_SERVE_BATCH}, "
+        f"DDIM-{calls}): built and warmed in {perf['build_s']:.1f}s (warm-up "
+        f"{perf['warmup_s']:.2f}s: the plain and the branched chain); {n} requests in "
+        f"{stats['batches']} batches (plain {stats['plain_dispatches']}, branched "
+        f"{stats['branched_dispatches']}, merged {stats['merged_dispatches']}); latency median "
+        f"{perf['latency_median_s'] * 1e3:.1f}ms max {perf['latency_max_s'] * 1e3:.1f}ms; the "
+        f"detector's flags {flags['detector']}; /healthz ok, 3 channels 400; every pred bit for "
+        f"bit its batch's pipe.translate; launches {counts} ({len(dispatches)} chains x {calls} "
+        f"calls)")
+    return dict(counts=counts, perf=perf, checks={"serve_bit_equal": True})
+
+
+def sampler_api_phase() -> dict:
+    """`sample` picks the direct sampler's chain (the all-ones bypass and
+    the branched chain, bit for bit and the same launches); `interpolate`
+    at full width against its plain versions; `return_debug` on the trained
+    flagship, card vs CPU."""
+    from localdiffusion_tpu_torch.diffusion import sampler as S
+
+    t_phase = time.perf_counter()
+    perf, checks = {}, {}
+    full = mri256_config()
+    cut = full.replace(diffusion=dataclasses.replace(full.diffusion, timesteps=SAMPLE_T,
+                                                     sampling_timesteps=None))
+    with torch.random.fork_rng(devices=[torch.device("cuda")]):
+        torch.manual_seed(11)
+        gd = build_gd(cut, device="cuda")
+    mmv = min_max_val_for(cut)
+    hr, lr, _ = test_arrays(full, INTERP_BATCH)
+    cond = torch.as_tensor(lr, device="cuda")
+    s = gd.image_size
+    half = np.ones((INTERP_BATCH, s, s, 1), np.float32)
+    half[:, :, : s // 2] = 0.0
+    scfg = cut.sampler
+    reset_counts()
+    for label, mask, direct in (
+            ("all-ones bypass", np.ones_like(half),
+             lambda: S.ddpm_sample_plain(gd, cond, mmv, noise=5)),
+            ("branched", half,
+             lambda: S.ddpm_sample_branched(gd, cond, torch.as_tensor(half, device="cuda"),
+                                            scfg, mmv, noise=5))):
+        before = read_counts()
+        got = S.sample(gd, cond, scfg, mmv, mask=mask, noise=5)
+        mid = read_counts()
+        want = direct()
+        after = read_counts()
+        used = {k: mid[k] - before[k] for k in mid}
+        if used != {k: after[k] - mid[k] for k in mid} or not torch.equal(got, want):
+            raise RuntimeError(f"sample ({label}) did not run the direct sampler's chain")
+        check_counts(used, MRI_PER_CALL, SAMPLE_T, f"sample {label}")
+        log(f"sampler_api: sample ({label}, mri256 at T={SAMPLE_T}, batch {INTERP_BATCH}) is "
+            f"the direct call bit for bit, launches {used}")
+
+    with torch.random.fork_rng(devices=[torch.device("cuda")]):
+        torch.manual_seed(11)
+        gdf = build_gd(full, device="cuda")
+    x1 = torch.as_tensor(hr, device="cuda")
+    x2 = torch.flip(x1, dims=(0,))
+    before = read_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kern = S.interpolate(gdf, x1, x2, cond, mmv, lam=INTERP_LAM, noise=6)
+    torch.cuda.synchronize()
+    perf["interpolate_chain_s"] = time.perf_counter() - t0
+    used = {k: v - before[k] for k, v in read_counts().items()}
+    check_counts(used, MRI_PER_CALL, gdf.num_timesteps - 1, "interpolate")
+    gdf.model.use_plain_kernels(True)
+    try:
+        plain = S.interpolate(gdf, x1, x2, cond, mmv, lam=INTERP_LAM, noise=6)
+    finally:
+        gdf.model.use_plain_kernels(False)
+    a, b = kern.float().cpu().numpy(), plain.float().cpu().numpy()
+    rel, corr = _rel_l2(a, b), float(np.corrcoef(a.ravel(), b.ravel())[0, 1])
+    checks.update(interpolate_rel_l2=rel, interpolate_corr=corr)
+    log(f"sampler_api: interpolate (mri256, batch {INTERP_BATCH}, bf16, from "
+        f"t={gdf.num_timesteps - 1}, lam {INTERP_LAM}) {perf['interpolate_chain_s']:.2f}s for "
+        f"{gdf.num_timesteps - 1} steps; kernels vs plain versions (same noise) rel L2 "
+        f"{rel:.3g} (<= {MRI_CHAIN_REL}) corr {corr:.5f} (>= {MRI_CHAIN_CORR}); launches {used}")
+    if not (np.all(np.isfinite(a)) and rel <= MRI_CHAIN_REL and corr >= MRI_CHAIN_CORR):
+        raise RuntimeError("interpolate on the card disagrees with its plain-version chain")
+    del gd, gdf
+
+    cfg = flagship_config()
+    gds = {dev: load_params(cfg, params_npz=str(MNIST_NPZ["mnist_x250"]), device=dev,
+                            verbose=False) for dev in ("cuda", "cpu")}
+    digits = MNISTDataset(*synthetic_digits(2, seed=21, digit=8)).as_arrays()[1]
+    fmask = manual_mask((2, 28, 28, 1), cfg.ood.manual_mask_cols)
+    before = read_counts()
+    dbg = {}
+    for dev, g in gds.items():
+        _, dbg[dev] = S.ddpm_sample_branched(
+            g, torch.as_tensor(digits, device=dev), torch.as_tensor(fmask, device=dev),
+            cfg.sampler, (0.0, 2.0), noise=NumpyNoise(22, dev), return_debug=True)
+    used = {k: v - before[k] for k, v in read_counts().items()}
+    check_counts(used, FLAGSHIP_PER_CALL, g.num_timesteps, "return_debug chain")
+    keys = ("pred_out", "pred_in", "pred_concat", "x_out", "x_in")
+    errs = {k: float((dbg["cuda"][k].cpu() - dbg["cpu"][k]).abs().max()) for k in keys}
+    same_t = torch.equal(dbg["cuda"]["fusion_time"].cpu(), dbg["cpu"]["fusion_time"])
+    checks["return_debug_max_abs_err"] = max(errs.values())
+    log(f"sampler_api: return_debug on the trained flagship (batch 2, f32), card vs CPU "
+        f"max_abs_err { {k: f'{v:.3g}' for k, v in errs.items()} } (tol {CHAIN_TOL:g}), "
+        f"fusion_time equal {same_t}")
+    if (set(dbg["cuda"]) != set(keys) | {"fusion_time"} or not same_t
+            or max(errs.values()) > CHAIN_TOL):
+        raise RuntimeError("return_debug on the card disagrees with the CPU's")
+    counts = read_counts()
+    perf["phase_s"] = time.perf_counter() - t_phase
+    log(f"sampler_api phase: {perf['phase_s']:.1f}s; launches {counts}")
+    return dict(counts=counts, perf=perf, checks=checks)
+
+
+def _write_t10k(tmp: Path) -> list:
+    """2,048 seeded digits as the t10k idx files; the CLI options that
+    point a configuration at them (the train- name, t10k- derived)."""
+    imgs, labels = synthetic_digits(DATA_DIGITS, seed=12)
+    write_idx(str(tmp / "t10k-images-idx3-ubyte"), imgs)
+    write_idx(str(tmp / "t10k-labels-idx1-ubyte"), labels)
+    return ["--mnist-path", str(tmp / "train-images-idx3-ubyte"),
+            "--mnist-labels-path", str(tmp / "train-labels-idx1-ubyte")]
+
+
+def _cpu_test_cli(name: str, npz: Path, data: list) -> subprocess.Popen:
+    """The test CLI of `mnist_trained_phase` on the CPU in a process of its
+    own (no card, 3 threads), with `numpy_run_noise`: it runs beside the
+    card's work and prints its mean MSE last."""
+    import sys
+
+    code = ("import sys, chip_smoke as C\n"
+            "with C.numpy_run_noise('cpu'):\n"
+            "    r = C.test_script.main(sys.argv[1:])\n"
+            "print('MEAN_MSE', float(r['mean_mse']), len(r['pred_all']), flush=True)\n")
+    return subprocess.Popen(
+        [sys.executable, "-c", code, "--config", "flagship", "--params-npz", str(npz),
+         "--detector", "manual", "--max-images", str(MNIST_TEST_IMAGES), "--save-prefix",
+         str(MNIST_DIR / f"{name}_cpu_"), "--device", "cpu", *data],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "3"})
+
+
+def mnist_trained_phase() -> dict:
+    """The exported MNIST checkpoints: one UNet call card vs CPU each, the
+    test CLI on 8 seeded t10k digits on the card and (in processes of their
+    own, beside it) on the CPU with the same noise, and a server answering 8
+    requests from the mnist_u150 weights."""
+    t_phase = time.perf_counter()
+    perf, checks = {}, {}
+    if MNIST_DIR.exists():
+        shutil.rmtree(MNIST_DIR)
+    MNIST_DIR.mkdir(parents=True)
+    data = _write_t10k(MNIST_DIR)
+    cpu_runs = {name: (_cpu_test_cli(name, npz, data), time.perf_counter())
+                for name, npz in MNIST_NPZ.items()}
+    cfg = flagship_config()
+    rng = np.random.default_rng(23)
+    x = rng.standard_normal((2, 28, 28, 1)).astype(np.float32)
+    cond = rng.uniform(0, 2, (2, 28, 28, 1)).astype(np.float32)
+    t = np.array([3, 41])
+    reset_counts()
+    try:
+        for name, npz in MNIST_NPZ.items():
+            log(f"mnist_trained {name}: {npz.relative_to(ROOT)} {npz.stat().st_size} bytes "
+                f"sha256 {sha256(npz)[:16]}")
+            card = load_params(cfg, params_npz=str(npz), device="cuda", verbose=False)
+            cpu = load_params(cfg, params_npz=str(npz), device="cpu", verbose=False)
+            got = card.apply_model(*(torch.as_tensor(a, device="cuda") for a in (x, cond, t))
+                                   ).cpu().numpy()
+            want = cpu.apply_model(*(torch.as_tensor(a) for a in (x, cond, t))).numpy()
+            err = float(np.abs(got - want).max())
+            checks[f"{name}_unet_max_abs_err"] = err
+            ok = bool(np.allclose(got, want, rtol=MNIST_UNET_TOL, atol=MNIST_UNET_TOL))
+            log(f"mnist_trained {name}: UNet call card vs CPU (batch 2, f32) max_abs_err "
+                f"{err:.3g} ({MNIST_UNET_TOL:g} abs+rel), |out| max {np.abs(want).max():.3f} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok or np.abs(want).max() < 0.1:
+                raise RuntimeError(f"{name}: the UNet on the card disagrees with the CPU's")
+            before = read_counts()
+            t0 = time.perf_counter()
+            with numpy_run_noise("cuda"):
+                res = test_script.main(["--config", "flagship", "--params-npz", str(npz),
+                                        "--detector", "manual", "--max-images",
+                                        str(MNIST_TEST_IMAGES), "--save-prefix",
+                                        str(MNIST_DIR / f"{name}_cuda_"), *data])
+            perf[f"{name}_test_cuda_s"] = time.perf_counter() - t0
+            n = len(res["pred_all"])
+            _script_counts(f"{name} test CLI", before, FLAGSHIP_PER_CALL,
+                           n * cfg.diffusion.timesteps)
+            _check_images(f"{name} test CLI", res["pred_all"], (n, 28, 28, 1), 0.0, 2.0)
+            checks[f"{name}_test_mse"] = float(res["mean_mse"])
+
+        pipe = build_pipeline(cfg, str(MNIST_NPZ["mnist_u150"]), device="cuda", verbose=False)
+        lr = test_arrays(cfg.replace(data=dataclasses.replace(
+            cfg.data, mnist_path=data[1], mnist_labels_path=data[3])), MNIST_SERVE)[1]
+        before = read_counts()
+        srv = InferenceServer(pipe, batch_size=MNIST_SERVE, max_wait_ms=1000)
+        with srv:
+            outs = [f.result(timeout=600) for f in [srv.submit(im) for im in lr]]
+        stats = srv.snapshot_stats()
+        used = _script_counts("mnist_u150 serving", before, FLAGSHIP_PER_CALL,
+                              cfg.diffusion.timesteps * stats["batches"])
+        for i, o in enumerate(outs):
+            _check_images(f"mnist_u150 request {i}", o["pred"], (28, 28, 1), 0.0, 2.0)
+        if stats["requests"] != MNIST_SERVE or not all(o["branched"] for o in outs):
+            raise RuntimeError(f"mnist_u150 serving: stats {stats}")
+        perf["u150_serve_latency_mean_s"] = stats["latency_mean_s"]
+        log(f"mnist_trained: mnist_u150 served {MNIST_SERVE} requests (manual mask) in "
+            f"{stats['batches']} batch(es), mean latency {stats['latency_mean_s'] * 1e3:.1f}ms; "
+            f"launches {used}")
+
+        for name, (proc, t0) in cpu_runs.items():
+            said, _ = proc.communicate(timeout=600)
+            perf[f"{name}_test_cpu_s"] = time.perf_counter() - t0
+            print(said, end="", flush=True)
+            last = said.strip().splitlines()[-1].split() if said.strip() else []
+            if proc.returncode != 0 or last[:1] != ["MEAN_MSE"] or last[2] != str(
+                    MNIST_TEST_IMAGES):
+                raise RuntimeError(f"{name}: the test CLI on the CPU failed ({proc.returncode})")
+            mse_card, mse_cpu = checks[f"{name}_test_mse"], float(last[1])
+            err = abs(mse_card - mse_cpu)
+            checks[f"{name}_test_mse_abs_err"] = err
+            log(f"mnist_trained {name}: test CLI on {MNIST_TEST_IMAGES} t10k digit-3 images "
+                f"(manual mask, T={cfg.diffusion.timesteps}), mean MSE card {mse_card:.5f} CPU "
+                f"{mse_cpu:.5f} (|diff| {err:.3g}, tol {CHAIN_TOL:g}); wall card "
+                f"{perf[f'{name}_test_cuda_s']:.1f}s, CPU (its own process, beside the card's "
+                f"work) {perf[f'{name}_test_cpu_s']:.1f}s")
+            if err > CHAIN_TOL:
+                raise RuntimeError(f"{name}: the test CLI's MSE on the card is not the CPU's")
+    finally:
+        for proc, _ in cpu_runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    counts = read_counts()
+    perf["phase_s"] = time.perf_counter() - t_phase
+    log(f"mnist_trained phase: {perf['phase_s']:.1f}s; launches {counts}")
+    return dict(counts=counts, perf=perf, checks=checks,
+                pred_all=MNIST_DIR / "mnist_x250_cuda_pred_all.npy", data=data)
+
+
+def aux_phase(pred_all: Path, data: list) -> dict:
+    """`train_seg` at 256px and its npz as the seg detector, `train_mnist_cls`
+    on the seeded digits and `eval_translation` on the trained flagship's
+    predictions, `convert_mha` and `translate_volume` on a seeded volume."""
+    from localdiffusion_tpu_torch.data.mha import load_mha, save_mha
+    from localdiffusion_tpu_torch.data.synthetic import synthetic_brain_pair
+    from localdiffusion_tpu_torch.scripts import (
+        convert_mha,
+        eval_translation,
+        train_mnist_cls,
+        train_seg,
+        translate_volume,
+    )
+
+    t_phase = time.perf_counter()
+    perf, checks = {}, {}
+    if AUX_DIR.exists():
+        shutil.rmtree(AUX_DIR)
+    AUX_DIR.mkdir(parents=True)
+    reset_counts()
+    seg_npz = AUX_DIR / "seg" / "best_dice.npz"
+    t0 = time.perf_counter()
+    seg = train_seg.main(["--epochs", str(AUX_SEG_EPOCHS), "--batch", "4", "--size", "256",
+                          "--config", "mri256_bf16", "--out", str(seg_npz)])
+    torch.cuda.synchronize()
+    perf["train_seg_s"] = time.perf_counter() - t0
+    cfg = mri256_bf16_config()
+    cfg = cfg.replace(ood=dataclasses.replace(cfg.ood, seg_model_path=str(seg_npz)))
+    fe, _ = build_frontend(cfg, device="cuda", verbose=False)
+    lr = test_arrays(cfg, 4)[1]
+    mask, binary, probs = fe.detect(lr)
+    if mask.shape != (4, 256, 256, 1) or not np.all(np.isfinite(probs)):
+        raise RuntimeError("the trained seg detector's detect failed")
+    log(f"aux train_seg: {AUX_SEG_EPOCHS} epochs at 256px, batch 4, in {perf['train_seg_s']:.1f}s; "
+        f"val dice {[round(d, 4) for *_, d in seg['logs']]}; its npz "
+        f"({seg_npz.stat().st_size} bytes) served by the seg detector: {int(binary.sum())} "
+        f"masked pixels in 4 tumour brains")
+    t0 = time.perf_counter()
+    cls = train_mnist_cls.main(["--epochs", str(AUX_CLS_EPOCHS), "--out",
+                                str(AUX_DIR / "cls" / "best.npz"),
+                                "--mnist-path", data[1].replace("train-", "t10k-"),
+                                "--mnist-labels-path", data[3].replace("train-", "t10k-")])
+    torch.cuda.synchronize()
+    perf["train_mnist_cls_s"] = time.perf_counter() - t0
+    ev, said = _echoed(eval_translation.main, ["--pred", str(pred_all), "--cls", cls["out"]])
+    if sum(ev["hist"].values()) != MNIST_TEST_IMAGES:
+        raise RuntimeError(f"eval_translation classified {ev['hist']}")
+    checks["eval_translation_target_share"] = ev["frac_target"]
+    log(f"aux train_mnist_cls: {AUX_CLS_EPOCHS} epochs in {perf['train_mnist_cls_s']:.1f}s, "
+        f"test acc {[round(a, 4) for *_, a in cls['logs']]}; eval_translation of the trained "
+        f"flagship's {MNIST_TEST_IMAGES} translations (8 to 3, seeded digits): target share "
+        f"{ev['frac_target']:.3f}, source share {ev['frac_source']:.3f}, {ev['hist']}")
+    _script_counts("aux training", {k: 0 for k in COUNTERS}, {}, 0)
+
+    t1, flair, sg = synthetic_brain_pair(AUX_SLICES, size=256, tumor=True, seed=31)
+    vols = {"t1": (t1[..., 0], False), "flair": (flair[..., 0], True),
+            "seg": (sg[..., 0], False)}
+    for name, (v, compressed) in vols.items():
+        save_mha(str(AUX_DIR / f"vol_{name}.mha"), v.astype(np.float32), compressed=compressed)
+    written = convert_mha.main([str(AUX_DIR / "vol_*.mha"), "--out-dir", str(AUX_DIR / "npy")])
+    for path in written:
+        got = np.load(path)
+        want, _ = load_mha(str(AUX_DIR / (Path(path).stem + ".mha")))
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            raise RuntimeError(f"convert_mha: {path} is not the volume load_mha reads")
+    before = read_counts()
+    t0 = time.perf_counter()
+    out = str(AUX_DIR / "pred_volume.npy")
+    res = translate_volume.main([
+        "--config", "mri256_bf16", "--t1", str(AUX_DIR / "vol_t1.mha"), "--flair",
+        str(AUX_DIR / "npy" / "vol_flair.npy"), "--seg", str(AUX_DIR / "vol_seg.mha"),
+        "--params-npz", str(SHIPPED_DENOISER), "--batch", str(AUX_VOLUME_BATCH), "--out", out])
+    torch.cuda.synchronize()
+    perf["translate_volume_s"] = time.perf_counter() - t0
+    batches = -(-AUX_SLICES // AUX_VOLUME_BATCH)
+    _script_counts("translate_volume", before, MRI_PER_CALL,
+                   batches * cfg.diffusion.resolved_sampling_timesteps)
+    pred = np.load(out)
+    if pred.shape != (AUX_SLICES, 256, 256) or np.load(out.replace(".npy", "_masks.npy")
+                                                       ).shape != pred.shape:
+        raise RuntimeError(f"translate_volume wrote {pred.shape}")
+    _check_images("translate_volume", pred[..., None], (AUX_SLICES, 256, 256, 1),
+                  *min_max_val_for(cfg))
+    checks["volume_mse"] = float(res["mse"])
+    log(f"aux volumes: convert_mha of 3 seeded {AUX_SLICES}-slice volumes (one zlib) bit for bit "
+        f"load_mha's; translate_volume (mri256_bf16, shipped denoiser and seg detector, batch "
+        f"{AUX_VOLUME_BATCH}) in {perf['translate_volume_s']:.1f}s: volume MSE "
+        f"{float(res['mse']):.5f}, OOD-region {float(res.get('mean_mse_ood_region', np.nan)):.5f}, "
+        f"{res['branched_batches']} of {batches} batches branched")
+    counts = read_counts()
+    perf["phase_s"] = time.perf_counter() - t_phase
+    log(f"aux phase: {perf['phase_s']:.1f}s; launches {counts}")
+    return dict(counts=counts, perf=perf, checks=checks)
+
+
 def _row(t: dict, warm: bool = False) -> dict:
     """A GN part's numbers under the kernels line's keys (and the replayed
     time of a tiled pass, `warm_ms`)."""
@@ -3691,10 +4289,18 @@ def main() -> None:
     with tf32_on_at_entry("datasets"):
         datasets = datasets_phase()
     self_cond = self_cond_phase()
+    serve = serve_phase()
+    with tf32_on_at_entry("sampler_api"):
+        sampler_api = sampler_api_phase()
+    with tf32_on_at_entry("mnist_trained"):
+        mnist = mnist_trained_phase()
+    with tf32_on_at_entry("aux"):
+        aux = aux_phase(mnist.pop("pred_all"), mnist.pop("data"))
 
     phases = {"flagship": flag, "256px": mri, "stage_a": stage_a, "gated": gated,
               "seg_wrn": seg_wrn, "stem": stem, "shipped": shipped, "training": training,
-              "datasets": datasets, "self_cond": self_cond}
+              "datasets": datasets, "self_cond": self_cond, "serve": serve,
+              "sampler_api": sampler_api, "mnist_trained": mnist, "aux": aux}
     launches = {name: {label: ph["counts"][name] for label, ph in phases.items()}
                 for name in COUNTERS}
     total = {name: sum(v.values()) for name, v in launches.items()}
@@ -3793,7 +4399,9 @@ def main() -> None:
         + f"; shipped checks {json.dumps(shipped['checks'])}"
         + f"; training checks {json.dumps(training['checks'])}"
         + f"; datasets checks {json.dumps(datasets['checks'])}"
-        + f"; self_cond checks {json.dumps(self_cond['checks'])}")
+        + f"; self_cond checks {json.dumps(self_cond['checks'])}"
+        + "".join(f"; {label} checks {json.dumps(phases[label]['checks'])}"
+                  for label in ("serve", "sampler_api", "mnist_trained", "aux")))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -18,7 +18,9 @@ grid of `ddim_times` in (t, t_next) pairs, with the same [2B] branch pair;
 the branched chain fuses at the first pair with t <= times[-s-2].  It has
 no gate, as in the reference.
 
-The condition features are encoded once per chain.
+The condition features are encoded once per chain.  `sample` is the
+top-level dispatch between these samplers, and `interpolate` the latent
+interpolation between two images.
 
 Noise comes from a noise source: a callable `noise(shape) -> Tensor`, called
 once for the initial image and once per step, in chain order (so T + 1
@@ -233,7 +235,8 @@ def ddpm_sample_plain(gd, cond, min_max_val: Tuple[float, float], noise=None,
 def ddpm_sample_branched(gd, cond, mask, scfg: SamplerConfig,
                          min_max_val: Tuple[float, float], noise=None, gt=None,
                          classifier_fn=None, return_all: bool = False,
-                         return_fusion_time: bool = False, retry_noise=None, clock=None):
+                         return_fusion_time: bool = False, retry_noise=None, clock=None,
+                         return_debug: bool = False):
     """Branched local-diffusion DDPM with fusion at `start_timestep`.
 
     cond: [B, H, W, C]; mask: [B, H, W, 1].  Returns the final image
@@ -243,6 +246,10 @@ def ddpm_sample_branched(gd, cond, mask, scfg: SamplerConfig,
     branched, the fused image duplicated on the pair axis once fused).
     `return_fusion_time` appends the per-sample acceptance timestep of the
     gate ([B] int32; `num_timesteps` where the gate never ran) after them.
+    `return_debug` appends instead the fusion step's dumps, raw (not
+    unnormalized): {'pred_out', 'pred_in'} the branches' clipped x_start
+    (the OOD half under mask_x), 'pred_concat' the fused clipped x_start,
+    {'x_out', 'x_in'} the masked noisy branch states and 'fusion_time'.
 
     The gate runs when `scfg.classifier` is set and `classifier_fn` given:
     `classifier_fn(x_start, t)` → [B] float32, accept where > 0.  At each
@@ -291,7 +298,9 @@ def ddpm_sample_branched(gd, cond, mask, scfg: SamplerConfig,
         n = _step_noise(noise, shape, t)  # shared across the branches
         return mean2 + torch.exp(0.5 * logvar2) * torch.cat([n, n])
 
-    def fuse_step(x2, t, source, force_mask_x=False):
+    debug = {}
+
+    def fuse_step(x2, t, source, force_mask_x=False, capture_debug=False):
         """The fused step at t from the branch pair: (image, the masked
         pair).  A retry passes the saved masked pair with mask_x forced."""
         xs2 = branch_starts2(x2, _tb(t, 2 * b, device), force_mask_x)
@@ -299,6 +308,9 @@ def ddpm_sample_branched(gd, cond, mask, scfg: SamplerConfig,
         x_start = (xs_in * (1.0 - m) + xs_out).clamp(lo, hi)  # xs_out is mask_x-masked
         x_out, x_in = x2[:b] * m, x2[b:] * (1.0 - m)
         x = fuse_noisy_states(x_out, x_in, m, scfg.fusion_route)
+        if capture_debug:
+            debug.update(pred_out=xs_out, pred_in=xs_in, pred_concat=x_start,
+                         x_out=x_out, x_in=x_in)
         tb = _tb(t, b, device)
         mean, _, logvar = dm.q_posterior(sched, x_start, x, tb)
         img = mean + torch.exp(0.5 * logvar) * _step_noise(source, shape, t)
@@ -328,7 +340,10 @@ def ddpm_sample_branched(gd, cond, mask, scfg: SamplerConfig,
         out = [_maybe_unnorm(gd, result)]
         if return_all:
             out.append(_maybe_unnorm(gd, torch.stack(frames)))
-        if return_fusion_time and fused:
+        if return_debug and fused:
+            debug["fusion_time"] = accept_t
+            out.append(debug)
+        elif return_fusion_time and fused:
             out.append(accept_t)
         return tuple(out) if len(out) > 1 else out[0]
 
@@ -346,7 +361,7 @@ def ddpm_sample_branched(gd, cond, mask, scfg: SamplerConfig,
 
     # ---- fusion at t = s ----
     t_fuse = min(s, t_top - 1)
-    img, x_branchout2 = fuse_step(x2, t_fuse, noise)
+    img, x_branchout2 = fuse_step(x2, t_fuse, noise, capture_debug=return_debug)
     record_fused(img)
     if clock is not None:
         clock.mark("chain")
@@ -544,3 +559,79 @@ def ddim_sample_branched(gd, cond, mask, scfg: SamplerConfig,
         if return_all:
             frames.append(torch.stack([img, img]))
     return finish(img)
+
+
+# ---------------------------------------------------------------------------
+# latent interpolation and the top-level dispatch
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def interpolate(gd, x1, x2, cond, min_max_val: Tuple[float, float], t: Optional[int] = None,
+                lam: float = 0.5, noise=None):
+    """Latent interpolation: both endpoints noised to x_t (t defaults to
+    T-1), each with its own draw, lerped by `lam`, then denoised from t-1 to
+    0 with x_start clipped to `min_max_val`.  Returns the raw image (not
+    unnormalized).  x1, x2, cond: [B, H, W, C].  Noise: two draws for the
+    endpoints, then one per step, zeroed at t == 0 (the JAX key stream:
+    split(key, 3) for the endpoints, one split per step)."""
+    sched = gd.schedule
+    lo, hi = min_max_val
+    device = cond.device
+    noise = as_noise(noise, device)
+    b = x1.shape[0]
+    t = gd.num_timesteps - 1 if t is None else int(t)
+    tb = _tb(t, b, device)
+    xt1 = dm.q_sample(sched, x1, tb, noise(tuple(x1.shape)))
+    xt2 = dm.q_sample(sched, x2, tb, noise(tuple(x2.shape)))
+    img = (1.0 - lam) * xt1 + lam * xt2
+
+    cond_feat = gd.encode_cond(cond)
+    for tt in range(t - 1, -1, -1):
+        tb = _tb(tt, b, device)
+        out = gd.apply_model(img, None, tb, cond_feat=cond_feat)
+        x_start = dm.model_output_to_x_start(sched, out, img, tb).clamp(lo, hi)
+        mean, _, logvar = dm.q_posterior(sched, x_start, img, tb)
+        img = mean + torch.exp(0.5 * logvar) * _step_noise(noise, tuple(img.shape), tt)
+    return img
+
+
+def _all_ones(mask) -> bool:
+    """Whether every mask value is 1, read on the host: a numpy mask or a
+    CPU tensor as it is, a device tensor through one copy."""
+    m = mask.cpu().numpy() if isinstance(mask, torch.Tensor) else np.asarray(mask)
+    return bool(m.min() >= 1.0 and m.max() <= 1.0)
+
+
+def sample(gd, cond, scfg: SamplerConfig, min_max_val: Tuple[float, float], mask=None,
+           gt=None, classifier_fn=None, return_all: bool = False, noise=None,
+           retry_noise=None):
+    """Flag reconciliation, then dispatch to a sampler.
+
+    `reconcile` first (a detector- or confidence-driven run forces mask_x
+    and mask_cond on).  The chain branches when `scfg.branch_out` is set and
+    a mask is given that is not uniformly ones (decided on the host: the
+    detector found no anomaly, the original reverse process runs).  DDIM
+    when `gd.is_ddim_sampling`, else DDPM; the plain DDPM chain gets `gt`
+    and `use_gt_timestep` only under `use_gt` and `start_intermediate`.
+    cond, gt: [B, H, W, C] tensors; mask: [B, H, W, 1], numpy or a tensor
+    (moved to cond's device for the branched chain).  `noise` and
+    `retry_noise` as the samplers take them (see the module docstring)."""
+    scfg = reconcile(scfg)
+    branch = scfg.branch_out and mask is not None and not _all_ones(mask)
+    if branch and not isinstance(mask, torch.Tensor):
+        mask = torch.as_tensor(np.asarray(mask, np.float32), device=cond.device)
+
+    if gd.is_ddim_sampling:
+        if branch:
+            return ddim_sample_branched(gd, cond, mask, scfg, min_max_val, noise=noise,
+                                        return_all=return_all)
+        return ddim_sample_plain(gd, cond, min_max_val, noise=noise, return_all=return_all)
+
+    if branch:
+        return ddpm_sample_branched(gd, cond, mask, scfg, min_max_val, noise=noise, gt=gt,
+                                    classifier_fn=classifier_fn, return_all=return_all,
+                                    retry_noise=retry_noise)
+    gt_arg = gt if (scfg.use_gt and scfg.start_intermediate) else None
+    return ddpm_sample_plain(gd, cond, min_max_val, noise=noise, gt=gt_arg,
+                             use_gt_timestep=scfg.use_gt_timestep if gt_arg is not None else None,
+                             return_all=return_all)

@@ -21,8 +21,9 @@ from localdiffusion_tpu_torch.diffusion.gaussian import GaussianDiffusion, build
 from localdiffusion_tpu_torch.ood.frontend import OODFrontend
 from localdiffusion_tpu_torch.utils.params_io import load_params_npz
 
-EXPORTER = ("the Orbax→npz exporter (ROADMAP queue 1, item 8) writes such a checkpoint as a "
-            "slim npz: pass that as params_npz")
+EXPORTER = ("the Orbax→npz exporter, `scripts/export_orbax_npz.py`, writes such a checkpoint "
+            "as a slim npz (results_torch/ holds the MNIST milestones'): pass that as "
+            "params_npz")
 
 
 def load_params(cfg: Config, gd: Optional[GaussianDiffusion] = None, *, params_npz: str,

@@ -1,6 +1,5 @@
-"""Segmentation UNet, the 'seg' OOD detector.  Port of
-`localdiffusion_tpu/models/seg_unet.py` (inference; the losses belong to
-the training slice).
+"""Segmentation UNet, the 'seg' OOD detector, and its training losses.
+Port of `localdiffusion_tpu/models/seg_unet.py`.
 
 The classic 4-down/4-up UNet, 64 → 1024 channels: each `DoubleConv` is
 (conv3×3 without bias → GroupNorm(min(32, ch), eps 1e-6, flax's) → ReLU)
@@ -146,6 +145,31 @@ def flax_seg_tree(model: SegUNet) -> Mapping[str, np.ndarray]:
             leaf = "scale"
         out["/".join(["params", *mod, leaf])] = np.ascontiguousarray(a)
     return out
+
+
+def save_seg_npz(path: str, model: SegUNet, dtype=np.float16) -> None:
+    """`model`'s weights as a slim npz in the shipped snapshot's layout
+    (`flax_seg_tree`'s keys, `dtype` storage, compressed): what
+    `load_seg_npz` and the JAX package's `load_params_npz` read."""
+    np.savez_compressed(path, **{k: v.astype(dtype) for k, v in flax_seg_tree(model).items()})
+
+
+def dice_loss(logits: torch.Tensor, targets: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Soft Dice loss on sigmoid probabilities, per image over H, W, C,
+    then 1 - the batch mean."""
+    probs = torch.sigmoid(logits)
+    num = 2.0 * (probs * targets).sum(dim=(1, 2, 3))
+    den = probs.sum(dim=(1, 2, 3)) + targets.sum(dim=(1, 2, 3))
+    return 1.0 - ((num + eps) / (den + eps)).mean()
+
+
+def bce_dice_loss(logits: torch.Tensor, targets: torch.Tensor,
+                  pos_weight: float = 10.0) -> torch.Tensor:
+    """BCE with logits, the positives weighted by `pos_weight`, written with
+    log-sigmoids as the JAX loss is, plus `dice_loss`."""
+    bce = -(pos_weight * targets * F.logsigmoid(logits)
+            + (1.0 - targets) * F.logsigmoid(-logits))
+    return bce.mean() + dice_loss(logits, targets)
 
 
 class SegDetector:

@@ -41,8 +41,10 @@ from localdiffusion_tpu_torch.utils.precision import full_float32
 DEFAULT_LAYERS = ("down2_block2", "down3_block2")
 SEG_LAYERS = ("down2", "down3")
 # the seg detector's checkpoints, in the JAX package's order: a local
-# training run's Orbax directory, then the shipped slim snapshot
-SEG_CANDIDATES = ("results/seg/best_dice", "results/seg256_params.npz")
+# training run's (the port's `scripts.train_seg` npz, then the JAX script's
+# Orbax directory), then the shipped slim snapshot
+SEG_CANDIDATES = ("results/seg/best_dice.npz", "results/seg/best_dice",
+                  "results/seg256_params.npz")
 
 
 class WRNFeatureSource:
@@ -157,9 +159,10 @@ def wrn_source(ood, device="cuda", generator: Optional[torch.Generator] = None,
 
 def seg_checkpoint(path: Optional[str]) -> str:
     """The SegUNet checkpoint the seg detector and the seg-encoder source
-    read: `path`, or with none the JAX package's order:
-    `results/seg/best_dice` (an Orbax directory a local training run
-    writes), then the shipped `results/seg256_params.npz`."""
+    read: `path`, or with none the JAX package's order: a local training
+    run's (`results/seg/best_dice.npz`, which `scripts.train_seg` writes,
+    then `results/seg/best_dice`, the JAX script's Orbax directory), then
+    the shipped `results/seg256_params.npz`."""
     if path is None:
         path = next((c for c in SEG_CANDIDATES if os.path.exists(c)), SEG_CANDIDATES[-1])
     return path
@@ -179,9 +182,11 @@ def load_seg_params(path: Optional[str], model):
         return path, None
     if not path.endswith(".npz"):
         raise NotImplementedError(
-            f"{path} is an Orbax checkpoint, which the port does not read; the exporter to "
-            "a slim npz (`utils.params_io.save_params_npz` over `Trainer.load`) is ROADMAP "
-            "queue 1 item 8: export it, and name the npz in ood.seg_model_path")
+            f"{path} is an Orbax checkpoint, which the port does not read: train the "
+            "detector with `python -m localdiffusion_tpu_torch.scripts.train_seg` (a slim "
+            "npz), or write it as one with an exporter (the JAX package's "
+            "`save_params_npz`, as `scripts/export_orbax_npz.py` does for the denoiser), "
+            "and name the npz in ood.seg_model_path")
     return path, load_seg_npz(path, model)
 
 

@@ -41,14 +41,14 @@ from localdiffusion_tpu_torch.pipeline import batch_noise
 NOISE_SEED = 10  # the JAX script's PRNGKey(10)
 
 
-def parse_args(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--config", default="mri256", choices=sorted(CONFIGS))
+def add_config_args(ap, config_default: str = "mri256") -> None:
+    """The configuration, its weights and the overrides `configure` applies,
+    as options of a command line (`--config` required where
+    `config_default` is None)."""
+    ap.add_argument("--config", default=config_default, required=config_default is None,
+                    choices=sorted(CONFIGS))
     ap.add_argument("--detector", default=None, choices=["patchcore", "seg", "manual", "none"],
                     help="override ood.detector")
-    ap.add_argument("--max-images", type=int, default=100)
-    ap.add_argument("--save-prefix", default=None,
-                    help="write hr_all/lr_all/pred_all/ad_masks/fusion_time .npy with this prefix")
     ap.add_argument("--params-npz", required=True, help="the denoiser's slim npz snapshot")
     ap.add_argument("--mask-dilate", type=int, default=None, help="override ood.mask_dilate")
     ap.add_argument("--dtype", choices=["float32", "bfloat16"], default=None,
@@ -60,8 +60,16 @@ def parse_args(argv=None):
     ap.add_argument("--feature-t", type=int, default=None, help="override ood.feature_t")
     ap.add_argument("--memory-bank", default=None,
                     help="override ood.memory_bank_path (its ladder is found beside it)")
-    ap.add_argument("--device", default="cuda")
     datasets.add_data_args(ap)
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    add_config_args(ap)
+    ap.add_argument("--max-images", type=int, default=100)
+    ap.add_argument("--save-prefix", default=None,
+                    help="write hr_all/lr_all/pred_all/ad_masks/fusion_time .npy with this prefix")
+    ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
 
 

@@ -89,7 +89,12 @@ class InferenceServer:
             "latency_max_s": 0.0,
         }
 
-    def start(self):
+    def start(self, warmup: bool = False):
+        """Start the batching worker.  `warmup` first runs each chain the
+        server dispatches once (`_warmup`), so the first request does not
+        pay the first launch of each kernel and cuDNN's first calls."""
+        if warmup:
+            self._warmup()
         self._stop.clear()
         self._worker = threading.Thread(target=self._loop, daemon=True)
         self._worker.start()
@@ -131,6 +136,28 @@ class InferenceServer:
         req = _Request(lr=lr, mask=None if mask is None else np.asarray(mask, np.float32))
         self._q.put(req)
         return req.future
+
+    def _warmup(self):
+        """One `translate` of zeros at the static batch shape with a uniform
+        mask (the plain chain) and, with `sampler.branch_out`, one with half
+        the columns at 0.5 (the branched chain), both with batch 0's noise.
+        It leaves the batch index and the stats as they were, so the first
+        real batch gets the same noise with or without it."""
+        b, s = self.batch_size, self.pipe.gd.image_size
+        zeros = np.zeros((b, s, s, self.pipe.gd.model_cfg.channels), np.float32)
+        masks = [np.ones((b, s, s, 1), np.float32)]
+        if self.pipe.config.sampler.branch_out:
+            half = np.ones((b, s, s, 1), np.float32)
+            half[:, :, : s // 2] = 0.5
+            masks.append(half)
+        for mask in masks:
+            noise, retry_noise = self._noise(0)
+            self.pipe.translate(zeros, noise=noise, retry_noise=retry_noise, mask=mask)
+
+    def _noise(self, index: int):
+        """(noise, retry_noise) of batch `index` (see `noise_for_batch`)."""
+        noise = self.noise_for_batch(index)
+        return noise if isinstance(noise, tuple) else (noise, None)
 
     def _collect(self) -> List[_Request]:
         """Block for the first request, then fill the batch for max_wait."""
@@ -224,8 +251,7 @@ class InferenceServer:
         for group, stat_key in groups:
             if not group:
                 continue
-            noise = self.noise_for_batch(index)
-            noise, retry_noise = noise if isinstance(noise, tuple) else (noise, None)
+            noise, retry_noise = self._noise(index)
             res = self.pipe.translate(
                 self._pad([r.lr for r in group]),
                 noise=noise, retry_noise=retry_noise,

@@ -33,7 +33,7 @@ from __future__ import annotations
 import copy
 import json
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Iterable, Tuple
 
 import numpy as np
@@ -102,6 +102,12 @@ def make_optimizer(params, cfg: TrainConfig) -> torch.optim.Adam:
     """Adam(lr, β = (adam_b1, adam_b2), eps 1e-8), optax's `adam` (eps_root
     0); the clip runs before it in `Trainer._apply`."""
     return torch.optim.Adam(params, lr=cfg.lr, betas=(cfg.adam_b1, cfg.adam_b2), eps=1e-8)
+
+
+def optax_adam(params, lr: float) -> torch.optim.Adam:
+    """`optax.adam(lr)` with optax's defaults, β = (0.9, 0.999) and eps 1e-8
+    (the aux models' scripts train with it, no clip)."""
+    return make_optimizer(params, replace(TrainConfig(), lr=lr, adam_b1=0.9, adam_b2=0.999))
 
 
 class Trainer:

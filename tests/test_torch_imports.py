@@ -1,5 +1,5 @@
-"""The port imports nothing of JAX, flax, optax, Orbax, YAML, scikit-learn
-or the JAX package.
+"""The port imports nothing of JAX, flax, optax, Orbax, YAML, scikit-learn,
+pandas or the JAX package.
 
 A subprocess blocks those modules (an entry of None in sys.modules makes
 their import fail) and imports every module of the port and chip_smoke;
@@ -10,7 +10,10 @@ points at 16px (the shipped denoiser, T=3): `factory.load_params` and
 `build_pipeline`, `run`, and the test, margin and gated-quality CLIs; a
 fourth the MNIST reader on idx files it writes, the training CLI at 16px on
 a self-conditioned model with random Fourier features, a step in each mode,
-and its EMA npz back through `factory.load_params`.
+and its EMA npz back through `factory.load_params`; a fifth the serving,
+volume and aux CLIs at 16px: `scripts.serve`'s server answering one
+request, `convert_mha` and `translate_volume` on a MetaImage volume,
+`train_seg`, `train_mnist_cls` and `eval_translation`.
 """
 
 import os
@@ -23,7 +26,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = textwrap.dedent(
     """
     import importlib, pkgutil, sys
-    for name in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "sklearn",
+    for name in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "sklearn", "pandas",
                  "localdiffusion_tpu"):
         sys.modules[name] = None
     import localdiffusion_tpu_torch as pkg
@@ -160,6 +163,56 @@ TRAIN = textwrap.dedent(
     """
 )
 
+CLIS = textwrap.dedent(
+    """
+    import dataclasses, json, os, sys, tempfile, threading, urllib.request
+    for name in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "sklearn", "pandas",
+                 "localdiffusion_tpu", "scripts"):
+        sys.modules[name] = None
+    import numpy as np
+    from localdiffusion_tpu_torch import config as C
+    from localdiffusion_tpu_torch.data.mha import save_mha
+    from localdiffusion_tpu_torch.scripts import (
+        convert_mha, eval_translation, serve, train_mnist_cls, train_seg, translate_volume)
+
+    NPZ = "results/mri_synth256_ema.npz"
+    base = C.mri256_config()
+    C.CONFIGS["tiny"] = lambda: base.replace(
+        diffusion=dataclasses.replace(base.diffusion, image_size=16, timesteps=3,
+                                      sampling_timesteps=None),
+        ood=dataclasses.replace(base.ood, detector="manual", input_size=16, manual_mask_cols=4),
+        train=dataclasses.replace(base.train, compute_dtype="float32"))
+    httpd, srv = serve.build_server(serve.parse_args(
+        ["--config", "tiny", "--params-npz", NPZ, "--port", "0", "--batch-size", "1",
+         "--device", "cpu"]))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    body = json.dumps({"image": np.ones((16, 16)).tolist()}).encode()
+    url = "http://127.0.0.1:%d/v1/translate" % httpd.server_address[1]
+    with urllib.request.urlopen(urllib.request.Request(url, data=body), timeout=120) as r:
+        out = json.loads(r.read())
+    httpd.shutdown(); httpd.server_close(); srv.stop()
+    print("SERVED", np.asarray(out["pred"]).shape, out["branched"])
+    with tempfile.TemporaryDirectory() as d:
+        vol = os.path.join(d, "vol.mha")
+        save_mha(vol, np.random.default_rng(0).uniform(0, 3000, (2, 16, 16)).astype(np.float32))
+        convert_mha.main([vol, "--out-dir", d])
+        r = translate_volume.main(["--config", "tiny", "--t1", vol, "--flair",
+                                   os.path.join(d, "vol.npy"), "--params-npz", NPZ,
+                                   "--batch", "2", "--out", os.path.join(d, "p.npy"),
+                                   "--device", "cpu"])
+        print("VOLUME", r["pred_volume"].shape)
+        seg = train_seg.main(["--epochs", "1", "--size", "16", "--batch", "64", "--out",
+                              os.path.join(d, "seg.npz"), "--device", "cpu"])
+        cls = train_mnist_cls.main(["--epochs", "1", "--batch", "256", "--out",
+                                    os.path.join(d, "cls.npz"), "--mnist-path", "absent",
+                                    "--device", "cpu"])
+        np.save(os.path.join(d, "pred.npy"), np.ones((3, 28, 28, 1), np.float32))
+        ev = eval_translation.main(["--pred", os.path.join(d, "pred.npy"), "--cls",
+                                    cls["out"], "--device", "cpu"])
+        print("AUX", len(seg["logs"]), len(cls["logs"]), sum(ev["hist"].values()))
+    """
+)
+
 # modules the port must have (a rename or a lost file shows here)
 REQUIRED = {
     "localdiffusion_tpu_torch.ops.attention",
@@ -200,6 +253,13 @@ REQUIRED = {
     "localdiffusion_tpu_torch.data.mha",
     "localdiffusion_tpu_torch.data.folder",
     "localdiffusion_tpu_torch.data.datasets",
+    "localdiffusion_tpu_torch.scripts.serve",
+    "localdiffusion_tpu_torch.scripts.translate_volume",
+    "localdiffusion_tpu_torch.scripts.convert_mha",
+    "localdiffusion_tpu_torch.scripts.train_seg",
+    "localdiffusion_tpu_torch.scripts.train_mnist_cls",
+    "localdiffusion_tpu_torch.scripts.eval_translation",
+    "localdiffusion_tpu_torch.models.simple_cnn",
 }
 
 
@@ -239,6 +299,16 @@ def test_train_cli_runs_without_jax_flax_optax_orbax_yaml():
     assert proc.returncode == 0, proc.stderr
     done = [ln.split()[1:] for ln in proc.stdout.splitlines() if ln.startswith("TRAINED")]
     assert done == [["self_cond", "1"], ["resident", "1"], ["epoch", "1"], ["batch", "1"]]
+
+
+def test_serving_volume_and_aux_clis_run_without_jax_flax_optax_orbax_yaml():
+    proc = subprocess.run(
+        [sys.executable, "-c", CLIS], cwd=ROOT, capture_output=True, text=True,
+        timeout=300, env={**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "2"},
+    )
+    assert proc.returncode == 0, proc.stderr
+    got = [ln for ln in proc.stdout.splitlines() if ln.split()[0] in ("SERVED", "VOLUME", "AUX")]
+    assert got == ["SERVED (16, 16, 1) True", "VOLUME (2, 16, 16, 1)", "AUX 1 1 3"]
 
 
 def test_blocked_module_really_fails():
