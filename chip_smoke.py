@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and dataset paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, training, dataset, parallel and I/O paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -235,7 +235,39 @@ Phases, each printed on its own line with the elapsed seconds:
     flagship's translations; `scripts.convert_mha` of three seeded 8-slice
     MetaImage volumes (one zlib-compressed), bit for bit `load_mha`'s, and
     `scripts.translate_volume` on them (`mri256_bf16_config()`, batch 4),
-    its launches as its chains' calls.
+    its launches as its chains' calls;
+26. patch (entered with both TF32 flags on): `scripts.patch_demo` as a
+    user runs it (`mri64_config()`, the shipped denoiser, a 256px tumour
+    brain in 25 patches of 64px, overlap 8, DDIM-50, f32: a [50] UNet
+    batch, the single-pass GN in every Block), its first call's and
+    steady state's seconds and MSE; the demo's whole call kernels vs plain
+    on the card and the tumour's patch chain card vs CPU (the same numpy
+    noise, the f32 chain bar); the stitch of overlap 0 exact; the bf16 patch call
+    (`mri256_bf16_config()`, the shipped denoiser, a 384px image in 4
+    patches of 256px, overlap 128: an [8] UNet batch at 256px, all eight
+    kernels)
+    against its plain versions (the 256px chain bars); the bucketed route
+    against the unbucketed one with each row's noise the same, its UNet
+    rows counted by a hook (a plain patch one row a step);
+27. distributed: two ranks on the one card (gloo; NCCL refuses two ranks
+    on one device) take one 256px bf16 batch step of 8, replicated and
+    then FSDP, each against the one-process step on the same global batch
+    and draws (the training bars on the update), FSDP's share of all the
+    state a rank holds (parameters, gradients, Adam, EMA); then a one-rank NCCL
+    `scripts.train --coordinator ... --fsdp` of 2 batch steps under
+    `build/parallel/`, its checkpoint written by the primary and loaded
+    back;
+28. stream: `StreamLoader` over .npy shards of 256px brains through
+    `device_prefetch`, the device batches bit for bit the host's, an epoch
+    step fed through it equal to one fed without it, the copies off the
+    consumer's stream in a `profile_trace` trace (of a process of its own);
+29. reference_ckpt: a seeded reference checkpoint of the 256px layout
+    (12.1M parameters) through the converter's CLI, its EMA npz one UNet
+    call card vs CPU;
+30. features: `scripts.eval_patchcore_features` with 2 refits on the
+    denoiser and WRN50-2 sources at 256px, the IoUs printed;
+31. native: the data kernels built with g++ and held against the numpy
+    route.
 
 The line before the last is one JSON object with the kernels' numbers
 (each with `train_launches`, its launches in the training phase's main
@@ -257,6 +289,7 @@ import os
 import shutil
 import struct
 import subprocess
+import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -272,6 +305,7 @@ from localdiffusion_tpu_torch.config import (
     mnist_gated_config,
     mnist_train_config,
     mnist_usegt_config,
+    mri64_config,
     mri256_bf16_config,
     mri256_config,
     mri256_gated_config,
@@ -4264,6 +4298,582 @@ def aux_phase(pred_all: Path, data: list) -> dict:
     return dict(counts=counts, perf=perf, checks=checks)
 
 
+# ---------------------------------------------------------------------------
+# the parallel and I/O layer: patch-parallel sampling, data-parallel and FSDP
+# training, the streaming loader, the reference converter, the feature
+# shoot-out and the native data kernels
+# ---------------------------------------------------------------------------
+
+PARALLEL_DIR = STAGE_A_DIR.parent / "parallel"
+# the bf16 patch call: `mri256_bf16_config()` (DDIM-50, bf16) on the shipped
+# denoiser, a 384px image in 4 patches of 256px with overlap 128: an [8] UNet
+# batch at 256px, the 256px call's launches, all eight kernels.  (9 patches
+# of 128px from a 256px image launch no tiled GN pass: at 128px every Block
+# past the fused ResnetBlocks has rows under the single-pass gate.)
+BF16_IMAGE, BF16_PATCH, BF16_OVERLAP = 384, 256, 128
+# the distributed step: two ranks on the one card over gloo (NCCL refuses two
+# ranks on one device), one 256px bf16 batch step of the global batch of 8,
+# replicated then FSDP, against the one-process step at the training bars
+DIST_WORLD, DIST_TIMEOUT_S = 2, 300
+STREAM_SHARDS, STREAM_ROWS, STREAM_BATCH = 3, 16, 8
+FEATURE_REFITS, FEATURE_NORMALS, FEATURE_TESTS = 2, 16, 8
+
+
+@contextlib.contextmanager
+def unet_rows(model):
+    """The batch size of every UNet call inside the block, by a forward
+    pre-hook."""
+    rows = []
+    h = model.register_forward_pre_hook(lambda _m, args: rows.append(int(args[0].shape[0])))
+    try:
+        yield rows
+    finally:
+        h.remove()
+
+
+def _gn_per_call(model) -> int:
+    """Single-pass GN launches in one f32 UNet call whose rows all fit the
+    gate: two Blocks in each unfused ResnetBlock."""
+    return 2 * sum(isinstance(m, ResnetBlock) for m in model.modules())
+
+
+def patch_phase() -> dict:
+    """The patch demo through its entry point, its chains card vs CPU and
+    kernels vs plain, the exact stitch, the bf16 patch call on all eight
+    kernels, and the bucketed route against the unbucketed one."""
+    from localdiffusion_tpu_torch.diffusion import sampler as S
+    from localdiffusion_tpu_torch.parallel import multihost
+    from localdiffusion_tpu_torch.parallel import patch as P
+    from localdiffusion_tpu_torch.scripts import patch_demo
+
+    t_phase = time.perf_counter()
+    perf, checks = {}, {}
+    reset_counts()
+    noise = (NumpyNoise(30, "cuda"), NumpyNoise(31, "cuda"))
+    demo = patch_demo.main(["--image-size", "256", "--patch", "64", "--overlap", "8",
+                            "--params-npz", str(SHIPPED_DENOISER)], noise=noise)
+    counts = read_counts()
+    gd = demo["gd"]
+    per_call = _gn_per_call(gd.model)
+    n_calls = 2 * gd.diff_cfg.resolved_sampling_timesteps
+    check_counts(counts, {"groupnorm_film_silu": per_call}, n_calls, "patch demo")
+    out = demo["out"].cpu().numpy()
+    _check_images("patch demo", out, (1, 256, 256, 1), 0.0, 12.0)
+    perf.update(demo_first_s=demo["first_s"], demo_steady_s=demo["steady_s"], demo_mse=demo["mse"],
+                demo_patches=demo["num_patches"])
+    log(f"patch: the demo (mri64_config(), the shipped denoiser, 256px in "
+        f"{demo['num_patches']} patches of 64px, overlap 8, DDIM-50, f32, a [50] UNet batch) "
+        f"first call {demo['first_s']:.2f}s, steady state {demo['steady_s']:.3f}s, MSE vs gt "
+        f"{demo['mse']:.4f}; launches {counts} ({per_call} single-pass GN a call x {n_calls})")
+
+    # the demo's whole call (all 25 patch chains, the [50] batch) again on
+    # the card through the plain versions, with the steady-state call's noise
+    cfg = mri64_config()
+    gd.model.use_plain_kernels(True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_out = P.patch_parallel_sample(gd, demo["lr"], demo["mask"], cfg.sampler,
+                                            patch_demo.MIN_MAX_VAL, 64, 8,
+                                            noise=NumpyNoise(31, "cuda"))
+        torch.cuda.synchronize()
+        perf["demo_plain_s"] = time.perf_counter() - t0
+    finally:
+        gd.model.use_plain_kernels(False)
+    err_plain = float((demo["out"] - plain_out).abs().max())
+
+    # the tumour's patch chain card vs CPU (the same numpy noise; the CPU
+    # cannot run all 25 in the time)
+    grid = P.plan_patches(256, 256, 64, 8)
+    mask_p = P._extract_patches_np(demo["mask"], grid)
+    idx = [int(np.argmax(mask_p.reshape(len(mask_p), -1).sum(1)))]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        g = gd if dev == "cuda" else load_params(cfg, params_npz=str(SHIPPED_DENOISER),
+                                                  device="cpu", verbose=False)
+        gp = P._patch_engine(g, 64)
+        cond_p = P.extract_patches(torch.as_tensor(demo["lr"], device=dev), grid)[idx]
+        m_p = torch.as_tensor(mask_p[idx], device=dev)
+        t0 = time.perf_counter()
+        outs[dev] = S.ddim_sample_branched(
+            gp, cond_p, m_p, cfg.sampler, patch_demo.MIN_MAX_VAL,
+            noise=multihost.RowsNoise(NumpyNoise(32, dev), len(mask_p), idx)).cpu().numpy()
+        perf[f"patch_chain_{dev}_s"] = time.perf_counter() - t0
+    err_cpu = float(np.abs(outs["cuda"] - outs["cpu"]).max())
+    checks.update(demo_card_vs_cpu_max_abs_err=err_cpu, demo_kernels_vs_plain_max_abs_err=err_plain)
+    log(f"patch: the demo's whole call (25 patch chains) kernels vs plain on the card "
+        f"max_abs_err {err_plain:.3g} (plain {perf['demo_plain_s']:.2f}s); the tumour's patch "
+        f"chain (patch {idx[0]}) card vs CPU max_abs_err {err_cpu:.3g} (tol {CHAIN_TOL:g}); CPU "
+        f"{perf['patch_chain_cpu_s']:.1f}s")
+    if max(err_cpu, err_plain) > CHAIN_TOL:
+        raise RuntimeError("the patch chains on the card disagree")
+
+    # stitching with overlap 0 is the image, exactly
+    img = torch.as_tensor(demo["hr"], device="cuda")
+    g0 = P.plan_patches(256, 256, 64, 0)
+    if not torch.equal(P.stitch_patches(P.extract_patches(img, g0), g0, 1, 0), img):
+        raise RuntimeError("stitching the tiles of overlap 0 does not give the image back")
+    checks["stitch_overlap0_exact"] = True
+
+    # the bf16 patch call: all eight kernels
+    bcfg = mri256_bf16_config()
+    bgd = load_params(bcfg, params_npz=str(SHIPPED_DENOISER), device="cuda", verbose=False)
+    hr, lr, seg = synthetic_brain_translation(1, BF16_IMAGE, tumor=True, seed=3,
+                                              mean_t1=bcfg.data.mean_t1,
+                                              std_t1=bcfg.data.std_t1,
+                                              mean_flair=bcfg.data.mean_flair,
+                                              std_flair=bcfg.data.std_flair)
+    mask = (seg > 0).astype(np.float32)
+    mmv = min_max_val_for(bcfg)
+    before = read_counts()
+    with unet_rows(bgd.model) as rows:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kern = P.patch_parallel_sample(bgd, lr, mask, bcfg.sampler, mmv, BF16_PATCH, BF16_OVERLAP,
+                                       noise=NumpyNoise(33, "cuda"))
+        torch.cuda.synchronize()
+        perf["bf16_patch_call_s"] = time.perf_counter() - t0
+    used = {k: v - before[k] for k, v in read_counts().items()}
+    check_counts(used, MRI_PER_CALL, len(rows), "bf16 patch call")
+    bgd.model.use_plain_kernels(True)
+    try:
+        plain = P.patch_parallel_sample(bgd, lr, mask, bcfg.sampler, mmv, BF16_PATCH, BF16_OVERLAP,
+                                        noise=NumpyNoise(33, "cuda"))
+    finally:
+        bgd.model.use_plain_kernels(False)
+    a, b = kern.float().cpu().numpy(), plain.float().cpu().numpy()
+    rel, corr = _rel_l2(a, b), float(np.corrcoef(a.ravel(), b.ravel())[0, 1])
+    checks.update(bf16_patch_rel_l2=rel, bf16_patch_corr=corr)
+    log(f"patch: bf16 call (mri256_bf16_config(), the shipped denoiser, {BF16_IMAGE}px in 4 "
+        f"patches of {BF16_PATCH}px, overlap {BF16_OVERLAP}, DDIM-50; UNet rows "
+        f"{sorted(set(rows))} x "
+        f"{len(rows)} calls) {perf['bf16_patch_call_s']:.2f}s; kernels vs plain rel L2 {rel:.4g} "
+        f"(<= {MRI_CHAIN_REL}) corr {corr:.6f} (>= {MRI_CHAIN_CORR}); launches {used}")
+    if not (np.all(np.isfinite(a)) and rel <= MRI_CHAIN_REL and corr >= MRI_CHAIN_CORR):
+        raise RuntimeError("the bf16 patch call disagrees with its plain versions")
+
+    # the bucketed route against the unbucketed one, each row the same noise
+    few = np.zeros((1, 256, 256, 1), np.float32)
+    few[:, 10:30, 10:30] = 1.0  # inside the first patch alone
+    few[:, 100:110, 180:190] = 1.0  # and one more
+    flat = P._extract_patches_np(few, grid)
+    ood = np.nonzero((flat >= 1.0).reshape(len(flat), -1).any(1))[0]
+    plain_rows = np.setdiff1d(np.arange(len(flat)), ood)
+    with unet_rows(gd.model) as rows_u:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        unb = P.patch_parallel_sample(gd, demo["lr"], few, cfg.sampler, patch_demo.MIN_MAX_VAL,
+                                      64, 8, noise=NumpyNoise(34, "cuda"))
+        torch.cuda.synchronize()
+        perf["unbucketed_s"] = time.perf_counter() - t0
+    with unet_rows(gd.model) as rows_b:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        buck = P.patch_parallel_sample_bucketed(
+            gd, demo["lr"], few, cfg.sampler, patch_demo.MIN_MAX_VAL, 64, 8,
+            noise=multihost.RowsNoise(NumpyNoise(34, "cuda"), len(flat), plain_rows),
+            branched_noise=multihost.RowsNoise(NumpyNoise(34, "cuda"), len(flat), ood))
+        torch.cuda.synchronize()
+        perf["bucketed_s"] = time.perf_counter() - t0
+    err = float((buck - unb).abs().max())
+    steps = gd.diff_cfg.resolved_sampling_timesteps
+    # a branched patch's rows over its chain (two a step until the fusion,
+    # one after), read off the unbucketed call; a plain patch one a step
+    per_branched = sum(rows_u) // len(flat)
+    want_rows = len(plain_rows) * steps + len(ood) * per_branched
+    checks.update(bucketed_max_abs_err=err, bucketed_rows=sum(rows_b), unbucketed_rows=sum(rows_u))
+    log(f"patch: bucketed ({len(ood)} branched + {len(plain_rows)} plain patches) "
+        f"{perf['bucketed_s']:.2f}s, {sum(rows_b)} UNet rows, against the unbucketed "
+        f"{perf['unbucketed_s']:.2f}s, {sum(rows_u)} rows (expected {want_rows}: a plain patch "
+        f"one row a step, not two); "
+        f"max_abs_err {err:.3g} (tol {CHAIN_TOL:g})")
+    if (sum(rows_b) != want_rows or sum(rows_u) != len(flat) * per_branched
+            or per_branched <= steps or err > CHAIN_TOL):
+        raise RuntimeError("the bucketed route disagrees with the unbucketed one")
+    counts = read_counts()
+    perf["phase_s"] = time.perf_counter() - t_phase
+    log(f"patch phase: {perf['phase_s']:.1f}s; launches {counts}")
+    return dict(counts=counts, perf=perf, checks=checks)
+
+
+DIST_SEED = 41
+
+
+def _dist_trainer(mesh=None, fsdp=False):
+    """A seeded `mri256_config()` trainer on this rank's card, and the
+    global batch of 8 test brains (every rank holds it whole)."""
+    cfg = mri256_config()
+    tr = Trainer(build_gd(cfg, device="cuda"), cfg.train, mesh=mesh, fsdp=fsdp)
+    hr, lr, _ = test_arrays(cfg, cfg.train.batch_size)
+    return tr, hr, lr
+
+
+def _dist_params(tr) -> dict:
+    from localdiffusion_tpu_torch.parallel import fsdp as F
+
+    return {k: v.float().cpu().numpy() for k, v in F.gather_tree(tr.model).items()}
+
+
+def _dist_worker(rank, world, port, q):
+    """A rank of the distributed phase: joins a gloo group on the card, then
+    one batch step replicated and one with FSDP, each from the seeded
+    weights; (rank, result) on `q`."""
+    import traceback
+
+    from localdiffusion_tpu_torch.parallel import fsdp as F
+    from localdiffusion_tpu_torch.parallel import multihost
+    from localdiffusion_tpu_torch.parallel.mesh import make_mesh
+
+    try:
+        multihost.init_distributed(f"localhost:{port}", world, rank, device="cuda",
+                                   backend="gloo")
+        mesh = make_mesh(data=world, device="cuda")
+        multihost.warmup_collectives()
+        out = {"device": str(multihost.rank_device("cuda")),
+               "backend": str(torch.distributed.get_backend())}
+        for kind in ("replicated", "fsdp"):
+            tr, hr, lr = _dist_trainer(mesh, fsdp=kind == "fsdp")
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = tr.train_batch_step(hr, lr, _seeded(DIST_SEED))
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            res = dict(loss=loss, counts=read_counts(), step_s=step_s,
+                       info=F.shard_info(tr.state_tensors()))
+            params = _dist_params(tr)  # collective
+            if rank == 0:
+                res["params"] = params
+            out[kind] = res
+            del tr
+        q.put((rank, out))
+    except BaseException:
+        q.put((rank, "error: " + traceback.format_exc()))
+        raise
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _agreement(got: dict, want: dict) -> tuple:
+    g = np.concatenate([got[k].ravel() for k in want]).astype(np.float64)
+    w = np.concatenate([want[k].ravel() for k in want]).astype(np.float64)
+    return (float(np.linalg.norm(g - w) / np.linalg.norm(w)),
+            float(g @ w / (np.linalg.norm(g) * np.linalg.norm(w))))
+
+
+def distributed_phase() -> dict:
+    """Two ranks on the one card (gloo) take one 256px bf16 batch step,
+    replicated and then FSDP, each held against the one-process step on the
+    same global batch and draws; then a one-rank NCCL `scripts.train
+    --fsdp` run of 2 steps, its checkpoint written by the primary and
+    loaded back."""
+    import multiprocessing
+    import queue as queue_mod
+
+    t_phase = time.perf_counter()
+    perf, checks = {}, {}
+    tr, hr, lr = _dist_trainer()
+    # one process, the same step: the reference; its updates are the step's
+    before = {k: v.detach().float().cpu().numpy() for k, v in tr.model.state_dict().items()}
+    ref_loss = tr.train_batch_step(hr, lr, _seeded(DIST_SEED))
+    ref = {k: v.detach().float().cpu().numpy() for k, v in tr.model.state_dict().items()}
+    del tr
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_dist_worker, args=(r, DIST_WORLD, port, q))
+             for r in range(DIST_WORLD)]
+    for p in procs:
+        p.start()
+    res = {}
+    try:
+        for _ in range(DIST_WORLD):
+            rank, got = q.get(timeout=DIST_TIMEOUT_S)
+            if isinstance(got, str):
+                raise RuntimeError(f"distributed rank {rank} failed:\n{got}")
+            res[rank] = got
+    except queue_mod.Empty:
+        raise RuntimeError(f"a distributed rank gave no answer in {DIST_TIMEOUT_S}s") from None
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    perf["two_ranks_s"] = time.perf_counter() - t0
+    counts = {k: 0 for k in COUNTERS}
+    for kind in ("replicated", "fsdp"):
+        got = res[0][kind]
+        rel, cos = _agreement(got["params"], ref)
+        # the step's update alone, against the one-process update
+        du = {k: got["params"][k] - before[k] for k in ref}
+        dw = {k: ref[k] - before[k] for k in ref}
+        rel_u, cos_u = _agreement(du, dw)
+        losses = [res[r][kind]["loss"] for r in res]
+        for r in res:
+            for k, v in res[r][kind]["counts"].items():
+                counts[k] += v
+            check_counts(res[r][kind]["counts"], MRI_PER_CALL, 1, f"{kind} rank {r} step")
+        checks[kind] = dict(params_rel_l2=rel, update_rel_l2=rel_u, update_cos=cos_u,
+                            loss=losses[0], ref_loss=ref_loss,
+                            memory_scaling=[res[r][kind]["info"]["memory_scaling"] for r in res])
+        perf[f"{kind}_step_s"] = max(res[r][kind]["step_s"] for r in res)
+        log(f"distributed {kind}: {DIST_WORLD} ranks on {res[0]['device']} over "
+            f"{res[0]['backend']}, one 256px bf16 batch step of 8 (4 rows a rank) "
+            f"{perf[f'{kind}_step_s']:.3f}s; loss {losses} vs one process {ref_loss:.6f}; "
+            f"parameters rel L2 {rel:.3g}, the update rel L2 {rel_u:.4g} (<= {TRAIN_GRAD_REL}) "
+            f"cosine {cos_u:.6f} (>= {TRAIN_GRAD_COS}); state bytes a rank / whole "
+            f"{checks[kind]['memory_scaling']}")
+        loss_ok = abs(losses[0] - ref_loss) <= TRAIN_LOSS_REL * abs(ref_loss)
+        if not (len(set(losses)) == 1 and loss_ok and rel_u <= TRAIN_GRAD_REL
+                and cos_u >= TRAIN_GRAD_COS):
+            raise RuntimeError(f"the {kind} step on two ranks disagrees with one process")
+    scaling = checks["fsdp"]["memory_scaling"]
+    if not 1.9 < min(scaling) <= max(scaling) < 2.1:
+        raise RuntimeError("FSDP did not halve the training state a rank holds")
+
+    # a one-rank NCCL run of the CLI with --fsdp: written by the primary, loaded back
+    out_dir = PARALLEL_DIR / "train_fsdp"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    reset_counts()
+    common = ["--config", "mri256", "--step-mode", "batch", "--results", str(out_dir),
+              "--num-processes", "1", "--process-id", "0", "--fsdp"]
+    t0 = time.perf_counter()
+    first = train_script.main(common + ["--steps", "2", "--eval-every", "2", "--coordinator",
+                                        f"localhost:{_free_port()}"])
+    perf["cli_fsdp_s"] = time.perf_counter() - t0
+    cli_counts = read_counts()
+    # loaded back in this process, unsharded: the one-process layout
+    cfg = mri256_config()
+    back = Trainer(build_gd(cfg, device="cuda"), cfg.train)
+    back.results_dir = first["results_dir"]
+    back.load("latest")
+    state = torch.load(Path(first["results_dir"]) / "model-latest.pt", map_location="cpu",
+                       weights_only=True)
+    same = all(torch.equal(v.cpu(), state["params"][k])
+               for k, v in back.model.state_dict().items())
+    checks["cli"] = dict(steps=first["step"], loaded_step=back.step, world=first["world"],
+                         evals=first["evals"], loaded_equal=same)
+    log(f"distributed: scripts.train --coordinator --num-processes 1 --process-id 0 --fsdp "
+        f"(NCCL) 2 batch steps and the eval chain {perf['cli_fsdp_s']:.2f}s, losses "
+        f"{[round(v, 4) for v in first['losses']]}, eval MSE {first['evals']}; model-latest.pt "
+        f"written by the primary, loaded back at step {back.step} bit for bit {same}; launches "
+        f"{cli_counts}")
+    if (first["step"], back.step, first["world"]) != (2, 2, 1) or not same:
+        raise RuntimeError(f"the FSDP CLI run did not save its state: {checks['cli']}")
+    for k, v in cli_counts.items():
+        counts[k] += v
+    if any(v < 1 for v in counts.values()):
+        raise RuntimeError(f"a kernel never launched in the distributed phase: {counts}")
+    perf["phase_s"] = time.perf_counter() - t_phase
+    log(f"distributed phase: {perf['phase_s']:.1f}s; launches {counts}")
+    return dict(counts=counts, perf=perf, checks=checks)
+
+
+# `device_prefetch` of four 64 x 256 x 256 float32 batches under `profile_trace`
+STREAM_TRACE = """
+import sys
+import numpy as np
+import torch
+from localdiffusion_tpu_torch.data.stream import device_prefetch
+from localdiffusion_tpu_torch.utils.logging import profile_trace
+big = [(np.random.default_rng(i).standard_normal((64, 256, 256, 1)).astype(np.float32),)
+       for i in range(4)]
+with profile_trace(sys.argv[1]):
+    for (x,) in device_prefetch(iter(big), size=2, device="cuda"):
+        (x * 2.0).sum().item()
+    torch.cuda.synchronize()
+"""
+
+
+def stream_phase() -> dict:
+    """`StreamLoader` over .npy shards through `device_prefetch`: the device
+    batches bit for bit the host's, an epoch step fed through the prefetch
+    equal to one fed without it, and the copies on a side stream in a
+    `profile_trace` trace."""
+    from localdiffusion_tpu_torch.data.stream import StreamLoader, device_prefetch, npy_shard
+
+    t_phase = time.perf_counter()
+    perf, checks = {}, {}
+    cfg = mri256_config()
+    d = cfg.data
+    hr, lr, _ = synthetic_brain_translation(STREAM_SHARDS * STREAM_ROWS, 256, tumor=False, seed=8,
+                                            mean_t1=d.mean_t1, std_t1=d.std_t1,
+                                            mean_flair=d.mean_flair, std_flair=d.std_flair)
+    out_dir = PARALLEL_DIR / "stream"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    shards = []
+    for i in range(STREAM_SHARDS):
+        rows = slice(i * STREAM_ROWS, (i + 1) * STREAM_ROWS)
+        paths = [str(out_dir / f"{n}{i}.npy") for n in ("hr", "lr")]
+        np.save(paths[0], hr[rows])
+        np.save(paths[1], lr[rows])
+        shards.append(npy_shard(*paths))
+    loader = StreamLoader(shards, [STREAM_ROWS] * STREAM_SHARDS, batch_size=STREAM_BATCH, seed=7)
+    host = list(loader.epoch_batches(0))
+    t0 = time.perf_counter()
+    dev = list(device_prefetch(loader.epoch_batches(0), size=2, device="cuda"))
+    torch.cuda.synchronize()
+    perf["prefetch_epoch_s"] = time.perf_counter() - t0
+    same = len(host) == len(dev) and all(
+        torch.equal(d.cpu(), torch.as_tensor(h)) and d.device.type == "cuda"
+        for hb, db in zip(host, dev) for h, d in zip(hb, db))
+    checks["device_equals_host"] = bool(same)
+    if not same:
+        raise RuntimeError("device_prefetch changed a batch")
+
+    losses, reset = [], read_counts()
+    for fed in ("prefetch", "host"):
+        tr = Trainer(build_gd(cfg, device="cuda"), cfg.train)
+        batches = (device_prefetch(loader.epoch_batches(1), device="cuda") if fed == "prefetch"
+                   else loader.epoch_batches(1))
+        losses.append(tr.train_epoch_step(batches, _seeded(5)))
+        del tr
+    counts = {k: v - reset[k] for k, v in read_counts().items()}
+    check_counts(counts, MRI_PER_CALL, 2 * len(loader), "stream epoch steps")
+    checks["epoch_losses"] = losses
+    log(f"stream: {STREAM_SHARDS} .npy shards of {STREAM_ROWS} 256px brains, batch "
+        f"{STREAM_BATCH}; device_prefetch's {len(dev)} batches bit for bit the host's "
+        f"({perf['prefetch_epoch_s']:.3f}s an epoch); an epoch step fed through it {losses[0]!r}, "
+        f"without it {losses[1]!r}")
+    if losses[0] != losses[1]:
+        raise RuntimeError("the epoch step fed through device_prefetch took another loss")
+
+    # the copies run on the side stream: the trace's host-to-device copies are
+    # on another stream than the consumer's kernels.  Traced in a fresh
+    # process: as a process ages the card's timestamps drift from the host
+    # clock and the profiler drops device activity outside a short session's
+    # window (NVIDIA H100 80GB HBM3, 700 W: none kept from ~30 s of age on,
+    # all of it with 0.5 s of host time on either side; see profile_trace)
+    trace_dir = out_dir / "trace"
+    subprocess.run([sys.executable, "-c", STREAM_TRACE, str(trace_dir)], cwd=ROOT, check=True,
+                   timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    events = json.loads((trace_dir / "trace.json").read_text())["traceEvents"]
+    copies = {e["args"].get("stream") for e in events
+              if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")}
+    kernels = {e["args"].get("stream") for e in events if e.get("cat") == "kernel"}
+    checks.update(copy_streams=sorted(copies), kernel_streams=sorted(kernels))
+    log(f"stream: profile_trace ({trace_dir / 'trace.json'}): host-to-device copies on streams "
+        f"{sorted(copies)}, the consumer's kernels on {sorted(kernels)}")
+    if not copies or not kernels or copies & kernels:
+        raise RuntimeError("the prefetch's copies did not run off the consumer's stream")
+    perf["phase_s"] = time.perf_counter() - t_phase
+    log(f"stream phase: {perf['phase_s']:.1f}s; launches {counts}")
+    return dict(counts=counts, perf=perf, checks=checks)
+
+
+def reference_ckpt_phase() -> dict:
+    """A synthetic reference checkpoint of the 256px layout (12.1M
+    parameters, seeded) through the converter's CLI; its EMA npz loaded on
+    the card and on the CPU, one UNet call each."""
+    from localdiffusion_tpu_torch.scripts import convert_reference_ckpt
+    from localdiffusion_tpu_torch.utils.params_io import params_to_jax
+    from localdiffusion_tpu_torch.utils.reference_ckpt import reference_state_dict
+
+    t_phase = time.perf_counter()
+    cfg = mri256_config()
+    out_dir = PARALLEL_DIR / "reference"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    trees = []
+    for seed in (1, 2):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            unet = UNet(cfg.model)
+        trees.append(reference_state_dict(params_to_jax(unet.state_dict()), cfg.model))
+    n_params = sum(v.size for v in trees[0].values())
+    ckpt = out_dir / "model-1.pt"
+    torch.save({"step": 1, "model": {f"model.{k}": torch.as_tensor(v) for k, v in trees[0].items()},
+                "ema": {f"ema_model.model.{k}": torch.as_tensor(v) for k, v in trees[1].items()},
+                "opt": {}, "scaler": None}, ckpt)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = convert_reference_ckpt.main([str(ckpt), "--out", str(out_dir / "ref"), "--dim", "32",
+                                       "--dim-mults", "1,2,4,8", "--mode", "mri"])
+    convert_s = time.perf_counter() - t0
+    npz = out_dir / "ref-ema.npz"
+    agree = _unet_card_vs_cpu("converted reference EMA", cfg, npz, np.random.default_rng(4),
+                              f32=False)
+    counts = read_counts()
+    check_counts(counts, MRI_PER_CALL, 1, "reference_ckpt call")
+    log(f"reference_ckpt: a seeded reference checkpoint of the 256px layout ({n_params} "
+        f"parameters, {ckpt.stat().st_size} bytes) converted in {convert_s:.2f}s "
+        f"({len(res['params'])} tensors, step {res['step']}); its EMA npz card vs CPU "
+        f"{agree}; launches {counts}")
+    perf = dict(convert_s=convert_s, phase_s=time.perf_counter() - t_phase)
+    return dict(counts=counts, perf=perf, checks=dict(card_vs_cpu=agree, params=n_params))
+
+
+def features_phase() -> dict:
+    """`eval_patchcore_features` with 2 refits on the denoiser (the shipped
+    npz) and the WRN50-2 (seeded) sources at 256px; the IoUs printed."""
+    from localdiffusion_tpu_torch.scripts import eval_patchcore_features
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    out = PARALLEL_DIR / "features.json"
+    res = eval_patchcore_features.main([
+        "--config", "mri256", "--sources", "denoiser,wrn", "--refits", str(FEATURE_REFITS),
+        "--normals", str(FEATURE_NORMALS), "--tests", str(FEATURE_TESTS),
+        "--feature-npz", str(SHIPPED_DENOISER), "--out", str(out)])
+    counts = read_counts()
+    ious = {src: {k: r["agg"][k]["mean"] for k in ("iou", "iou_dilated")} for src, r in res.items()}
+    for src, r in res.items():
+        vals = [x["iou"] for x in r["refits"]]
+        if len(vals) != FEATURE_REFITS or not all(0.0 <= v <= 1.0 for v in vals):
+            raise RuntimeError(f"eval_patchcore_features {src}: IoUs {vals}")
+    perf = dict(phase_s=time.perf_counter() - t_phase)
+    log(f"features: eval_patchcore_features (mri256, {FEATURE_REFITS} refits of "
+        f"{FEATURE_NORMALS} normal brains, {FEATURE_TESTS} tumour brains) mean IoU {ious}; "
+        f"{perf['phase_s']:.1f}s; launches {counts}")
+    return dict(counts=counts, perf=perf, checks=dict(ious=ious))
+
+
+def native_phase() -> dict:
+    """The native data kernels build with g++ and match the numpy route."""
+    from localdiffusion_tpu_torch import native
+
+    t0 = time.perf_counter()
+    if not native.have_native():
+        raise RuntimeError(f"the native data kernels did not build: {native.build_error()}")
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    imgs = rng.integers(0, 256, (512, 28, 28), dtype=np.uint8)
+    idx = rng.permutation(512)[:256]
+    gather = native.gather_normalize(imgs, idx, 2.0 / 255.0)
+    gather_np = native.gather_normalize(imgs, idx, 2.0 / 255.0, use_native=False)
+    errs = {}
+    for h_only in (True, False):
+        t1 = time.perf_counter()
+        got = native.degrade_batch(imgs, h_only, 2.0 / 255.0)
+        t_native = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        want = native.degrade_batch(imgs, h_only, 2.0 / 255.0, use_native=False)
+        t_numpy = time.perf_counter() - t1
+        errs[f"degrade_{'h_only' if h_only else 'full'}"] = float(np.abs(got - want).max())
+        errs[f"degrade_{'h_only' if h_only else 'full'}_s"] = (t_native, t_numpy)
+    exact = bool(np.array_equal(gather, gather_np))
+    log(f"native: {native.library_path().name} built in {build_s:.2f}s; gather_normalize of "
+        f"256 of 512 28px images bit for bit the numpy route {exact}; degrade_batch max_abs_err "
+        f"and (native, numpy) seconds {errs}")
+    if not exact or max(v for k, v in errs.items() if not k.endswith("_s")) > 1e-4:
+        raise RuntimeError("the native data kernels disagree with the numpy route")
+    return dict(counts={k: 0 for k in COUNTERS}, perf=dict(phase_s=time.perf_counter() - t0),
+                checks=dict(gather_exact=exact, **{k: v for k, v in errs.items()
+                                                   if not k.endswith("_s")}))
+
+
 def _row(t: dict, warm: bool = False) -> dict:
     """A GN part's numbers under the kernels line's keys (and the replayed
     time of a tiled pass, `warm_ms`)."""
@@ -4296,11 +4906,20 @@ def main() -> None:
         mnist = mnist_trained_phase()
     with tf32_on_at_entry("aux"):
         aux = aux_phase(mnist.pop("pred_all"), mnist.pop("data"))
+    with tf32_on_at_entry("patch"):
+        patch = patch_phase()
+    distributed = distributed_phase()
+    stream = stream_phase()
+    reference = reference_ckpt_phase()
+    features = features_phase()
+    native_res = native_phase()
 
     phases = {"flagship": flag, "256px": mri, "stage_a": stage_a, "gated": gated,
               "seg_wrn": seg_wrn, "stem": stem, "shipped": shipped, "training": training,
               "datasets": datasets, "self_cond": self_cond, "serve": serve,
-              "sampler_api": sampler_api, "mnist_trained": mnist, "aux": aux}
+              "sampler_api": sampler_api, "mnist_trained": mnist, "aux": aux, "patch": patch,
+              "distributed": distributed, "stream": stream, "reference_ckpt": reference,
+              "features": features, "native": native_res}
     launches = {name: {label: ph["counts"][name] for label, ph in phases.items()}
                 for name in COUNTERS}
     total = {name: sum(v.values()) for name, v in launches.items()}
@@ -4401,7 +5020,9 @@ def main() -> None:
         + f"; datasets checks {json.dumps(datasets['checks'])}"
         + f"; self_cond checks {json.dumps(self_cond['checks'])}"
         + "".join(f"; {label} checks {json.dumps(phases[label]['checks'])}"
-                  for label in ("serve", "sampler_api", "mnist_trained", "aux")))
+                  for label in ("serve", "sampler_api", "mnist_trained", "aux", "patch",
+                                "distributed", "stream", "reference_ckpt", "features",
+                                "native")))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,0 +1,92 @@
+"""The device mesh and the row selections a rank keeps.
+
+Port of `localdiffusion_tpu/parallel/mesh.py` over
+`torch.distributed.device_mesh`.  Axes, as in the JAX package:
+
+  data  - batch data parallelism; with `Trainer(fsdp=True)` the training
+          state is also sharded over it (`parallel.fsdp`);
+  patch - the patch axis of patch-parallel sampling (`parallel.patch`).
+
+A JAX sharding places each shard of a global array on its device; here
+every rank holds the global array and keeps its share, so a sharding is a
+row selection (`Rows`): for each leading dimension, the mesh axis whose
+coordinate picks the contiguous share (`multihost.row_range`).  The
+tensor-parallel `model` axis is not ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from localdiffusion_tpu_torch.parallel.multihost import row_range
+
+AXES = ("data", "patch")
+
+
+def make_mesh(data: int = -1, patch: int = 1, model: int = 1, device="cuda") -> DeviceMesh:
+    """A ('data', 'patch') mesh over the ranks of the process group, one
+    device a rank (data = -1: every rank not on the patch axis).  In a
+    single process without a group it first joins a group of one rank
+    (gloo over an in-memory store), so a one-device mesh works as in JAX."""
+    if model != 1:
+        raise NotImplementedError(
+            "the tensor-parallel 'model' axis is not ported (ROADMAP.md, queue 1: the "
+            "tensor-parallel model axis, fsdp.py:117 and make_mesh(model>1))")
+    if not dist.is_initialized():
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    n = dist.get_world_size()
+    if data == -1:
+        if n % patch:
+            raise ValueError(f"{n} ranks are not divisible by patch={patch}")
+        data = n // patch
+    if data * patch != n:
+        raise ValueError(f"mesh data={data} x patch={patch} != {n} ranks")
+    return init_device_mesh(torch.device(device).type, (data, patch), mesh_dim_names=AXES)
+
+
+@dataclass(frozen=True)
+class Rows:
+    """A row selection: dimension i of an array is cut into the mesh's
+    `axes[i]` size of contiguous shares and the rank keeps the one at its
+    coordinate on that axis (dimensions past `axes` are whole)."""
+
+    mesh: DeviceMesh
+    axes: Tuple[str, ...] = ()
+
+    def bounds(self, dim: int, n: int) -> Tuple[int, int]:
+        axis = self.axes[dim]
+        return row_range(n, self.mesh.get_local_rank(axis), self.mesh[axis].size())
+
+    def select(self, x):
+        for dim in range(len(self.axes)):
+            lo, hi = self.bounds(dim, x.shape[dim])
+            idx = (slice(None),) * dim + (slice(lo, hi),)
+            x = x[idx]
+        return x
+
+
+def replicated(mesh: DeviceMesh) -> Rows:
+    return Rows(mesh, ())
+
+
+def batch_sharding(mesh: DeviceMesh) -> Rows:
+    """The leading (batch) dimension over 'data' (NHWC batches)."""
+    return Rows(mesh, ("data",))
+
+
+def branch_batch_sharding(mesh: DeviceMesh) -> Rows:
+    """[branch/patch, batch, H, W, C]: the first dimension over 'patch',
+    the batch over 'data'."""
+    return Rows(mesh, ("patch", "data"))
+
+
+def shard_batch(mesh: DeviceMesh, *arrays):
+    """Each array's rows of this rank under `batch_sharding`."""
+    sh = batch_sharding(mesh)
+    out = tuple(sh.select(a) for a in arrays)
+    return out if len(out) > 1 else out[0]

@@ -5,6 +5,7 @@
         [--eval-every N] [--resume auto|never] [--init-npz NPZ]
         [--dtype float32|bfloat16] [--export-npz NPZ] [--device cuda|cpu]
         [--mnist-path IDX --mnist-labels-path IDX | --mri-files GLOB | --mvtec-path GLOB]
+        [--coordinator HOST:PORT --num-processes N --process-id I] [--fsdp]
 
 `--config` names a configuration of `config.CONFIGS` (no YAML on the card's
 machine).  Steps (`train.trainer.Trainer`): 'resident' (the default) keeps
@@ -26,7 +27,15 @@ Datasets (`data.datasets.train_arrays`, the JAX script's branches):
 where the files are missing), `synthetic_brain`, `synthetic_texture[_denoise]`,
 `synthetic`, `mri` (BraTS PNG triplets) and `mvtec*`; `--mnist-path`,
 `--mnist-labels-path`, `--mri-files` and `--mvtec-path` point the
-configuration at the files.  The multi-host and FSDP flags are not ported.
+configuration at the files.
+
+Several processes (one a device, each launched with the same command and its
+own `--process-id`; `--coordinator` is rank 0's host:port) train as one:
+the process group joins over TCP (NCCL on the card, gloo on the CPU), every
+rank loads the same training set, trimmed to a multiple of the number of
+ranks, and keeps its rows of each global batch; `--fsdp` shards the
+parameters, the optimizer's state and the EMA over the ranks
+(`parallel.fsdp`).  Only rank 0 writes the log and the checkpoints.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from localdiffusion_tpu_torch.config import config_by_name, min_max_val_for
 from localdiffusion_tpu_torch.data.datasets import add_data_args, train_arrays, with_data_paths
 from localdiffusion_tpu_torch.data.loader import ArrayLoader
 from localdiffusion_tpu_torch.diffusion.gaussian import build_gd, resolve_device
+from localdiffusion_tpu_torch.parallel import multihost
 from localdiffusion_tpu_torch.train.trainer import (
     Trainer,
     load_best_eval,
@@ -79,13 +89,24 @@ def parse_args(argv=None):
                     help="compute dtype (default: the configuration's)")
     ap.add_argument("--export-npz", default=None, help="write the final EMA to this slim npz")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of rank 0 (several processes only)")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--fsdp", action="store_true",
+                    help="shard params, optimizer state and EMA over the ranks (parallel/fsdp.py)")
     add_data_args(ap)
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    resolve_device(args.device)
+    joined_here = not torch.distributed.is_initialized()
+    # before any tensor reaches the card
+    multihost.init_distributed(args.coordinator, args.num_processes, args.process_id,
+                               device=args.device)
+    device = multihost.rank_device(args.device)
     cfg = with_data_paths(config_by_name(args.config), args)
     over = {"batch_size": args.batch_size or cfg.train.batch_size}
     if args.results:
@@ -96,10 +117,21 @@ def main(argv=None) -> dict:
     bs = cfg.train.batch_size
 
     gd = build_gd(cfg, device=device)
-    trainer = Trainer(gd, cfg.train)
-    print(f"Total number of parameters: {sum(p.numel() for p in trainer.params)}")
-    if args.init_npz:
-        gd.model.load_state_dict(load_params_npz(args.init_npz, gd.model))
+    mesh = None
+    if args.coordinator is not None:
+        from localdiffusion_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(data=multihost.process_count(), patch=1, device=device)
+        multihost.warmup_collectives()
+        print(f"multi-process: {multihost.process_count()} processes, mesh "
+              f"data={multihost.process_count()}, rank {multihost.process_index()} on {device}"
+              f"{', FSDP' if args.fsdp else ''}")
+    init_state = load_params_npz(args.init_npz, gd.model) if args.init_npz else None
+    n_params = sum(p.numel() for p in gd.model.parameters() if p.requires_grad)
+    trainer = Trainer(gd, cfg.train, mesh=mesh, fsdp=args.fsdp and mesh is not None)
+    print(f"Total number of parameters: {n_params}")
+    if init_state is not None:
+        trainer.load_params(init_state)
         trainer.reset_ema()
         print(f"warm-started params from {args.init_npz}")
     latest = trainer.checkpoint_path("latest")
@@ -109,6 +141,14 @@ def main(argv=None) -> dict:
     start_step = trainer.step
 
     (hr_tr, lr_tr), (hr_te, lr_te) = train_arrays(cfg)
+    if mesh is not None:
+        # each rank keeps a share of every batch: drop the tail so the count
+        # divides by the data width (DataLoader drop_last)
+        d = multihost.process_count()
+        n_keep = (len(hr_tr) // d) * d
+        if n_keep != len(hr_tr):
+            print(f"trimming train set {len(hr_tr)} -> {n_keep} (divisible by data={d})")
+            hr_tr, lr_tr = hr_tr[:n_keep], lr_tr[:n_keep]
     print(f"train {len(hr_tr)} / test {len(hr_te)} samples")
     dl = ArrayLoader(hr_tr, lr_tr, batch_size=bs, seed=42)
     steps = args.steps if args.steps is not None else cfg.train.num_steps
@@ -119,9 +159,10 @@ def main(argv=None) -> dict:
 
     os.makedirs(trainer.results_dir, exist_ok=True)
     csv_path = os.path.join(trainer.results_dir, "train_loss.csv")
-    if start_step == 0 and os.path.exists(csv_path):
+    primary = multihost.is_primary()
+    if primary and start_step == 0 and os.path.exists(csv_path):
         os.replace(csv_path, csv_path + ".prev")  # a fresh run: keep the old log aside
-    logger = CsvLogger(csv_path, ["step", "loss", "time_s"])
+    logger = CsvLogger(csv_path, ["step", "loss", "time_s"]) if primary else None
     timer = Timer()
     sync = torch.cuda.synchronize if device.type == "cuda" else None
     if args.step_mode == "resident":
@@ -141,7 +182,8 @@ def main(argv=None) -> dict:
                     hr_b, lr_b = next(iter(dl.epoch_batches(step)))
                     loss = trainer.train_batch_step(hr_b, lr_b, draws)
             losses.append(loss)
-            logger.log(step=step, loss=loss, time_s=f"{time.time() - t0:.2f}")
+            if logger:
+                logger.log(step=step, loss=loss, time_s=f"{time.time() - t0:.2f}")
             if step % 10 == 0 or step == steps - 1:
                 print(f"step {step}: loss {loss:.5f} ({time.time() - t0:.1f}s)")
             if (step + 1) % save_every == 0 or step == steps - 1:
@@ -154,21 +196,29 @@ def main(argv=None) -> dict:
                     best = m
                     milestone = "best" + round_milestone(step + 1)
                     trainer.save(milestone)
-                    record_best_eval(trainer.results_dir, m, milestone)
+                    if primary:
+                        record_best_eval(trainer.results_dir, m, milestone)
                     print(f"  saved {milestone}")
                 with timer.time("checkpoint"):
                     trainer.save("latest")
         trainer.save("latest")
     finally:
-        logger.close()
+        if logger:
+            logger.close()
     if args.export_npz:
-        save_params_npz(args.export_npz, trainer.ema_model.state_dict())
-        print(f"exported the EMA to {args.export_npz}")
+        ema = trainer.ema_state_dict()
+        if primary:
+            save_params_npz(args.export_npz, ema)
+            print(f"exported the EMA to {args.export_npz}")
     phase_means = {k: f"{v * 1e3:.1f}ms" for k, v in timer.summary().items()}
     print(f"phase means: {phase_means}")
     print("done")
+    rank, world = multihost.process_index(), multihost.process_count()
+    if joined_here and torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
     return dict(start_step=start_step, step=trainer.step, losses=losses, evals=evals,
-                best=best, phase_means_s=timer.summary(), results_dir=trainer.results_dir)
+                best=best, phase_means_s=timer.summary(), results_dir=trainer.results_dir,
+                rank=rank, world=world)
 
 
 if __name__ == "__main__":

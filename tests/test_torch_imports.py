@@ -13,7 +13,12 @@ a self-conditioned model with random Fourier features, a step in each mode,
 and its EMA npz back through `factory.load_params`; a fifth the serving,
 volume and aux CLIs at 16px: `scripts.serve`'s server answering one
 request, `convert_mha` and `translate_volume` on a MetaImage volume,
-`train_seg`, `train_mnist_cls` and `eval_translation`.
+`train_seg`, `train_mnist_cls` and `eval_translation`; a sixth the parallel
+and I/O layer: the patch tiling and stitch, the streaming loader through
+`device_prefetch` under `profile_trace`, the native kernels and the
+reference converter's CLI (the patch demo and `eval_patchcore_features`
+are imported by the first; their runs are held against JAX in their own
+tests).
 """
 
 import os
@@ -213,6 +218,46 @@ CLIS = textwrap.dedent(
     """
 )
 
+PARALLEL_IO = textwrap.dedent(
+    """
+    import os, sys, tempfile
+    for name in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "sklearn", "pandas",
+                 "localdiffusion_tpu", "scripts"):
+        sys.modules[name] = None
+    import numpy as np
+    import torch
+    from localdiffusion_tpu_torch import config as C, native
+    from localdiffusion_tpu_torch.data.stream import StreamLoader, device_prefetch
+    from localdiffusion_tpu_torch.models.unet import UNet
+    from localdiffusion_tpu_torch.parallel import patch
+    from localdiffusion_tpu_torch.scripts import convert_reference_ckpt
+    from localdiffusion_tpu_torch.utils.logging import profile_trace
+    from localdiffusion_tpu_torch.utils.reference_ckpt import reference_state_dict
+    from localdiffusion_tpu_torch.utils.params_io import params_to_jax
+
+    torch.set_num_threads(2)
+    with tempfile.TemporaryDirectory() as d:
+        img = torch.rand(1, 40, 40, 1)
+        grid = patch.plan_patches(40, 40, 16, 4)
+        back = patch.stitch_patches(patch.extract_patches(img, grid), grid, 1, 4)
+        print("PATCH", grid.num_patches, bool(torch.allclose(back, img)))
+        x = np.arange(12, dtype=np.float32).reshape(6, 2)
+        ld = StreamLoader([lambda: (x[:4],), lambda: (x[4:],)], [4, 2], batch_size=4)
+        with profile_trace(os.path.join(d, "trace")):
+            print("STREAM", [tuple(b[0].shape) for b in device_prefetch(ld.epoch_batches(0),
+                                                                        device="cpu")])
+        print("TRACE", os.path.exists(os.path.join(d, "trace", "trace.json")))
+        print("NATIVE", native.have_native())
+        cfg = C.ModelConfig(dim=8, cond_encoder_depth="deep")
+        ref = reference_state_dict(params_to_jax(UNet(cfg).state_dict()), cfg)
+        sd = {f"model.{k}": torch.as_tensor(v) for k, v in ref.items()}
+        torch.save({"step": 7, "model": sd, "ema": {}}, os.path.join(d, "ref.pt"))
+        conv = convert_reference_ckpt.main([os.path.join(d, "ref.pt"), "--out",
+                                            os.path.join(d, "ref"), "--dim", "8"])
+        print("CONVERTED", conv["step"], len(conv["params"]), conv["ema"])
+    """
+)
+
 # modules the port must have (a rename or a lost file shows here)
 REQUIRED = {
     "localdiffusion_tpu_torch.ops.attention",
@@ -260,6 +305,16 @@ REQUIRED = {
     "localdiffusion_tpu_torch.scripts.train_mnist_cls",
     "localdiffusion_tpu_torch.scripts.eval_translation",
     "localdiffusion_tpu_torch.models.simple_cnn",
+    "localdiffusion_tpu_torch.parallel.patch",
+    "localdiffusion_tpu_torch.parallel.mesh",
+    "localdiffusion_tpu_torch.parallel.fsdp",
+    "localdiffusion_tpu_torch.parallel.multihost",
+    "localdiffusion_tpu_torch.data.stream",
+    "localdiffusion_tpu_torch.utils.reference_ckpt",
+    "localdiffusion_tpu_torch.native",
+    "localdiffusion_tpu_torch.scripts.patch_demo",
+    "localdiffusion_tpu_torch.scripts.convert_reference_ckpt",
+    "localdiffusion_tpu_torch.scripts.eval_patchcore_features",
 }
 
 
@@ -309,6 +364,18 @@ def test_serving_volume_and_aux_clis_run_without_jax_flax_optax_orbax_yaml():
     assert proc.returncode == 0, proc.stderr
     got = [ln for ln in proc.stdout.splitlines() if ln.split()[0] in ("SERVED", "VOLUME", "AUX")]
     assert got == ["SERVED (16, 16, 1) True", "VOLUME (2, 16, 16, 1)", "AUX 1 1 3"]
+
+
+def test_parallel_and_io_layer_runs_without_jax_flax_optax_orbax_yaml():
+    proc = subprocess.run(
+        [sys.executable, "-c", PARALLEL_IO], cwd=ROOT, capture_output=True, text=True,
+        timeout=300, env={**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "2"},
+    )
+    assert proc.returncode == 0, proc.stderr
+    got = [ln for ln in proc.stdout.splitlines()
+           if ln.split()[0] in ("PATCH", "STREAM", "TRACE", "NATIVE", "CONVERTED")]
+    assert got == ["PATCH 9 True", "STREAM [(4, 2), (2, 2)]", "TRACE True", "NATIVE True",
+                   "CONVERTED 7 334 None"], proc.stdout
 
 
 def test_blocked_module_really_fails():
