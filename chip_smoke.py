@@ -260,14 +260,35 @@ Phases, each printed on its own line with the elapsed seconds:
 28. stream: `StreamLoader` over .npy shards of 256px brains through
     `device_prefetch`, the device batches bit for bit the host's, an epoch
     step fed through it equal to one fed without it, the copies off the
-    consumer's stream in a `profile_trace` trace (of a process of its own);
+    consumer's stream in a `profile_trace` trace;
 29. reference_ckpt: a seeded reference checkpoint of the 256px layout
     (12.1M parameters) through the converter's CLI, its EMA npz one UNet
     call card vs CPU;
 30. features: `scripts.eval_patchcore_features` with 2 refits on the
     denoiser and WRN50-2 sources at 256px, the IoUs printed;
 31. native: the data kernels built with g++ and held against the numpy
-    route.
+    route;
+32. mesh_serve: `InferenceServer` over a mesh pipeline
+    (`build_pipeline(mesh=...)`) on two ranks of the one card (gloo),
+    `mri256_bf16_config()` with the shipped denoiser and seg detector,
+    batch 4 of tumour brains without masks (Stage A on the first rank, each
+    dispatch broadcast, the other rank following): on a data = 2 x patch =
+    1 mesh, then data = 1 x patch = 2; each rank's launches against the
+    one-process server's on the same requests (a launch covers whatever rows
+    it is given), the served images against one process's (rel. L2 and max
+    |diff|), the masks bit for bit, each mesh's wall time;
+33. aged trace: `profile_trace` of a block of a few milliseconds in this
+    process, then as old as the whole run and at least 800 s old (a run
+    on a fast card waits for that age): every kernel the block launched
+    must be in the trace (a bare `torch.profiler` session of the same block
+    is printed beside it).  The offset of the card's timestamps from the
+    host clock (`utils.logging.read_device_clock`) is read after the 256px,
+    training and mesh_serve phases and printed with the process's age.
+
+The serve phase's in-process server reads its configuration from a `.json`
+dump of `mri256_bf16_config()` (`Config.save_json`, `config.load_config`),
+and its every dispatch again through a pipeline built from the builder
+must give the served pred bit for bit.
 
 The line before the last is one JSON object with the kernels' numbers
 (each with `train_launches`, its launches in the training phase's main
@@ -301,6 +322,7 @@ import torch.nn.functional as F
 
 from localdiffusion_tpu_torch.config import (
     flagship_config,
+    load_config,
     mnist_8to5_config,
     mnist_gated_config,
     mnist_train_config,
@@ -319,7 +341,7 @@ from localdiffusion_tpu_torch.data.mnist import MNISTDataset, load_mnist_arrays
 from localdiffusion_tpu_torch.data.loader import ArrayLoader
 from localdiffusion_tpu_torch.data.synthetic import synthetic_brain_translation, synthetic_digits
 from localdiffusion_tpu_torch.diffusion.gaussian import ArrayDraws, GaussianDiffusion, build_gd
-from localdiffusion_tpu_torch.diffusion.sampler import ArrayNoise
+from localdiffusion_tpu_torch.diffusion.sampler import ArrayNoise, GeneratorNoise
 from localdiffusion_tpu_torch.factory import (
     build_classifier_gate,
     build_frontend,
@@ -372,12 +394,14 @@ from localdiffusion_tpu_torch.ops.groupnorm import (
     groupnorm_film_silu,
     groupnorm_film_silu_reference,
 )
-from localdiffusion_tpu_torch.pipeline import LocalDiffusionPipeline
+from localdiffusion_tpu_torch.parallel.multihost import RowsNoise, row_range
+from localdiffusion_tpu_torch.pipeline import LocalDiffusionPipeline, batch_seed
 from localdiffusion_tpu_torch.scripts import eval_margins
 from localdiffusion_tpu_torch.scripts import test as test_script
 from localdiffusion_tpu_torch.scripts import train as train_script
 from localdiffusion_tpu_torch.serving import InferenceServer
 from localdiffusion_tpu_torch.train.trainer import Trainer, clip_by_global_norm, ema_update
+from localdiffusion_tpu_torch.utils.logging import launch_gaps_us, profile_trace, read_device_clock
 from localdiffusion_tpu_torch.utils.params_io import save_params_npz
 from localdiffusion_tpu_torch.utils.precision import full_float32
 
@@ -537,6 +561,7 @@ GATED_CHECK_PER_CLASS, GATED_FORCED_T = 4, 50
 # per-score bar (7.4e-4 to 3.7e-3 from the CPU's f32 scores in a CPU
 # emulation of TF32's rounding, `gate_tf32_emulation.py`).
 SEG_WRN_BATCH, SEG_SEED, SEG_PROFILE_STEPS = 4, 7, 5
+MRI_PROFILE_STEPS = 50  # the 256px profiled chain: ancestral T=50 of the T=250 weights
 SEG_LOGIT_REL, SEG_BAND, SEG_WRN_F32_REL = 1e-4, 1e-3, 1e-4
 WRN_BANK_BRAINS, WRN_BANK_SHAPE = 200, (20_480, 1_536)
 SEGENC_BANK_BRAINS, SEGENC_BANK_SHAPE = 50, (20_480, 768)
@@ -1778,7 +1803,21 @@ def mri256() -> dict:
             raise RuntimeError(f"the 256px UNet on the card disagrees with the CPU's ({dtype})")
         del card, cpu
 
-    prof = profile_chain(pipe, lr, mask, "256px", top=16)
+    # the profiled chain at a fifth of the depth (ancestral T=50, the same
+    # weights and UNet calls a step): summarising the T=250 chain's 245,000
+    # kernels took ~80 s of host time
+    cut = cfg.replace(diffusion=dataclasses.replace(cfg.diffusion, timesteps=MRI_PROFILE_STEPS,
+                                                    sampling_timesteps=None))
+    gd_cut = build_gd(cut, device="cuda")
+    gd_cut.model.load_state_dict(gd.model.state_dict())
+    prof = profile_chain(LocalDiffusionPipeline(cut, gd_cut), lr, mask,
+                         f"256px (T={MRI_PROFILE_STEPS} of the T={gd.num_timesteps} chain's weights)",
+                         top=16)
+    del gd_cut
+    prof["busy_ms"] *= gd.num_timesteps / MRI_PROFILE_STEPS
+    log(f"256px chain device time: {prof['busy_ms']:.1f}ms of kernels for the "
+        f"T={gd.num_timesteps} chain (T={MRI_PROFILE_STEPS} profiled, x"
+        f"{gd.num_timesteps // MRI_PROFILE_STEPS})")
     return dict(attn=attn, linatt=linatt, rb=rb, gn=gn, counts=counts, perf=perf, **prof)
 
 
@@ -3746,6 +3785,7 @@ SHIPPED_DENOISER = RESULTS / "mri_synth256_ema.npz"
 # branched; all ones, plain; no mask, the seg detector decides), each kind
 # sent together after the last kind's answers, so each forms one batch
 SERVE_KINDS, SERVE_PER_KIND, SERVE_WAIT_MS = ("branched", "plain", "detector"), 4, 1000
+CONFIG_JSON = STAGE_A_DIR.parent / "config" / "mri256_bf16.json"
 SERVE_CLI_TIMEOUT_S = 300
 # the sampler's API: `sample` against the direct sampler calls on
 # `mri256_config()` at full width with T cut to 25 for time (its dispatch is
@@ -3883,8 +3923,13 @@ def serve_phase() -> dict:
 
     t_phase = time.perf_counter()
     perf = _serve_cli(SHIPPED_DENOISER)
+    # the in-process server reads its configuration from a .json dump
+    CONFIG_JSON.parent.mkdir(parents=True, exist_ok=True)
+    mri256_bf16_config().save_json(str(CONFIG_JSON))
+    if load_config(str(CONFIG_JSON)) != mri256_bf16_config():
+        raise RuntimeError(f"{CONFIG_JSON} does not load back as mri256_bf16_config()")
     args = serve_script.parse_args([
-        "--config", "mri256_bf16", "--params-npz", str(SHIPPED_DENOISER), "--port", "0",
+        "--config", str(CONFIG_JSON), "--params-npz", str(SHIPPED_DENOISER), "--port", "0",
         "--batch-size", str(MRI_SERVE_BATCH), "--max-wait-ms", str(SERVE_WAIT_MS)])
     t0 = time.perf_counter()
     (httpd, srv), said = _echoed(serve_script.build_server, args)
@@ -3949,11 +3994,15 @@ def serve_phase() -> dict:
         raise RuntimeError(f"serve: branched flags {flags}")
     check_counts(counts, MRI_PER_CALL, calls * len(dispatches), "serve")
 
-    # each dispatch again, outside the count: the same pred bit for bit
+    # each dispatch again, outside the count, through a pipeline built from
+    # the builder: the same pred bit for bit
+    builder = build_pipeline(mri256_bf16_config(), str(SHIPPED_DENOISER), device="cuda",
+                             verbose=False)
     for d_lr, kw, res in dispatches:
-        again = real(d_lr, **kw)
+        again = builder.translate(d_lr, **kw)
         if not np.array_equal(again["pred"], res["pred"]):
-            raise RuntimeError("serve: a dispatch's pred differs from pipe.translate's")
+            raise RuntimeError("serve: a dispatch's pred differs from the builder pipeline's")
+    del builder
     for kind, i, _, out in answers:
         rows = [(res, j) for d_lr, _, res in dispatches for j in range(len(d_lr))
                 if np.array_equal(d_lr[j], lr[i])]
@@ -3971,9 +4020,10 @@ def serve_phase() -> dict:
         f"{stats['batches']} batches (plain {stats['plain_dispatches']}, branched "
         f"{stats['branched_dispatches']}, merged {stats['merged_dispatches']}); latency median "
         f"{perf['latency_median_s'] * 1e3:.1f}ms max {perf['latency_max_s'] * 1e3:.1f}ms; the "
-        f"detector's flags {flags['detector']}; /healthz ok, 3 channels 400; every pred bit for "
-        f"bit its batch's pipe.translate; launches {counts} ({len(dispatches)} chains x {calls} "
-        f"calls)")
+        f"detector's flags {flags['detector']}; /healthz ok, 3 channels 400; configuration "
+        f"from {CONFIG_JSON.relative_to(ROOT)} (equal to mri256_bf16_config()); every pred bit "
+        f"for bit the builder pipeline's translate of its padded batch; launches {counts} "
+        f"({len(dispatches)} chains x {calls} calls)")
     return dict(counts=counts, perf=perf, checks={"serve_bit_equal": True})
 
 
@@ -4315,6 +4365,10 @@ BF16_IMAGE, BF16_PATCH, BF16_OVERLAP = 384, 256, 128
 # ranks on one device), one 256px bf16 batch step of the global batch of 8,
 # replicated then FSDP, against the one-process step at the training bars
 DIST_WORLD, DIST_TIMEOUT_S = 2, 300
+# mesh serving: the two ranks as (data, patch) meshes, one batch of requests
+# a mesh, and the bar on the served images against one process's (a rank's
+# rows run at another batch size)
+MESH_SERVE_MESHES, MESH_SERVE_REL, MESH_SERVE_SEED = ((2, 1), (1, 2)), 1e-2, 3
 STREAM_SHARDS, STREAM_ROWS, STREAM_BATCH = 3, 16, 8
 FEATURE_REFITS, FEATURE_NORMALS, FEATURE_TESTS = 2, 16, 8
 
@@ -4680,22 +4734,6 @@ def distributed_phase() -> dict:
     return dict(counts=counts, perf=perf, checks=checks)
 
 
-# `device_prefetch` of four 64 x 256 x 256 float32 batches under `profile_trace`
-STREAM_TRACE = """
-import sys
-import numpy as np
-import torch
-from localdiffusion_tpu_torch.data.stream import device_prefetch
-from localdiffusion_tpu_torch.utils.logging import profile_trace
-big = [(np.random.default_rng(i).standard_normal((64, 256, 256, 1)).astype(np.float32),)
-       for i in range(4)]
-with profile_trace(sys.argv[1]):
-    for (x,) in device_prefetch(iter(big), size=2, device="cuda"):
-        (x * 2.0).sum().item()
-    torch.cuda.synchronize()
-"""
-
-
 def stream_phase() -> dict:
     """`StreamLoader` over .npy shards through `device_prefetch`: the device
     batches bit for bit the host's, an epoch step fed through the prefetch
@@ -4751,14 +4789,15 @@ def stream_phase() -> dict:
         raise RuntimeError("the epoch step fed through device_prefetch took another loss")
 
     # the copies run on the side stream: the trace's host-to-device copies are
-    # on another stream than the consumer's kernels.  Traced in a fresh
-    # process: as a process ages the card's timestamps drift from the host
-    # clock and the profiler drops device activity outside a short session's
-    # window (NVIDIA H100 80GB HBM3, 700 W: none kept from ~30 s of age on,
-    # all of it with 0.5 s of host time on either side; see profile_trace)
+    # on another stream than the consumer's kernels (`device_prefetch` of four
+    # 64 x 256 x 256 float32 batches, traced in this aged process)
     trace_dir = out_dir / "trace"
-    subprocess.run([sys.executable, "-c", STREAM_TRACE, str(trace_dir)], cwd=ROOT, check=True,
-                   timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    big = [(np.random.default_rng(i).standard_normal((64, 256, 256, 1)).astype(np.float32),)
+           for i in range(4)]
+    with profile_trace(str(trace_dir)):
+        for (x,) in device_prefetch(iter(big), size=2, device="cuda"):
+            (x * 2.0).sum().item()
+        torch.cuda.synchronize()
     events = json.loads((trace_dir / "trace.json").read_text())["traceEvents"]
     copies = {e["args"].get("stream") for e in events
               if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")}
@@ -4874,6 +4913,247 @@ def native_phase() -> dict:
                                                    if not k.endswith("_s")}))
 
 
+def _mesh_serve(pipe) -> tuple:
+    """The server of `pipe` on the first rank (or in one process): one batch
+    of MRI_SERVE_BATCH tumour brains without masks; (results, served s).
+    On another rank of a mesh: its follower loop."""
+    _, lr, _ = test_arrays(pipe.config, MRI_SERVE_BATCH)
+    srv = InferenceServer(pipe, batch_size=MRI_SERVE_BATCH, max_wait_ms=SERVE_WAIT_MS,
+                          base_seed=MESH_SERVE_SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if getattr(pipe, "mesh", None) is not None and torch.distributed.get_rank() != 0:
+        followed = srv.follow()
+        torch.cuda.synchronize()
+        return dict(followed=followed), time.perf_counter() - t0
+    srv.start()
+    try:
+        outs = [f.result(timeout=DIST_TIMEOUT_S) for f in [srv.submit(x) for x in lr]]
+    finally:
+        srv.stop()
+    torch.cuda.synchronize()
+    served = time.perf_counter() - t0
+    stats = srv.snapshot_stats()
+    res = dict(pred=np.stack([o["pred"] for o in outs]), mask=np.stack([o["mask"] for o in outs]),
+               branched=[bool(o["branched"]) for o in outs],
+               dispatches=sum(stats[f"{k}_dispatches"] for k in ("plain", "branched", "merged")))
+    return res, served
+
+
+def _mesh_serve_worker(rank, world, port, q):
+    """A rank of the mesh_serve phase: joins a gloo group on the card, then
+    on each mesh builds the pipeline over it and serves (the first rank) or
+    follows; (rank, result) on `q`."""
+    import traceback
+
+    from localdiffusion_tpu_torch.parallel import multihost
+    from localdiffusion_tpu_torch.parallel.mesh import make_mesh
+
+    try:
+        multihost.init_distributed(f"localhost:{port}", world, rank, device="cuda",
+                                   backend="gloo")
+        multihost.warmup_collectives()
+        out = {"device": str(multihost.rank_device("cuda")),
+               "backend": str(torch.distributed.get_backend())}
+        for data, patch in MESH_SERVE_MESHES:
+            mesh = make_mesh(data=data, patch=patch, device="cuda")
+            t0 = time.perf_counter()
+            pipe = build_pipeline(mri256_bf16_config(), str(SHIPPED_DENOISER), device="cuda",
+                                  verbose=False, mesh=mesh)
+            build_s = time.perf_counter() - t0
+            reset_counts()
+            res, served_s = _mesh_serve(pipe)
+            out[f"{data}x{patch}"] = dict(res, counts=read_counts(), build_s=build_s,
+                                          served_s=served_s)
+            del pipe
+        q.put((rank, out))
+    except BaseException:
+        q.put((rank, "error: " + traceback.format_exc()))
+        raise
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def mesh_serve_phase() -> dict:
+    """`InferenceServer` over a mesh pipeline on two ranks of the one card
+    (gloo), on `mri256_bf16_config()` with the shipped weights, first on a
+    data = 2 x patch = 1 mesh, then data = 1 x patch = 2; each rank held
+    against the one-process server on the same requests."""
+    import multiprocessing
+    import queue as queue_mod
+
+    t_phase = time.perf_counter()
+    perf, checks = {}, {}
+    pipe = build_pipeline(mri256_bf16_config(), str(SHIPPED_DENOISER), device="cuda",
+                          verbose=False)
+    reset_counts()
+    one, served_s = _mesh_serve(pipe)
+    one_counts = read_counts()
+    perf["one_process_served_s"] = served_s
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_mesh_serve_worker, args=(r, DIST_WORLD, port, q))
+             for r in range(DIST_WORLD)]
+    for p in procs:
+        p.start()
+    res = {}
+    try:
+        for _ in range(DIST_WORLD):
+            rank, got = q.get(timeout=DIST_TIMEOUT_S)
+            if isinstance(got, str):
+                raise RuntimeError(f"mesh_serve rank {rank} failed:\n{got}")
+            res[rank] = got
+    except queue_mod.Empty:
+        raise RuntimeError(f"a mesh_serve rank gave no answer in {DIST_TIMEOUT_S}s") from None
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    perf["two_ranks_s"] = time.perf_counter() - t0
+    counts = {k: 0 for k in COUNTERS}
+    lo, hi = min_max_val_for(mri256_bf16_config())
+    for data, patch in MESH_SERVE_MESHES:
+        name = f"{data}x{patch}"
+        got = res[0][name]
+        _check_images(f"mesh_serve {name}", got["pred"], one["pred"].shape, lo, hi)
+        rel = _rel_l2(got["pred"], one["pred"])
+        err = float(np.abs(got["pred"] - one["pred"]).max())
+        masks_equal = bool(np.array_equal(got["mask"], one["mask"]))
+        checks[name] = dict(rel_l2=rel, max_abs_err=err, masks_equal=masks_equal,
+                            branched=got["branched"], followed=res[1][name]["followed"])
+        for r in res:
+            for k, v in res[r][name]["counts"].items():
+                counts[k] += v
+            log(f"mesh_serve {name} rank {r} ({res[r]['device']}, {res[r]['backend']}): built "
+                f"{res[r][name]['build_s']:.2f}s, "
+                + (f"the batch of {MRI_SERVE_BATCH} served {res[r][name]['served_s']:.2f}s"
+                   if r == 0 else
+                   f"followed {res[r][name]['followed']} dispatches in "
+                   f"{res[r][name]['served_s']:.2f}s")
+                + f"; launches {res[r][name]['counts']} (one process {one_counts})")
+            if res[r][name]["counts"] != one_counts:
+                raise RuntimeError(f"mesh_serve {name} rank {r}: launches "
+                                   f"{res[r][name]['counts']}, one process {one_counts}")
+        # each data rank's rows again in this process at the rank's batch
+        # size, with the noise drawn for the whole batch cut to those rows:
+        # what is left of the difference is the batch size's rounding
+        same = []
+        for r in range(data):
+            rows = slice(*row_range(MRI_SERVE_BATCH, r, data))
+            alone = pipe.translate(test_arrays(pipe.config, MRI_SERVE_BATCH)[1][rows],
+                                   noise=RowsNoise(GeneratorNoise(batch_seed(MESH_SERVE_SEED, 0),
+                                                                  "cuda"), MRI_SERVE_BATCH, rows),
+                                   mask=got["mask"][rows])
+            same.append(bool(np.array_equal(alone["pred"], got["pred"][rows])))
+        checks[name]["rows_at_rank_batch_bit_equal"] = same
+        perf[f"{name}_served_s"] = got["served_s"]
+        log(f"mesh_serve {name} (data={data} x patch={patch}, mri256_bf16, shipped denoiser and "
+            f"seg detector, DDIM-50 bf16, {MRI_SERVE_BATCH} requests, Stage A on rank 0): "
+            f"served images vs one process rel L2 {rel:.4g} (<= {MESH_SERVE_REL:g}) max |diff| "
+            f"{err:.4g}; each data rank's rows in one process at the rank's batch size bit for "
+            f"bit {same}; masks bit for bit {masks_equal}; branched {got['branched']} (one "
+            f"process {one['branched']}); served {got['served_s']:.2f}s (one process "
+            f"{served_s:.2f}s)")
+        if (rel > MESH_SERVE_REL or not masks_equal or got["branched"] != one["branched"]
+                or res[1][name]["followed"] != got["dispatches"] or not all(same)):
+            raise RuntimeError(f"mesh_serve {name} disagrees with one process: {checks[name]}")
+    del pipe
+    if any(v < 1 for v in counts.values()):
+        raise RuntimeError(f"a kernel never launched in the mesh_serve phase: {counts}")
+    perf["phase_s"] = time.perf_counter() - t_phase
+    log(f"mesh_serve phase: {perf['phase_s']:.1f}s; launches {counts}")
+    return dict(counts=counts, perf=perf, checks=checks)
+
+
+DRIFTS = []  # (process age s, the card's clock offset s) at each reading
+# the least process age of the aged trace: a run on a fast card waits for it
+AGED_TRACE_AGE_S = 800
+
+
+def process_age_s() -> float:
+    """Seconds since this process started (its start time in /proc)."""
+    with open("/proc/self/stat") as f:
+        start = int(f.read().rsplit(")", 1)[1].split()[19]) / os.sysconf("SC_CLK_TCK")
+    with open("/proc/uptime") as f:
+        return float(f.read().split()[0]) - start
+
+
+def read_drift(after: str) -> None:
+    """The offset of the card's timestamps from the host clock as the
+    profiler maps them (`read_device_clock`: a marker kernel against its
+    launch, in a `profile_trace` session), logged with the process's age."""
+    t0 = time.perf_counter()
+    offset = read_device_clock()
+    age = process_age_s()
+    DRIFTS.append((round(age, 1), offset))
+    log(f"clock offset after {after}: "
+        f"{'none kept' if offset is None else f'{offset * 1e3:.4f}ms'} (a kernel against its "
+        f"launch) at {age:.1f}s of process age, read in {time.perf_counter() - t0:.2f}s")
+
+
+def _traced_block(x) -> float:
+    """4 bf16 products of 8192 x 8192 (cuBLAS) and 4 elementwise passes
+    over x; the host's ms."""
+    t0 = time.perf_counter()
+    for _ in range(4):
+        x @ x
+    for _ in range(4):
+        x.mul_(1.0)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def aged_trace_phase() -> dict:
+    """`profile_trace` of a block of a few milliseconds (`_traced_block`)
+    in this aged process: every kernel the block launched must be in the
+    trace.  The same block under a bare `torch.profiler` session
+    first, for comparison (not a check)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from localdiffusion_tpu_torch.utils.logging import lost_kernels
+
+    t_phase = time.perf_counter()
+    wait = AGED_TRACE_AGE_S - process_age_s()
+    if wait > 0:
+        log(f"aged trace: waiting {wait:.1f}s for {AGED_TRACE_AGE_S}s of process age")
+        time.sleep(wait)
+    x = torch.randn(8192, 8192, device="cuda", dtype=torch.bfloat16)
+    _traced_block(x)
+    out = PARALLEL_DIR / "aged_trace"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as bare:
+        _traced_block(x)
+    bare.export_chrome_trace(str(out / "bare.json"))
+    bare_lost = lost_kernels(json.loads((out / "bare.json").read_text())["traceEvents"])
+    age = process_age_s()
+    with profile_trace(str(out)) as prof:
+        block_ms = _traced_block(x)
+    events = json.loads((out / "trace.json").read_text())["traceEvents"]
+    gaps = launch_gaps_us(events)
+    checks = dict(age_s=age, block_ms=block_ms, launched=prof.launched_kernels,
+                  lost=prof.lost_kernels, session_s=prof.session_s,
+                  offset_ms=float(np.median(gaps)) / 1e3 if gaps else None,
+                  bare_lost_of_launched=bare_lost, offsets=DRIFTS)
+    log(f"aged trace: at {age:.1f}s of process age, profile_trace ({prof.session_s:.2f}s "
+        f"session) of a {block_ms:.2f}ms block (4 bf16 8192^3 products, 4 elementwise passes) "
+        f"lost "
+        f"{prof.lost_kernels} of the {prof.launched_kernels} kernels it launched, their offset "
+        f"from their launches {checks['offset_ms']}ms; a bare torch.profiler session of the "
+        f"same block just before lost {bare_lost[0]} of {bare_lost[1]}; (age s, offset s) at "
+        f"each reading {DRIFTS}")
+    if not prof.launched_kernels or prof.lost_kernels:
+        raise RuntimeError(f"profile_trace lost {prof.lost_kernels} of "
+                           f"{prof.launched_kernels} kernels of its block at {age:.1f}s of age")
+    return dict(counts={k: 0 for k in COUNTERS}, perf=dict(phase_s=time.perf_counter() - t_phase),
+                checks=checks)
+
+
 def _row(t: dict, warm: bool = False) -> dict:
     """A GN part's numbers under the kernels line's keys (and the replayed
     time of a tiled pass, `warm_ms`)."""
@@ -4896,6 +5176,7 @@ def main() -> None:
     with tf32_on_at_entry("shipped"):
         shipped = shipped256()
     training = training256()
+    read_drift("training")
     with tf32_on_at_entry("datasets"):
         datasets = datasets_phase()
     self_cond = self_cond_phase()
@@ -4913,13 +5194,16 @@ def main() -> None:
     reference = reference_ckpt_phase()
     features = features_phase()
     native_res = native_phase()
+    mesh_serve = mesh_serve_phase()
+    aged = aged_trace_phase()
 
     phases = {"flagship": flag, "256px": mri, "stage_a": stage_a, "gated": gated,
               "seg_wrn": seg_wrn, "stem": stem, "shipped": shipped, "training": training,
               "datasets": datasets, "self_cond": self_cond, "serve": serve,
               "sampler_api": sampler_api, "mnist_trained": mnist, "aux": aux, "patch": patch,
               "distributed": distributed, "stream": stream, "reference_ckpt": reference,
-              "features": features, "native": native_res}
+              "features": features, "native": native_res, "mesh_serve": mesh_serve,
+              "aged_trace": aged}
     launches = {name: {label: ph["counts"][name] for label, ph in phases.items()}
                 for name in COUNTERS}
     total = {name: sum(v.values()) for name, v in launches.items()}
@@ -5022,7 +5306,7 @@ def main() -> None:
         + "".join(f"; {label} checks {json.dumps(phases[label]['checks'])}"
                   for label in ("serve", "sampler_api", "mnist_trained", "aux", "patch",
                                 "distributed", "stream", "reference_ckpt", "features",
-                                "native")))
+                                "native", "mesh_serve", "aged_trace")))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,10 +1,11 @@
 """Immutable configuration for the PyTorch port.
 
-A copy of the dataclasses the Stage-B serving path reads from
-`localdiffusion_tpu/config.py` (ModelConfig, DiffusionConfig, SamplerConfig,
-OODConfig, DataConfig, TrainConfig, Config, min_max_val_for).  The port keeps
-its own copy because it imports nothing of the JAX package, and that module
-imports `yaml`, which a CUDA host need not have.  The flagship configuration
+A copy of `localdiffusion_tpu/config.py` (ModelConfig, DiffusionConfig,
+SamplerConfig, OODConfig, DataConfig, TrainConfig, MeshConfig, Config with
+`to_dict`, `from_dict` and its YAML I/O, `reference_dict_to_config`,
+`load_reference_yaml`, min_max_val_for).  The port keeps its own copy
+because it imports nothing of the JAX package, and that module imports
+`yaml` at its top, which a CUDA host need not have.  The flagship configuration
 (`configs/mnist.yaml`) is built in Python by `flagship_config()`, the 256px
 MRI one (`configs/mri_synthetic_256.yaml`) by `mri256_config()`, its
 classifier-gated variant (`configs/mri_synthetic_256_gated.yaml`) by
@@ -17,13 +18,20 @@ test files (`configs/mnist_train.yaml`, `mnist_8to5.yaml`,
 `mnist_gated.yaml`, `mnist_usegt.yaml`) and the MVTec-style pair
 (`configs/mvtec_synthetic.yaml`, `mvtec_denoise.yaml`) by their
 `*_config()` builders;
-`Config.from_dict` takes the parsed contents of such a file, and
-`config_by_name` a builder's name (`CONFIGS`).
+`load_config` takes a builder's name (`CONFIGS`), a `.json` path (a
+`Config.to_dict` dump, or the reference's flat key set through
+`reference_dict_to_config`) or a `.yaml`/`.yml` path of either form, the
+counterpart of the JAX `scripts/train.py::load_config`.  YAML is read
+through PyYAML, imported only where a YAML file is read or written: the
+card's machine has no PyYAML, and a `.json` dump (`Config.save_json`) is
+the form it reads.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from dataclasses import dataclass, field
 from typing import Any, Dict, Mapping, Optional, Tuple
 
@@ -294,6 +302,27 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The ('data', 'patch') mesh over ranks (`parallel.mesh.make_mesh`):
+    data - the batch split over ranks (-1: every rank not on 'patch');
+    patch - the branch pair and the patches split over ranks."""
+
+    data_axis: int = -1
+    patch_axis: int = 1
+
+
+def _yaml():
+    """PyYAML, imported where a YAML file is read or written."""
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError("reading or writing a YAML configuration needs PyYAML, which is not "
+                          "installed: pass a builder name or a .json dump (Config.save_json) "
+                          "instead") from e
+    return yaml
+
+
+@dataclass(frozen=True)
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     diffusion: DiffusionConfig = field(default_factory=DiffusionConfig)
@@ -301,9 +330,21 @@ class Config:
     ood: OODConfig = field(default_factory=OODConfig)
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def save_json(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.to_dict(), f, indent=1)
+
+    def save_yaml(self, path: str) -> None:
+        with open(path, "w") as f:
+            _yaml().safe_dump(self.to_dict(), f, sort_keys=False)
 
     @staticmethod
     def from_dict(d: Mapping[str, Any]) -> "Config":
@@ -322,7 +363,100 @@ class Config:
             ood=build(OODConfig, d.get("ood")),
             data=build(DataConfig, d.get("data")),
             train=build(TrainConfig, d.get("train")),
+            mesh=build(MeshConfig, d.get("mesh")),
         )
+
+    @staticmethod
+    def load_yaml(path: str) -> "Config":
+        with open(path) as f:
+            return Config.from_dict(_yaml().safe_load(f))
+
+
+# the reference entry scripts' per-dataset UNet presets
+_DATASET_MODEL_PRESETS = {
+    "mnist": dict(dim_mults=(1, 2, 4), full_attn=(False, False, True), channels=1,
+                  cond_encoder_depth="shallow"),
+    "mri": dict(dim_mults=(1, 2, 4, 8), full_attn=(False, False, False, True), channels=1,
+                cond_encoder_depth="deep"),
+    "mvtec": dict(dim_mults=(1, 2, 4, 8), full_attn=(False, False, False, True), channels=3,
+                  cond_encoder_depth="deep"),
+    "mvtecSR": dict(dim_mults=(1, 2, 4), full_attn=(False, False, True), channels=3,
+                    cond_encoder_depth="shallow"),
+}
+
+
+def load_reference_yaml(path: str) -> Config:
+    """A reference-format flat YAML (its config.yaml / config_train.yaml)
+    as a Config (`reference_dict_to_config`)."""
+    with open(path) as f:
+        return reference_dict_to_config(_yaml().safe_load(f))
+
+
+def reference_dict_to_config(raw: Mapping[str, Any]) -> Config:
+    """The reference's flat key set mapped onto the structured Config, with
+    the per-dataset presets its entry scripts hard-code."""
+    g = raw.get
+    data_name = g("data", "mnist")
+    preset = dict(_DATASET_MODEL_PRESETS.get(data_name, {}))
+    model = ModelConfig(dim=g("dim", 32), init_dim=g("dim", 32), **preset)
+
+    ddim = g("ddim_timestep", None)
+    if ddim in (False, 0):
+        ddim = None
+    timesteps = g("timestep", 250)
+    if ddim is not None and ddim >= timesteps:
+        ddim = None  # as many steps as trained: ancestral sampling
+    diffusion = DiffusionConfig(
+        image_size=g("img_size", 28), timesteps=timesteps, sampling_timesteps=ddim,
+        objective=g("pred_objective", "pred_x0"), beta_schedule=g("scheduler", "sigmoid"),
+        auto_normalize=False,
+    )
+    sampler = SamplerConfig(
+        branch_out=g("branch_out", True),
+        start_intermediate=g("start_intermediate", True),
+        start_timestep=g("start_timestep", 2),
+        use_gt=g("use_gt", False),
+        use_gt_timestep=g("use_gt_timestep", 100),
+        mask_cond=g("mask_cond", False),
+        mask_x=g("mask_x", True),
+        mask_x_policy="minval" if "mri" in str(data_name) else "cond",
+        cond_in_floor=0.5 if data_name == "mnist" else 0.95,
+        classifier=g("classifier", False),
+        classifier_obj=g("classifier_obj", "tile"),
+        classifier_polarity=g("classifier_polarity", "preserve"),
+        ood_ad=g("ood_AD", True),
+        ood_confidence=g("ood_confidence", False),
+        return_all_timesteps=g("return_all_timesteps", False),
+    )
+    ood_block = g("ood_detector", {}) or {}
+    ood = OODConfig(
+        detector="seg" if ood_block.get("seg", False) else "patchcore",
+        input_size=84 if data_name == "mnist" else 224,
+        seg_model_path=ood_block.get("seg_model"),
+    )
+    data = DataConfig(
+        name=data_name,
+        mnist_path=g("mnist_path", "./MNIST/raw/train-images-idx3-ubyte"),
+        mnist_labels_path=g("mnist_labels_path", "./MNIST/raw/train-labels-idx1-ubyte"),
+        mri_files=g("mri_files", ""),
+        mvtec_path=g("mvtec_path", ""),
+        mnist_cls=g("mnist_cls", "8to3"),
+        anomaly_name=g("anomaly_name", 3),
+        augmentations=g("augmentations", False),
+        translate_zero=g("translate_zero", True),
+        mean_t1=g("mean_t1", 610.7180906353575),
+        std_t1=g("std_t1", 1018.7631901605115),
+        mean_flair=g("mean_flair", 221.69656048399028),
+        std_flair=g("std_flair", 386.31912016662903),
+        mean_t2=g("mean_t2", 426.0168),
+        std_t2=g("std_t2", 771.2276),
+        mean_mnist=g("mean_mnist", 33.31842),
+        std_mnist=g("std_mnist", 78.5679),
+    )
+    train = TrainConfig(project_name=str(g("ProjectName", "project")).strip("/"),
+                        results_dir=g("Results", "./results"))
+    return Config(model=model, diffusion=diffusion, sampler=sampler, ood=ood, data=data,
+                  train=train)
 
 
 def flagship_config() -> Config:
@@ -602,13 +736,29 @@ CONFIGS = {
 }
 
 
-def config_by_name(name: str) -> Config:
-    """The configuration a builder name in `CONFIGS` gives; raises on any
-    other name (there is no YAML on the card's machine)."""
-    if name not in CONFIGS:
-        raise ValueError(f"unknown configuration {name!r}: one of {sorted(CONFIGS)} (the port "
-                         "builds its configurations in Python, without YAML)")
-    return CONFIGS[name]()
+# what a command line's `--config` takes (`load_config`)
+CONFIG_HELP = ("a builder name of config.CONFIGS, or a .json or .yaml configuration file (a "
+               "Config.to_dict dump or the reference's flat keys)")
+
+
+def load_config(spec: str) -> Config:
+    """What a command line's `--config` names: a builder of `CONFIGS`, a
+    `.json` file, or a `.yaml`/`.yml` file (PyYAML, imported here only);
+    a file holding a `to_dict` dump (a 'model' section) goes through
+    `from_dict`, the reference's flat key set through
+    `reference_dict_to_config`."""
+    if spec in CONFIGS:
+        return CONFIGS[spec]()
+    ext = os.path.splitext(spec)[1].lower()
+    if ext not in (".json", ".yaml", ".yml"):
+        raise ValueError(f"unknown configuration {spec!r}: a builder name ({sorted(CONFIGS)}), "
+                         "a .json path or a .yaml path")
+    read = json.load if ext == ".json" else _yaml().safe_load
+    with open(spec) as f:
+        raw = read(f)
+    if isinstance(raw.get("model"), dict):
+        return Config.from_dict(raw)
+    return reference_dict_to_config(raw)
 
 
 def min_max_val_for(config: Config) -> Tuple[float, float]:

@@ -1,8 +1,13 @@
-"""The data readers and synthetic data (numpy; PIL where an image file is
-decoded): the exports of `localdiffusion_tpu/data/__init__.py` but the
-streaming loader (`stream`), which is not ported."""
+"""The data readers, the synthetic data and the streaming loader (numpy;
+PIL where an image file is decoded): the exports of
+`localdiffusion_tpu/data/__init__.py`."""
 
 from localdiffusion_tpu_torch.data.loader import ArrayLoader, cycle  # noqa: F401
+from localdiffusion_tpu_torch.data.stream import (  # noqa: F401
+    StreamLoader,
+    device_prefetch,
+    npy_shard,
+)
 from localdiffusion_tpu_torch.data.mnist import (  # noqa: F401
     MNISTDataset,
     degrade,

@@ -39,6 +39,15 @@ the plain step and one for the retry at every post-fusion step).  With
 draw from a generator seeded by `retry_seed(seed)`; with a noise source
 given and no `retry_noise`, a retry raises.  An ungated chain builds no
 retry source.
+
+Over a mesh (`pipeline.LocalDiffusionPipeline(mesh=...)`) a rank runs a
+chain on its 'data' rows, with noise sources that draw for the whole batch
+and keep those rows (`parallel.multihost.RowsNoise`), and the branched
+samplers take a `branch_split` (`parallel.mesh.BranchSplit`, the JAX
+samplers' `branch_sharding`): the rank steps its share of the flat [2B]
+pair over 'patch', and the pair is gathered where the chain needs both
+halves, at the fusion and at each gated retry.  The fused chain after it
+runs replicated over 'patch'.
 """
 
 from __future__ import annotations
@@ -103,7 +112,7 @@ def _no_retry_noise(shape) -> torch.Tensor:
                        "given noise source (or noise as an int seed)")
 
 
-def _retry_source(noise, retry_noise, device):
+def retry_source(noise, retry_noise, device):
     """The retries' noise source (see the module docstring)."""
     if retry_noise is not None:
         return as_noise(retry_noise, device)
@@ -172,18 +181,46 @@ def _tb(t: int, n: int, device):
     return torch.full((n,), t, dtype=torch.long, device=device)
 
 
-def _branch_starts(gd, scfg: SamplerConfig, m, cond_out, feat_pair, lo: float, hi: float):
-    """(x2, tb2[, force_mask_x]) → both branches' x_start from one [2B] UNet
-    call (OOD half first), the mask_x policy on the OOD half (with mask_x
-    set, or forced as the gate's retry forces it), clipped to [lo, hi]."""
+class _Pair:
+    """The rows [lo, hi) of the flat [2B] branch pair this rank steps, and
+    the pair gathered back (`parallel.mesh.BranchSplit`; the whole pair, no
+    gather, without one)."""
+
+    def __init__(self, b: int, split=None):
+        self.n, self.split = 2 * b, split
+        self.lo, self.hi = (0, 2 * b) if split is None else split.bounds(2 * b)
+        self.rows = self.hi - self.lo
+
+    def part(self, x2):
+        return x2 if self.split is None else x2[self.lo:self.hi]
+
+    def gather(self, *parts):
+        """Each part [rows, ..., C] of the pair whole, [2B, ..., C] (one
+        gather for all, concatenated on the channels)."""
+        if self.split is None:
+            return parts
+        whole = self.split.gather(torch.cat(parts, -1), self.n)
+        return torch.split(whole, [p.shape[-1] for p in parts], -1)
+
+    def any(self, flag: bool) -> bool:
+        return flag if self.split is None else self.split.any(flag)
+
+
+def _branch_starts(gd, scfg: SamplerConfig, m, cond_out, feat_pair, lo: float, hi: float,
+                   pair: _Pair):
+    """(x2, tb2[, force_mask_x]) → the branches' x_start from one UNet call
+    on `pair`'s rows of the flat [2B] pair (OOD half first), the mask_x
+    policy on the OOD half (with mask_x set, or forced as the gate's retry
+    forces it), clipped to [lo, hi]."""
     b, device = m.shape[0], m.device
-    out_half = torch.cat([torch.ones(b, 1, 1, 1, dtype=torch.bool, device=device),
-                          torch.zeros(b, 1, 1, 1, dtype=torch.bool, device=device)])
+    out_half = pair.part(torch.cat([torch.ones(b, 1, 1, 1, dtype=torch.bool, device=device),
+                                    torch.zeros(b, 1, 1, 1, dtype=torch.bool, device=device)]))
+    feat_pair = pair.part(feat_pair)
     if scfg.mask_x_policy == "cond":
-        mask_x_repl2 = torch.cat([cond_out, torch.zeros_like(cond_out)])
+        mask_x_repl2 = pair.part(torch.cat([cond_out, torch.zeros_like(cond_out)]))
     else:
-        mask_x_mult2 = torch.cat([m, torch.ones_like(m)])
-        mask_x_zero2 = torch.cat([m == 0.0, torch.zeros_like(m, dtype=torch.bool)])
+        mask_x_mult2 = pair.part(torch.cat([m, torch.ones_like(m)]))
+        mask_x_zero2 = pair.part(torch.cat([m == 0.0, torch.zeros_like(m, dtype=torch.bool)]))
 
     def starts(x2, tb2, force_mask_x=False):
         out2 = gd.apply_model(x2, None, tb2, cond_feat=feat_pair)
@@ -236,7 +273,7 @@ def ddpm_sample_branched(gd, cond, mask, scfg: SamplerConfig,
                          min_max_val: Tuple[float, float], noise=None, gt=None,
                          classifier_fn=None, return_all: bool = False,
                          return_fusion_time: bool = False, retry_noise=None, clock=None,
-                         return_debug: bool = False):
+                         return_debug: bool = False, branch_split=None):
     """Branched local-diffusion DDPM with fusion at `start_timestep`.
 
     cond: [B, H, W, C]; mask: [B, H, W, 1].  Returns the final image
@@ -264,7 +301,9 @@ def ddpm_sample_branched(gd, cond, mask, scfg: SamplerConfig,
     `retry_noise` draws the retries' noise (see the module docstring).
     `clock` (an `ood.patchcore.StageClock`) is marked at phase B's start
     ('chain') and after each post-fusion step's plain step ('plain'), gate
-    ('gate') and retry with the selection ('retry').
+    ('gate') and retry with the selection ('retry').  `branch_split` (see
+    the module docstring) steps this rank's share of the pair, gathers it
+    at the fusion and at each retry, and reads the latch over every rank.
     """
     scfg = reconcile(scfg)
     sched = gd.schedule
@@ -287,23 +326,26 @@ def ddpm_sample_branched(gd, cond, mask, scfg: SamplerConfig,
         t_top = int(scfg.use_gt_timestep)
         img0 = dm.q_sample(sched, gt, _tb(t_top, b, device), img0)
 
-    # both branches as ONE flat [2B] batch: OOD half first, then IND
-    x2 = torch.cat([img0, img0])
-    branch_starts2 = _branch_starts(gd, scfg, m, cond_out, feat_pair, lo, hi)
+    # both branches as ONE flat [2B] batch: OOD half first, then IND (this
+    # rank's rows of it under a branch split)
+    pair = _Pair(b, branch_split)
+    x2 = pair.part(torch.cat([img0, img0]))
+    branch_starts2 = _branch_starts(gd, scfg, m, cond_out, feat_pair, lo, hi, pair)
 
     def branched_step(x2, t):
-        tb2 = _tb(t, 2 * b, device)
+        tb2 = _tb(t, pair.rows, device)
         xs2 = branch_starts2(x2, tb2)
         mean2, _, logvar2 = dm.q_posterior(sched, xs2, x2, tb2)
         n = _step_noise(noise, shape, t)  # shared across the branches
-        return mean2 + torch.exp(0.5 * logvar2) * torch.cat([n, n])
+        return mean2 + torch.exp(0.5 * logvar2) * pair.part(torch.cat([n, n]))
 
     debug = {}
 
     def fuse_step(x2, t, source, force_mask_x=False, capture_debug=False):
-        """The fused step at t from the branch pair: (image, the masked
-        pair).  A retry passes the saved masked pair with mask_x forced."""
-        xs2 = branch_starts2(x2, _tb(t, 2 * b, device), force_mask_x)
+        """The fused step at t from (this rank's rows of) the branch pair:
+        (image, the whole masked pair).  A retry passes the saved masked
+        pair with mask_x forced."""
+        xs2, x2 = pair.gather(branch_starts2(x2, _tb(t, pair.rows, device), force_mask_x), x2)
         xs_out, xs_in = xs2[:b], xs2[b:]
         x_start = (xs_in * (1.0 - m) + xs_out).clamp(lo, hi)  # xs_out is mask_x-masked
         x_out, x_in = x2[:b] * m, x2[b:] * (1.0 - m)
@@ -328,7 +370,7 @@ def ddpm_sample_branched(gd, cond, mask, scfg: SamplerConfig,
 
     def record_pair(x2):
         if return_all:
-            frames.append(x2.reshape(2, b, *x2.shape[1:]))
+            frames.append(pair.gather(x2)[0].reshape(2, b, *x2.shape[1:]))
 
     def record_fused(x):
         if return_all:
@@ -352,6 +394,7 @@ def ddpm_sample_branched(gd, cond, mask, scfg: SamplerConfig,
         for t in range(t_top - 1, -1, -1):
             x2 = branched_step(x2, t)
             record_pair(x2)
+        x2 = pair.gather(x2)[0]
         return finish(x2.reshape(2, b, *x2.shape[1:]), fused=False)
 
     # ---- phase A: branched steps t ∈ [T-1 .. s+1] ----
@@ -372,7 +415,7 @@ def ddpm_sample_branched(gd, cond, mask, scfg: SamplerConfig,
         accepted = torch.zeros(b, dtype=torch.bool, device=device)
         rejects = torch.zeros(b, dtype=torch.int32, device=device)
         budget = int(scfg.max_classifier_retries)
-        retry = _retry_source(noise_arg, retry_noise, device)
+        retry = retry_source(noise_arg, retry_noise, device)
     for t in range(t_fuse - 1, -1, -1):
         img_plain, xs_plain = plain_step(img, t)
         if clock is not None:
@@ -388,7 +431,7 @@ def ddpm_sample_branched(gd, cond, mask, scfg: SamplerConfig,
             accept_now = accept_now | (rejects >= budget)
         if clock is not None:
             clock.mark("gate")
-        img_retry, _ = fuse_step(x_branchout2, t, retry, force_mask_x=True)
+        img_retry, _ = fuse_step(pair.part(x_branchout2), t, retry, force_mask_x=True)
         use_plain = accepted | accept_now
         img = torch.where(use_plain[:, None, None, None], img_plain, img_retry)
         accept_t = torch.where(accepted | ~accept_now, accept_t, torch.full_like(accept_t, t))
@@ -397,8 +440,9 @@ def ddpm_sample_branched(gd, cond, mask, scfg: SamplerConfig,
         if clock is not None:
             clock.mark("retry")
         record_fused(img)
-        # the latch: once every sample is accepted the gate cannot fire again
-        gating = t > 0 and not bool(accepted.all())
+        # the latch: once every sample is accepted the gate cannot fire
+        # again (over a mesh, every sample of every rank)
+        gating = t > 0 and pair.any(not bool(accepted.all()))
     return finish(img)
 
 
@@ -465,7 +509,7 @@ def ddim_sample_plain(gd, cond, min_max_val: Tuple[float, float], noise=None,
 @torch.no_grad()
 def ddim_sample_branched(gd, cond, mask, scfg: SamplerConfig,
                          min_max_val: Tuple[float, float], noise=None,
-                         return_all: bool = False):
+                         return_all: bool = False, branch_split=None):
     """Branched DDIM with mid-chain fusion.
 
     The OOD and IND branches step as one [2B] batch (OOD half first, the
@@ -483,7 +527,8 @@ def ddim_sample_branched(gd, cond, mask, scfg: SamplerConfig,
     initial noise, the branch pair while branched, the fused image
     duplicated on the pair axis after fusion.  There is no classifier gate
     here, as in the reference: a configuration with `sampler.classifier`
-    runs ungated.
+    runs ungated.  `branch_split` (see the module docstring) steps this
+    rank's share of the pair and gathers it at the fusion pair.
     """
     scfg = reconcile(scfg)
     sched = gd.schedule
@@ -503,8 +548,9 @@ def ddim_sample_branched(gd, cond, mask, scfg: SamplerConfig,
     feat_full = gd.encode_cond(cond)
 
     img0 = noise(shape)
-    x2 = torch.cat([img0, img0])
-    starts2 = _branch_starts(gd, scfg, m, cond_out, feat_pair, lo, hi)
+    pair = _Pair(b, branch_split)
+    x2 = pair.part(torch.cat([img0, img0]))
+    starts2 = _branch_starts(gd, scfg, m, cond_out, feat_pair, lo, hi, pair)
 
     def branch_preds2(x2, tb2):
         """Both branches' clipped x_start and the pred_noise rederived from
@@ -523,25 +569,25 @@ def ddim_sample_branched(gd, cond, mask, scfg: SamplerConfig,
         return _maybe_unnorm(gd, result)
 
     def branched_step(x2, t, t_next):
-        xs2, pn2 = branch_preds2(x2, _tb(t, 2 * b, device))
+        xs2, pn2 = branch_preds2(x2, _tb(t, pair.rows, device))
         sa, c, sigma = _ddim_coeffs(sched, t, t_next, eta)
         n = noise(shape)  # shared across the branches
-        x2 = xs2 if t_next < 0 else xs2 * sa + c * pn2 + sigma * torch.cat([n, n])
+        x2 = xs2 if t_next < 0 else xs2 * sa + c * pn2 + sigma * pair.part(torch.cat([n, n]))
         if return_all:
-            frames.append(as_pair(x2))
+            frames.append(as_pair(pair.gather(x2)[0]))
         return x2
 
     if not scfg.start_intermediate or fuse_idx is None:
         for t, t_next in pairs:
             x2 = branched_step(x2, t, t_next)
-        return finish(as_pair(x2))
+        return finish(as_pair(pair.gather(x2)[0]))
 
     for t, t_next in pairs[:fuse_idx]:
         x2 = branched_step(x2, t, t_next)
 
-    # ---- fusion pair ----
+    # ---- fusion pair: the whole pair gathered ----
     t, t_next = pairs[fuse_idx]
-    xs2, pn2 = branch_preds2(x2, _tb(t, 2 * b, device))
+    xs2, pn2 = pair.gather(*branch_preds2(x2, _tb(t, pair.rows, device)))
     if t_next < 0:
         if return_all:
             frames.append(as_pair(xs2))

@@ -205,10 +205,12 @@ def denoiser_for_taps(cfg: Config, gd: GaussianDiffusion,
 
 
 def build_pipeline(cfg: Config, params_npz: str, calibration_images=None,
-                   calibration_pairs=None, device="cuda", verbose: bool = True):
+                   calibration_pairs=None, device="cuda", verbose: bool = True, mesh=None):
     """The whole pipeline of `cfg` on `device`: the engine (`build_gd`),
     its weights (`load_params`: the npz route only), Stage A's front end
-    (`build_frontend`) and the classifier gate (`build_classifier_gate`).
+    (`build_frontend`) and the classifier gate (`build_classifier_gate`);
+    over `mesh` (`parallel.mesh.make_mesh`) when given, every rank calling
+    this with the same arguments (see `pipeline`).
     A denoiser feature source and a denoiser gate tap the pipeline's own
     denoiser unless `ood.feature_npz` names other weights.  Raises for
     detector='seg' without a trained SegUNet, as the JAX factory does: the
@@ -226,4 +228,4 @@ def build_pipeline(cfg: Config, params_npz: str, calibration_images=None,
                          "ood.seg_model_path")
     gate = build_classifier_gate(cfg, frontend, calibration_pairs=calibration_pairs, gd=tap,
                                  device=device, verbose=verbose)
-    return LocalDiffusionPipeline(cfg, gd, frontend=frontend, classifier_gate=gate)
+    return LocalDiffusionPipeline(cfg, gd, frontend=frontend, classifier_gate=gate, mesh=mesh)

@@ -20,7 +20,8 @@ the torchvision state dict of `--backbone-weights`; at 256px layer2 ⊕
 layer3, 204,800 patches × 1,536 → 20,480 rows), `seg_encoder` (the
 SegUNet of `--seg-npz`, down2 ⊕ down3, 768 channels at 64×64) or
 `denoiser`.  `--seed` also seeds the k-center projection, as the JAX
-script's does.  `--config` takes any builder of `config.CONFIGS`:
+script's does.  `--config` takes any builder of `config.CONFIGS` (or a `.json`/`.yaml`
+file, `config.load_config`):
 `mnist_gated` (the WRN50-2 at an 84px input on 28px digits) reads the idx
 files of `--mnist-path`/`--mnist-labels-path`, `mvtec_synthetic` the
 synthetic textures; `synthetic_texture_denoise` has no bank branch and
@@ -163,8 +164,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--classifier", action="store_true",
                     help="build the classifier gate's bank of mri256_gated_config() and "
                          "ROC-calibrate its threshold")
-    ap.add_argument("--config", choices=sorted(C.CONFIGS), default="mri256",
-                    help="the detector's configuration (default mri256)")
+    ap.add_argument("--config", default="mri256",
+                    help="the detector's configuration (default mri256): " + C.CONFIG_HELP)
     ap.add_argument("--feature-source", choices=["denoiser", "wrn", "seg_encoder"],
                     default=None, help="the taps (default: the configuration's)")
     ap.add_argument("--n-images", type=int, default=None,
@@ -183,7 +184,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda")
     add_data_args(ap)
     args = ap.parse_args(argv)
-    cfg = mri256_gated_config() if args.classifier else C.CONFIGS[args.config]()
+    cfg = mri256_gated_config() if args.classifier else C.load_config(args.config)
     cfg = with_data_paths(cfg, args)
     over = dict(feature_npz=args.feature_npz)
     if args.feature_source:

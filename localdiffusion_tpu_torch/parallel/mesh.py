@@ -10,8 +10,11 @@ Port of `localdiffusion_tpu/parallel/mesh.py` over
 A JAX sharding places each shard of a global array on its device; here
 every rank holds the global array and keeps its share, so a sharding is a
 row selection (`Rows`): for each leading dimension, the mesh axis whose
-coordinate picks the contiguous share (`multihost.row_range`).  The
-tensor-parallel `model` axis is not ported.
+coordinate picks the contiguous share (`multihost.row_range`), and a
+sharded result is gathered back where a step needs it whole
+(`multihost.all_gather_rows`).  `BranchSplit` is the counterpart of the
+JAX samplers' `branch_sharding`: the flat [2B] branch pair over 'patch'.
+The tensor-parallel `model` axis is not ported.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-from localdiffusion_tpu_torch.parallel.multihost import row_range
+from localdiffusion_tpu_torch.parallel.multihost import all_gather_rows, row_range, sum_over
 
 AXES = ("data", "patch")
 
@@ -90,3 +93,28 @@ def shard_batch(mesh: DeviceMesh, *arrays):
     sh = batch_sharding(mesh)
     out = tuple(sh.select(a) for a in arrays)
     return out if len(out) > 1 else out[0]
+
+
+class BranchSplit:
+    """How the ranks of a mesh share a branched chain's flat [2B] pair (the
+    OOD half first): this rank steps rows `bounds(2B)` of it, its share
+    over 'patch' (with patch = 2 one rank steps the OOD half and the other
+    the IND half), for its own 'data' rows of the batch.  `gather` puts the
+    pair back together over 'patch' where the chain needs both halves (the
+    fusion, a gated retry); `any` is a flag OR-ed over every rank (a gated
+    chain's latch, so every rank takes the same steps)."""
+
+    def __init__(self, mesh: DeviceMesh):
+        self.group = mesh.get_group("patch")
+        self.index = mesh.get_local_rank("patch")
+        self.count = mesh["patch"].size()
+
+    def bounds(self, n: int) -> Tuple[int, int]:
+        return row_range(n, self.index, self.count)
+
+    def gather(self, part, n: int):
+        return part if self.count == 1 else all_gather_rows(part, n, self.group)
+
+    @staticmethod
+    def any(flag: bool) -> bool:
+        return sum_over([float(bool(flag))])[0] > 0.0

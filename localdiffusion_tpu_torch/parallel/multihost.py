@@ -10,12 +10,15 @@ rank loads the same, seeded, global batch and keeps its own rows
 depend on how many ranks share it.
 
 A rank's device is `cuda:{rank % device_count}`.  Everything degrades to a
-no-op, or to the whole batch, in a single process.
+no-op, or to the whole batch, in a single process.  Every collective stages
+through `collective_device` (the CPU under gloo, which two ranks on one
+card need: NCCL refuses a device twice).
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence, Tuple
+import hashlib
+from typing import Any, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -127,6 +130,48 @@ def all_gather_rows(t: torch.Tensor, n: int, group=None) -> torch.Tensor:
     dist.all_gather(parts, pad, group=group)
     sizes = [row_range(n, i, count) for i in range(count)]
     return torch.cat([p[: b - a] for p, (a, b) in zip(parts, sizes)]).to(t.device)
+
+
+def broadcast_first(t: torch.Tensor, group=None) -> torch.Tensor:
+    """`t` as the first rank of `group` holds it, on every rank of the
+    group, on `t`'s device (`t` itself in a group of one)."""
+    if not is_multiprocess() or dist.get_world_size(group) == 1:
+        return t
+    buf = t.to(collective_device(group)).contiguous()
+    dist.broadcast(buf, src=dist.get_global_rank(group, 0) if group is not None else 0,
+                   group=group)
+    return buf.to(t.device)
+
+
+def broadcast_object(obj: Any = None, group=None) -> Any:
+    """The first rank's `obj` (any picklable value) on every rank of
+    `group`; the others pass None.  `obj` itself in a single process."""
+    if not is_multiprocess():
+        return obj
+    box = [obj]
+    src = dist.get_global_rank(group, 0) if group is not None else 0
+    dist.broadcast_object_list(box, src=src, group=group, device=collective_device(group))
+    return box[0]
+
+
+def check_replicated(tensors: Iterable[torch.Tensor], what: str = "parameters",
+                     group=None) -> str:
+    """Raise unless every rank of `group` holds the same tensors, compared
+    by a sha256 of their shapes, types and bytes in order; returns it.  A
+    no-op check in one process."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(str((tuple(t.shape), t.dtype)).encode())
+        flat = t.detach().cpu().reshape(-1).clone()  # dense, whatever the layout
+        h.update(flat.view(torch.uint8).numpy().tobytes())
+    mine = h.hexdigest()
+    if not is_multiprocess():
+        return mine
+    every = [None] * dist.get_world_size(group)
+    dist.all_gather_object(every, mine, group=group)
+    if len(set(every)) != 1:
+        raise ValueError(f"the ranks hold different {what}: digests {every}")
+    return mine
 
 
 class RowsNoise:

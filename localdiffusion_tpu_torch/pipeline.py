@@ -9,8 +9,16 @@ detector's thresholded SegUNet, or the 'manual' and 'none' masks.  Stage B is an
 the configuration samples fewer steps than it trains (`sampling_timesteps <
 timesteps`).  With `sampler.classifier` and a classifier gate
 (`factory.build_classifier_gate`), the branched DDPM chain's post-fusion
-steps are gated; DDIM has no gate, as in the reference.  There is no
-device mesh: the pipeline runs on one device.
+steps are gated; DDIM has no gate, as in the reference.
+
+With `mesh=` (`parallel.mesh.make_mesh`, one process a rank, every rank
+calling `translate` with the same arguments) the pipeline is the JAX one
+over its ('data', 'patch') mesh: every rank holds the same weights
+(checked once by digest), runs its 'data' rows of the batch with noise
+drawn for the whole batch and cut to its rows, and steps its 'patch' share
+of the branch pair (`parallel.mesh.BranchSplit`); Stage A runs on the
+first rank and its mask is broadcast, and the rows are gathered, so every
+rank returns what one process returns.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ from localdiffusion_tpu_torch.diffusion import sampler as S
 from localdiffusion_tpu_torch.diffusion.gaussian import GaussianDiffusion
 from localdiffusion_tpu_torch.ood.frontend import OODFrontend
 from localdiffusion_tpu_torch.ood.patchcore import StageClock
+from localdiffusion_tpu_torch.parallel import multihost as H
+from localdiffusion_tpu_torch.parallel.mesh import BranchSplit, batch_sharding
 from localdiffusion_tpu_torch.utils.metrics import mse, psnr, ssim
 
 RunNoise = Union[None, int, Callable[[int], object]]
@@ -51,11 +61,13 @@ class LocalDiffusionPipeline:
     """Config-driven translation with hallucination suppression."""
 
     def __init__(self, config: Config, gd: GaussianDiffusion,
-                 frontend: Optional[OODFrontend] = None, classifier_gate=None):
+                 frontend: Optional[OODFrontend] = None, classifier_gate=None, mesh=None):
         """frontend: Stage A's (`factory.build_frontend(config, gd)`); the
         'manual' and 'none' detectors get theirs here when none is given.
         classifier_gate: `factory.build_classifier_gate(...)`, used when
-        `sampler.classifier` is set."""
+        `sampler.classifier` is set.  mesh: a ('data', 'patch') mesh over
+        the ranks (see the module docstring); raises unless every rank
+        holds the same denoiser weights."""
         self.config = config
         self.gd = gd
         self.device = gd.device
@@ -64,6 +76,10 @@ class LocalDiffusionPipeline:
             frontend = OODFrontend(config)
         self.frontend = frontend
         self.classifier_gate = classifier_gate
+        self.mesh = mesh
+        if mesh is not None:
+            H.check_replicated(gd.model.state_dict().values(), "denoiser weights")
+            self.branch_split = BranchSplit(mesh)
 
     def detect(self, lr: np.ndarray):
         """Stage A for a batch [B, H, W, C]: (mask_pred, binary_mask,
@@ -97,44 +113,66 @@ class LocalDiffusionPipeline:
         """
         scfg = self.config.sampler
         dev = self.device
-        lr_t = torch.as_tensor(np.asarray(lr, np.float32), device=dev)
+        lr = np.asarray(lr, np.float32)
+        n = lr.shape[0]
+        if self.mesh is not None and n % self.mesh["data"].size():
+            raise ValueError(f"batch {n} not divisible by mesh data width "
+                             f"{self.mesh['data'].size()}")
         amap = None
         if mask is None:
             if scfg.ood_ad:
-                mask, _, amap = self.detect(lr)
+                if self.mesh is None or H.is_primary():
+                    mask, _, amap = self.detect(lr)
+                if self.mesh is not None:  # the first rank's mask, bit for bit
+                    mask, amap = H.broadcast_object((mask, amap))
             else:
                 s = self.gd.image_size
-                mask = np.ones((lr.shape[0], s, s, 1), np.float32)
+                mask = np.ones((n, s, s, 1), np.float32)
         mask = np.asarray(mask, np.float32)
         uniform = bool(np.all(mask == 1.0))
         branch = scfg.branch_out and not uniform
-        gt = (
-            torch.as_tensor(np.asarray(hr, np.float32), device=dev)
-            if (hr is not None and scfg.use_gt and scfg.start_intermediate)
-            else None
-        )
+        use_gt = hr is not None and scfg.use_gt and scfg.start_intermediate
+        gated = (branch and not self.gd.is_ddim_sampling and scfg.classifier
+                 and self.classifier_gate is not None)
+
+        # this rank's rows, and noise drawn for the whole batch cut to them
+        rows = slice(None)
+        split = None
+        if self.mesh is not None:
+            rows = slice(*batch_sharding(self.mesh).bounds(0, n))
+            if gated:
+                retry_noise = H.RowsNoise(S.retry_source(noise, retry_noise, dev), n, rows)
+            noise = H.RowsNoise(S.as_noise(noise, dev), n, rows)
+            split = self.branch_split
+        lr_t = torch.as_tensor(lr[rows], device=dev)
+        gt = torch.as_tensor(np.asarray(hr, np.float32)[rows], device=dev) if use_gt else None
 
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        mask_t = torch.as_tensor(mask, device=dev)
+        mask_t = torch.as_tensor(mask[rows], device=dev)
         fusion_time = None
         if self.gd.is_ddim_sampling:
             if branch:
                 out = S.ddim_sample_branched(self.gd, lr_t, mask_t, scfg, self.min_max_val,
-                                             noise=noise)
+                                             noise=noise, branch_split=split)
             else:
                 out = S.ddim_sample_plain(self.gd, lr_t, self.min_max_val, noise=noise)
         elif branch:
-            gate = self.classifier_gate if scfg.classifier else None
+            gate = self.classifier_gate if gated else None
             out = S.ddpm_sample_branched(self.gd, lr_t, mask_t, scfg, self.min_max_val,
                                          noise=noise, gt=gt, classifier_fn=gate,
-                                         return_fusion_time=gate is not None,
-                                         retry_noise=retry_noise, clock=clock)
-            if gate is not None:
+                                         return_fusion_time=gated,
+                                         retry_noise=retry_noise, clock=clock,
+                                         branch_split=split)
+            if gated:
                 out, fusion_time = out
         else:
             out = S.ddpm_sample_plain(self.gd, lr_t, self.min_max_val, noise=noise)
+        if self.mesh is not None:
+            out = self._gather_rows(out, n)
+            if fusion_time is not None:
+                fusion_time = self._gather_rows(fusion_time, n)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t0
@@ -162,6 +200,13 @@ class LocalDiffusionPipeline:
                     float((err * m).sum() / max(float(m.sum()), 1.0))
                 )
         return result
+
+    def _gather_rows(self, t: torch.Tensor, n: int) -> torch.Tensor:
+        """The n rows of which this rank holds its 'data' share, gathered
+        over 'data', as the first rank of its 'patch' group holds them (the
+        fused chain runs replicated over 'patch'): the same on every rank."""
+        whole = H.all_gather_rows(t, n, self.mesh.get_group("data"))
+        return H.broadcast_first(whole, self.mesh.get_group("patch"))
 
     def run(self, pairs, noise: RunNoise = None, save_prefix: Optional[str] = None,
             verbose: bool = True, gt_masks=None) -> Dict[str, np.ndarray]:

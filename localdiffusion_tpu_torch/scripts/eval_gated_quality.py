@@ -39,7 +39,7 @@ import time
 
 import numpy as np
 
-from localdiffusion_tpu_torch.config import CONFIGS, config_by_name
+from localdiffusion_tpu_torch.config import CONFIG_HELP, load_config
 from localdiffusion_tpu_torch.factory import (
     build_classifier_gate,
     build_frontend,
@@ -62,7 +62,7 @@ from localdiffusion_tpu_torch.scripts.eval_margins import device_record, per_ima
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--config", default="mri256_gated", choices=sorted(CONFIGS))
+    ap.add_argument("--config", default="mri256_gated", help=CONFIG_HELP)
     ap.add_argument("--params-npz", default="results/mri_synth256_ema.npz")
     ap.add_argument("--images", type=int, default=16)
     ap.add_argument("--batch", type=int, default=4)
@@ -96,7 +96,7 @@ def main(argv=None, noise_for=None, gate_for=None) -> dict:
     the seed; `gate_for(gate)`, when given, replaces the calibrated gate in
     the gated run."""
     args = parse_args(argv)
-    cfg = config_by_name(args.config)
+    cfg = load_config(args.config)
     if args.dtype:
         cfg = cfg.replace(train=dataclasses.replace(cfg.train, compute_dtype=args.dtype))
     if args.polarity:

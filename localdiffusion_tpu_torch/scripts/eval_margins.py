@@ -43,7 +43,7 @@ import time
 import numpy as np
 import torch
 
-from localdiffusion_tpu_torch.config import CONFIGS, Config, config_by_name
+from localdiffusion_tpu_torch.config import CONFIG_HELP, Config, load_config
 from localdiffusion_tpu_torch.diffusion.gaussian import build_gd
 from localdiffusion_tpu_torch.factory import build_frontend, load_params
 from localdiffusion_tpu_torch.ood.bank import brains, build_bank
@@ -119,9 +119,10 @@ def ddim_steps(cfg: Config) -> int:
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--config", default="mri256", choices=sorted(CONFIGS))
-    ap.add_argument("--frontend-config", default=None, choices=sorted(CONFIGS),
-                    help="build the detectors from this configuration instead")
+    ap.add_argument("--config", default="mri256", help=CONFIG_HELP)
+    ap.add_argument("--frontend-config", default=None,
+                    help="build the detectors from this configuration instead (a builder "
+                         "name or a .json/.yaml file)")
     ap.add_argument("--params-npz", required=True,
                     help="Stage B's snapshot; a comma list runs each, its result keys "
                          "prefixed by its file name")
@@ -224,7 +225,7 @@ def main(argv=None, noise_for=None) -> dict:
     instead of the seed `batch_seed(--seed, b)`: a seed or a noise source
     (see `pipeline.batch_noise`)."""
     args = parse_args(argv)
-    cfg0 = config_by_name(args.config)
+    cfg0 = load_config(args.config)
     if args.dtype:
         cfg0 = cfg0.replace(train=dataclasses.replace(cfg0.train, compute_dtype=args.dtype))
     d, size = cfg0.data, cfg0.diffusion.image_size
@@ -240,7 +241,7 @@ def main(argv=None, noise_for=None) -> dict:
 
     cfg_fe = cfg0
     if args.frontend_config:
-        cfg_fe = config_by_name(args.frontend_config)
+        cfg_fe = load_config(args.frontend_config)
         if args.dtype:
             cfg_fe = cfg_fe.replace(train=dataclasses.replace(cfg_fe.train,
                                                               compute_dtype=args.dtype))

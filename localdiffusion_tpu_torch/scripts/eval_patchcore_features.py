@@ -13,8 +13,8 @@ on `--tests` tumour brains (seed 1234, the same for every source and
 refit), each binary mask scored against the ground-truth segmentation by
 IoU: the raw mask, the dilated one, and each refinement of the sweep
 (`--refine-seeds`, `--hi-fracs`, `--lo-fracs`, `--refine-dilate`).
-`--config` names a configuration of `config.CONFIGS` (no YAML); on the
-card unless `--device cpu`.
+`--config` names a builder of `config.CONFIGS` or a `.json`/`.yaml` file
+(`config.load_config`); on the card unless `--device cpu`.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import json
 import numpy as np
 import torch
 
-from localdiffusion_tpu_torch.config import config_by_name
+from localdiffusion_tpu_torch.config import CONFIG_HELP, load_config
 from localdiffusion_tpu_torch.data.synthetic import synthetic_brain_translation
 from localdiffusion_tpu_torch.diffusion.gaussian import resolve_device
 from localdiffusion_tpu_torch.ood.features import make_feature_source
@@ -48,7 +48,7 @@ def iou(binary: np.ndarray, gt: np.ndarray) -> float:
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--config", default="mri256", help="a configuration name of config.CONFIGS")
+    ap.add_argument("--config", default="mri256", help=CONFIG_HELP)
     ap.add_argument("--sources", default="wrn,denoiser")
     ap.add_argument("--refits", type=int, default=5)
     ap.add_argument("--normals", type=int, default=48)
@@ -82,7 +82,7 @@ def _brains(d, n, size, tumor, seed):
 def main(argv=None) -> dict:
     args = parse_args(argv)
     device = resolve_device(args.device)
-    cfg0 = config_by_name(args.config)
+    cfg0 = load_config(args.config)
     d = cfg0.data
     size = cfg0.diffusion.image_size
     if d.name != "synthetic_brain":

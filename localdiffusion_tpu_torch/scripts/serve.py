@@ -15,8 +15,8 @@ Protocol (stdlib HTTP, JSON bodies), the JAX script's:
   GET  /stats          → the server's counters (batches, fill, latencies)
   anything else        → 404 {"error": "not found"}
 
-`--config` names a builder of `config.CONFIGS` (there is no YAML on the
-card's machine) and takes the test CLI's overrides (`--detector`,
+`--config` names a builder of `config.CONFIGS` or a `.json`/`.yaml` file
+(`config.load_config`) and takes the test CLI's overrides (`--detector`,
 `--memory-bank`, `--feature-source`, ...).  The weights are a slim npz,
 `--params-npz`, required: the JAX script's `--milestone` (an Orbax
 directory) and `--allow-random-init` (serve random weights when none

@@ -4,8 +4,9 @@
     python -m localdiffusion_tpu_torch.scripts.test --config mri256 \
         --params-npz results/mri_synth256_ema.npz --max-images 8 [--device cpu]
 
-`--config` names a builder of `config.CONFIGS` (there is no YAML on the
-card's machine).  The test set is the JAX script's
+`--config` names a builder of `config.CONFIGS` or a `.json`/`.yaml`
+configuration file (`config.load_config`; the card's machine has no PyYAML,
+so it reads `.json`).  The test set is the JAX script's
 (`data.datasets.test_arrays`): up to 32 tumour brains of seed 0, up to 16
 defective synthetic textures (their defect masks the ground truth), the
 anomalous digit of the MNIST t10k idx files (`data.anomaly_name`, synthetic
@@ -32,7 +33,7 @@ import os
 
 import numpy as np
 
-from localdiffusion_tpu_torch.config import CONFIGS, config_by_name
+from localdiffusion_tpu_torch.config import CONFIG_HELP, load_config
 from localdiffusion_tpu_torch.data import datasets
 from localdiffusion_tpu_torch.factory import build_pipeline
 from localdiffusion_tpu_torch.ood.features import seg_checkpoint
@@ -46,7 +47,7 @@ def add_config_args(ap, config_default: str = "mri256") -> None:
     as options of a command line (`--config` required where
     `config_default` is None)."""
     ap.add_argument("--config", default=config_default, required=config_default is None,
-                    choices=sorted(CONFIGS))
+                    help=CONFIG_HELP)
     ap.add_argument("--detector", default=None, choices=["patchcore", "seg", "manual", "none"],
                     help="override ood.detector")
     ap.add_argument("--params-npz", required=True, help="the denoiser's slim npz snapshot")
@@ -76,7 +77,7 @@ def parse_args(argv=None):
 def configure(args):
     """The configuration with the command line's overrides, as the JAX
     script applies them."""
-    cfg = datasets.with_data_paths(config_by_name(args.config), args)
+    cfg = datasets.with_data_paths(load_config(args.config), args)
     if args.dtype:
         cfg = cfg.replace(train=dataclasses.replace(cfg.train, compute_dtype=args.dtype))
     over = {}

@@ -7,8 +7,8 @@
         [--mnist-path IDX --mnist-labels-path IDX | --mri-files GLOB | --mvtec-path GLOB]
         [--coordinator HOST:PORT --num-processes N --process-id I] [--fsdp]
 
-`--config` names a configuration of `config.CONFIGS` (no YAML on the card's
-machine).  Steps (`train.trainer.Trainer`): 'resident' (the default) keeps
+`--config` names a builder of `config.CONFIGS` or a `.json`/`.yaml`
+configuration file (`config.load_config`; the card's machine reads `.json`).  Steps (`train.trainer.Trainer`): 'resident' (the default) keeps
 the training set on the device and takes one optimizer step an epoch over
 its drop-last batches; 'epoch' streams the epoch's batches from the host
 (the short last batch included) into one step; 'batch' takes one step a
@@ -48,7 +48,7 @@ import time
 import numpy as np
 import torch
 
-from localdiffusion_tpu_torch.config import config_by_name, min_max_val_for
+from localdiffusion_tpu_torch.config import CONFIG_HELP, load_config, min_max_val_for
 from localdiffusion_tpu_torch.data.datasets import add_data_args, train_arrays, with_data_paths
 from localdiffusion_tpu_torch.data.loader import ArrayLoader
 from localdiffusion_tpu_torch.diffusion.gaussian import build_gd, resolve_device
@@ -72,7 +72,7 @@ def step_seed(seed: int, step: int) -> int:
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--config", default="mri256", help="a configuration name of config.CONFIGS")
+    ap.add_argument("--config", default="mri256", help=CONFIG_HELP)
     ap.add_argument("--steps", type=int, default=None,
                     help="optimizer steps (default: the configuration's num_steps)")
     ap.add_argument("--batch-size", type=int, default=None,
@@ -107,7 +107,7 @@ def main(argv=None) -> dict:
     multihost.init_distributed(args.coordinator, args.num_processes, args.process_id,
                                device=args.device)
     device = multihost.rank_device(args.device)
-    cfg = with_data_paths(config_by_name(args.config), args)
+    cfg = with_data_paths(load_config(args.config), args)
     over = {"batch_size": args.batch_size or cfg.train.batch_size}
     if args.results:
         over["results_dir"] = args.results

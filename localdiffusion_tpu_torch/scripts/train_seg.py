@@ -7,7 +7,8 @@
 
 Synthetic tumour brains: 64 to train (seed 0), 16 to validate (seed 1), the
 t1 image normalized as the pipeline feeds the detector (`--config` names a
-builder of `config.CONFIGS` whose `data` statistics apply; without it
+builder of `config.CONFIGS`, or a `.json`/`.yaml` file, whose `data`
+statistics apply; without it
 `synthetic_brain_translation`'s own), or raw-intensity t1 with `--raw`.
 BCE with logits (positives weighted 10) + Dice (`models.seg_unet.
 bce_dice_loss`), Adam 1e-3 (optax's defaults), batches of
@@ -28,7 +29,7 @@ import os
 import numpy as np
 import torch
 
-from localdiffusion_tpu_torch.config import CONFIGS, config_by_name
+from localdiffusion_tpu_torch.config import load_config
 from localdiffusion_tpu_torch.data import (
     ArrayLoader,
     synthetic_brain_pair,
@@ -52,7 +53,7 @@ def parse_args(argv=None):
     ap.add_argument("--raw", action="store_true",
                     help="train on raw-intensity t1 instead of the pipeline-normalized "
                          "conditioning distribution")
-    ap.add_argument("--config", default=None, choices=sorted(CONFIGS),
+    ap.add_argument("--config", default=None,
                     help="the configuration whose normalization statistics define the "
                          "training distribution (the detector must see what the front end "
                          "feeds it); default: synthetic_brain_translation's own")
@@ -68,7 +69,7 @@ def brains(size: int, raw: bool, config):
     else:
         norm = {}
         if config:
-            d = config_by_name(config).data
+            d = load_config(config).data
             norm = dict(mean_t1=d.mean_t1, std_t1=d.std_t1, mean_flair=d.mean_flair,
                         std_flair=d.std_flair)
         _, t1, seg = synthetic_brain_translation(64, size, tumor=True, seed=0, **norm)

@@ -13,7 +13,8 @@ written to `--out` and the masks beside it (`*_masks.npy`).  Inputs are
 .mha/.mhd (`data/mha.py`) or .npy volumes [D, H, W].  With `--flair` the
 target is known and the volume MSE is printed, and with `--seg` the MSE
 over the segmented region too; without it the volume is translated blind.
-`--config` names a builder of `config.CONFIGS` and `--params-npz`, a slim
+`--config` names a builder of `config.CONFIGS` or a `.json`/`.yaml` file
+(`config.load_config`) and `--params-npz`, a slim
 npz, is required (the JAX script's `--milestone` reads an Orbax directory,
 which the port does not).
 """
@@ -25,7 +26,7 @@ import dataclasses
 
 import numpy as np
 
-from localdiffusion_tpu_torch.config import CONFIGS, config_by_name
+from localdiffusion_tpu_torch.config import CONFIG_HELP, load_config
 from localdiffusion_tpu_torch.data.brats import BRATSVolumeDataset
 from localdiffusion_tpu_torch.data.mha import load_mha
 from localdiffusion_tpu_torch.factory import build_pipeline
@@ -41,7 +42,7 @@ def load_volume(path: str) -> np.ndarray:
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--config", required=True, choices=sorted(CONFIGS))
+    ap.add_argument("--config", required=True, help=CONFIG_HELP)
     ap.add_argument("--t1", required=True, help="conditioning-modality volume")
     ap.add_argument("--flair", default=None, help="target-modality volume "
                     "(enables MSE; name reflects the default t1→flair task)")
@@ -60,7 +61,7 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    cfg = config_by_name(args.config)
+    cfg = load_config(args.config)
     if args.detector:
         cfg = cfg.replace(ood=dataclasses.replace(cfg.ood, detector=args.detector))
 

@@ -19,6 +19,15 @@ Port of `localdiffusion_tpu/serving.py`:
 Stage A is the caller's mask or the pipeline's front end (`detect`: the
 PatchCore or seg detector, or the manual and none masks), run on the padded
 rows of the requests that brought no mask.
+
+Over a mesh pipeline (`LocalDiffusionPipeline(mesh=...)`, one process a
+rank where the JAX server has one controller) the first rank serves: it
+runs Stage A, and broadcasts each dispatch (the padded images and masks,
+the batch's seeds) to the other ranks, which run `follow()` until `stop()`
+sends the end; every rank then runs the dispatch's `translate` on its
+share.  `batch_size` must be divisible by the mesh's 'data' width, and
+`noise_for_batch` must give seeds (int or None), which cross to the other
+ranks.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from localdiffusion_tpu_torch.parallel import multihost as H
 from localdiffusion_tpu_torch.pipeline import batch_seed
 
 
@@ -64,6 +74,12 @@ class InferenceServer:
                  noise_for_batch: Optional[Callable[[int], object]] = None):
         self.pipe = pipeline
         self.batch_size = int(batch_size)
+        mesh = getattr(pipeline, "mesh", None)
+        if mesh is not None and self.batch_size % mesh["data"].size():
+            raise ValueError(f"batch_size {self.batch_size} not divisible by mesh data width "
+                             f"{mesh['data'].size()}")
+        # over a mesh of several ranks, each dispatch is broadcast first
+        self._broadcast = mesh is not None and H.is_multiprocess()
         self.max_wait = max_wait_ms / 1e3
         self.merge_mixed = bool(merge_mixed)
         self.overlap_detect = bool(overlap_detect)
@@ -112,6 +128,8 @@ class InferenceServer:
             self._sq.put(None)  # sentinel: drain and exit
             self._sampler_thread.join(timeout=120)
             self._sampler_thread = None
+        if self._broadcast and H.is_primary():
+            H.broadcast_object(None)  # the followers' end
         # requests still queued are never processed: fail their futures
         while True:
             try:
@@ -120,6 +138,27 @@ class InferenceServer:
                 break
             if not req.future.done():
                 req.future.set_exception(RuntimeError("server stopped"))
+
+    def follow(self) -> int:
+        """On a rank other than the first of a mesh pipeline's: run every
+        dispatch the first rank's server broadcasts, until its `stop()`;
+        returns the number of dispatches."""
+        if not self._broadcast or H.is_primary():
+            raise RuntimeError("follow() runs on the other ranks of a mesh pipeline's server")
+        count = 0
+        while (d := H.broadcast_object()) is not None:
+            self.pipe.translate(d["lr"], noise=d["noise"], retry_noise=d["retry_noise"],
+                                mask=d["mask"])
+            count += 1
+        return count
+
+    def _translate(self, lr: np.ndarray, mask: np.ndarray, index: int) -> Dict:
+        """`translate` of one dispatch with batch `index`'s noise, the
+        dispatch broadcast first over a mesh."""
+        noise, retry_noise = self._noise(index)
+        if self._broadcast:
+            H.broadcast_object(dict(lr=lr, mask=mask, noise=noise, retry_noise=retry_noise))
+        return self.pipe.translate(lr, noise=noise, retry_noise=retry_noise, mask=mask)
 
     def __enter__(self):
         return self.start()
@@ -151,8 +190,7 @@ class InferenceServer:
             half[:, :, : s // 2] = 0.5
             masks.append(half)
         for mask in masks:
-            noise, retry_noise = self._noise(0)
-            self.pipe.translate(zeros, noise=noise, retry_noise=retry_noise, mask=mask)
+            self._translate(zeros, mask, 0)
 
     def _noise(self, index: int):
         """(noise, retry_noise) of batch `index` (see `noise_for_batch`)."""
@@ -251,12 +289,8 @@ class InferenceServer:
         for group, stat_key in groups:
             if not group:
                 continue
-            noise, retry_noise = self._noise(index)
-            res = self.pipe.translate(
-                self._pad([r.lr for r in group]),
-                noise=noise, retry_noise=retry_noise,
-                mask=self._pad([r.mask for r in group]),
-            )
+            res = self._translate(self._pad([r.lr for r in group]),
+                                  self._pad([r.mask for r in group]), index)
             with self._lock:
                 self.stats[stat_key] += 1
                 self.stats["padded_slots"] += self.batch_size - len(group)

@@ -11,10 +11,14 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import json
 import os
+import tempfile
 import time
 import warnings
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
 
 
 class CsvLogger:
@@ -74,6 +78,45 @@ def device_event_count(prof) -> int:
     return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
 
 
+# the host's calls that launch work on the card, as a Chrome trace files
+# them: the CUDA runtime API's (cudaLaunchKernel) and the CUDA driver API's
+# (cuLaunchKernel, which cuBLAS uses)
+LAUNCH_CATEGORIES = ("cuda_runtime", "cuda_driver")
+
+
+def launch_gaps_us(events) -> List[float]:
+    """Each kernel's start less its launch's host start, in microseconds,
+    from the events of a Chrome trace (`traceEvents`): a kernel and its
+    runtime call share `args.correlation`.  The card's timestamps are
+    mapped onto the host clock; a gap of some microseconds is the launch's
+    latency, anything more is the mapping's error."""
+    launches = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in LAUNCH_CATEGORIES and "correlation" in e.get("args", {})}
+    return [float(e["ts"]) - float(launches[c]) for e in events
+            if e.get("cat") == "kernel" and (c := e.get("args", {}).get("correlation")) in launches]
+
+
+def lost_kernels(events) -> Tuple[int, int]:
+    """(kernel launches whose kernel is not in the trace, kernel launches)
+    of a Chrome trace's events: the host's launch calls are always kept, so
+    a launch without its kernel is device activity the profiler dropped."""
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") in LAUNCH_CATEGORIES and "Launch" in e.get("name", "")
+                and "correlation" in e.get("args", {})}
+    kept = {e.get("args", {}).get("correlation") for e in events if e.get("cat") == "kernel"}
+    return len(launched - kept), len(launched)
+
+
+# the least length of a session with a card.  On an H100 machine the
+# profiler kept a session's device activity with a chance that fell as the
+# process aged and rose with the session's length: from ~50 s of age on, a
+# session of a few milliseconds kept none most times, one of 1 s 1 time in
+# 24, of 2 s about half, of 4 s 22 in 24 and of 8 s 24 in 24 (ages 85-948
+# s); a forced CUPTI flush, padding one side only, or a warm-up phase did
+# not help.  The loss was all or nothing, not at a window's edges.
+MIN_SESSION_S = 8.0
+
+
 @contextlib.contextmanager
 def profile_trace(log_dir: str, enabled: bool = True):
     """Record the block under `torch.profiler` (CPU activity, and the card's
@@ -82,14 +125,14 @@ def profile_trace(log_dir: str, enabled: bool = True):
     `key_averages()` and `events()`), or None with `enabled=False`, which
     records nothing.
 
-    A session that asked for the card's activity and recorded none warns
-    (a RuntimeWarning naming the trace).  On an H100 machine the card's
-    timestamps drifted from the host clock as the process aged, and the
-    profiler drops device activity stamped outside the session's host-clock
-    window: from ~30 s of age on, a session of a few milliseconds kept no
-    device event, where the same work with 0.5 s of host time on either
-    side kept every one.  Trace a long block, or a fresh
-    process."""
+    With a card the session lasts at least `MIN_SESSION_S` (see there):
+    the card drained, the host sleeps half of it before the block and the
+    rest after it, so a block of a few
+    milliseconds keeps its device activity in an aged process too.  The
+    profiler gets `session_s`, and `lost_kernels` and `launched_kernels`
+    read from the trace; a session that lost any kernel it launched, or
+    recorded no device activity, warns (a RuntimeWarning naming the
+    trace)."""
     if not enabled:
         yield None
         return
@@ -97,14 +140,49 @@ def profile_trace(log_dir: str, enabled: bool = True):
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    cuda = torch.cuda.is_available()
+    length = 0.0
+    if cuda:
         activities.append(ProfilerActivity.CUDA)
+        length = MIN_SESSION_S
+        torch.cuda.synchronize()
     os.makedirs(log_dir, exist_ok=True)
     with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        time.sleep(length / 2)
         yield prof
+        if cuda:
+            torch.cuda.synchronize()
+            time.sleep(max(0.0, length - (time.perf_counter() - t0)))
+        prof.session_s = time.perf_counter() - t0
     path = os.path.join(log_dir, "trace.json")
     prof.export_chrome_trace(path)
-    if ProfilerActivity.CUDA in activities and device_event_count(prof) == 0:
-        warnings.warn(f"profile_trace asked for the card's activity and {path} holds none "
-                      f"(device timestamps outside the session's window: trace a longer "
-                      f"block, or a fresh process)", RuntimeWarning, stacklevel=3)
+    if ProfilerActivity.CUDA in activities:
+        with open(path) as f:
+            prof.lost_kernels, prof.launched_kernels = lost_kernels(json.load(f)["traceEvents"])
+        if device_event_count(prof) == 0:
+            lost = "holds none"
+        elif prof.lost_kernels:
+            lost = f"lost {prof.lost_kernels} of the {prof.launched_kernels} kernels launched"
+        else:
+            return
+        warnings.warn(f"profile_trace asked for the card's activity and {path} {lost} (a "
+                      f"session of {prof.session_s:.2f} s)", RuntimeWarning, stacklevel=3)
+
+
+def read_device_clock() -> Optional[float]:
+    """The median offset, in seconds, of a marker kernel's timestamp from
+    its launch's in a `profile_trace` session (see `launch_gaps_us`): the
+    mapping of the card's clock onto the host's, read now.  None without a
+    card, or when the session kept no kernel."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return None
+    marker = torch.zeros(1, device="cuda")
+    with tempfile.TemporaryDirectory() as d:
+        with profile_trace(d):
+            marker.add_(1.0)
+        with open(os.path.join(d, "trace.json")) as f:
+            gaps = launch_gaps_us(json.load(f)["traceEvents"])
+    return float(np.median(gaps)) * 1e-6 if gaps else None

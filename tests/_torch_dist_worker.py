@@ -1,4 +1,5 @@
-"""Worker processes of `test_torch_distributed.py` (no tests of its own).
+"""Worker processes of `test_torch_distributed.py` and
+`test_torch_mesh_serving.py` (no tests of its own).
 
 Each worker blocks JAX, flax, optax, Orbax and the JAX package before it
 imports anything (an entry of None in sys.modules makes an import fail),
@@ -192,6 +193,188 @@ def run(rank, world, port, workdir, queue):
     try:
         queue.put((rank, dict(group=_group_jobs(rank, world, port, workdir),
                               cli=_cli_jobs(rank, world, port, workdir))))
+    except BaseException:  # reported to the test, which fails on it
+        queue.put((rank, "error: " + traceback.format_exc()))
+        raise
+
+
+# ---------------------------------------------------------------------------
+# mesh serving (test_torch_mesh_serving.py): one spawn serves the file
+# ---------------------------------------------------------------------------
+
+MESH_S, MESH_B = 12, 4  # 12px: SSIM's 11x11 window fits
+MESHES = ((2, 1), (1, 2))  # (data, patch)
+CHAINS = ("ddpm", "gated", "ddim")
+GATE_BUDGET = 2
+# the scripted gate's verdicts [T, B]: True where a row is rejected at step
+# t; rows 0-1 pass at once, rows 2-3 are rejected until the budget, so a
+# rank of the data = 2 mesh latches while the other still retries
+GATE_REJECTS = ((), (1,), (3, 2, 1), (3, 2))
+
+
+def mesh_config(chain: str):
+    """A narrow flagship (`flagship_config()`: manual mask, cond policy,
+    fusion at t=2) with a dim-8 two-stage UNet at 12px, f32: 'ddpm' T=6;
+    'gated' the same fused at t=4, gated with GATE_BUDGET retries; 'ddim'
+    T=10 in 5 DDIM steps."""
+    from localdiffusion_tpu_torch import config as tcfg
+
+    base = tcfg.flagship_config()
+    model = tcfg.ModelConfig(dim=8, dim_mults=(1, 2), full_attn=(False, True), channels=1,
+                             resnet_block_groups=4, attn_heads=2, attn_dim_head=8)
+    cfg = base.replace(
+        model=model,
+        diffusion=dataclasses.replace(base.diffusion, image_size=MESH_S, timesteps=6),
+        ood=dataclasses.replace(base.ood, input_size=MESH_S, manual_mask_cols=3, mask_dilate=1))
+    if chain == "gated":
+        cfg = cfg.replace(sampler=dataclasses.replace(
+            cfg.sampler, start_timestep=4, classifier=True, max_classifier_retries=GATE_BUDGET))
+    if chain == "ddim":
+        cfg = cfg.replace(diffusion=dataclasses.replace(cfg.diffusion, timesteps=10,
+                                                        sampling_timesteps=5))
+    return cfg
+
+
+def gate_table(timesteps: int):
+    import numpy as np
+
+    table = np.zeros((timesteps, MESH_B), bool)
+    for b, ts in enumerate(GATE_REJECTS):
+        table[list(ts), b] = True
+    return table
+
+
+def scripted_gate(table, rows=slice(None)):
+    """The scripted classifier on a rank's rows of the batch: -1 (reject)
+    where the table says, else 1."""
+    import torch
+
+    return lambda xs, t: torch.where(torch.as_tensor(table[t][rows]), -1.0, 1.0)
+
+
+def mesh_inputs():
+    """(lr, hr, the masks of the branched dispatches: the left 3 columns
+    anomalous, one row also half soft)."""
+    import numpy as np
+
+    rng = np.random.default_rng(12)
+    lr = rng.uniform(0, 2, (MESH_B, MESH_S, MESH_S, 1)).astype(np.float32)
+    hr = rng.uniform(0, 2, (MESH_B, MESH_S, MESH_S, 1)).astype(np.float32)
+    mask = np.zeros((MESH_B, MESH_S, MESH_S, 1), np.float32)
+    mask[:, :, :3] = 1.0
+    mask[1, :6, 6:] = 0.5
+    return lr, hr, mask
+
+
+def mesh_pipeline(chain: str, weights: str, mesh=None, rows=slice(None)):
+    """The port's pipeline of `mesh_config(chain)` on the CPU with the
+    weights saved at `weights`; the gated chain with the scripted gate on
+    `rows`."""
+    import torch
+
+    from localdiffusion_tpu_torch.diffusion.gaussian import build_gd
+    from localdiffusion_tpu_torch.pipeline import LocalDiffusionPipeline
+
+    cfg = mesh_config(chain)
+    gd = build_gd(cfg, device="cpu")
+    gd.model.load_state_dict(torch.load(weights, weights_only=True))
+    gate = scripted_gate(gate_table(cfg.diffusion.timesteps), rows) if chain == "gated" else None
+    return LocalDiffusionPipeline(cfg, gd, classifier_gate=gate, mesh=mesh)
+
+
+def mesh_translate(pipe, chain: str) -> dict:
+    """A chain's translate, numpy out: the DDPM chain with Stage A (the
+    manual detector) and the metrics, the others under the given mask."""
+    lr, hr, mask = mesh_inputs()
+    if chain == "ddpm":
+        res = pipe.translate(lr, hr=hr, noise=3)
+    else:
+        res = pipe.translate(lr, hr=hr, noise=3, mask=mask)
+    return {k: v for k, v in res.items() if k != "time"}
+
+
+def mesh_requests():
+    """Four requests: two masked, one uniform, one to the detector."""
+    import numpy as np
+
+    lr, _, mask = mesh_inputs()
+    ones = np.ones_like(mask[0])
+    return list(lr), [mask[0], ones, None, mask[3]]
+
+
+def mesh_serve(pipe) -> list:
+    """The four requests through a server of batch 4 (one merged dispatch
+    after the warm-up's two), each result's pred."""
+    from localdiffusion_tpu_torch.serving import InferenceServer
+
+    srv = InferenceServer(pipe, batch_size=MESH_B, max_wait_ms=2000, base_seed=5)
+    lrs, masks = mesh_requests()
+    futs = [srv.submit(x, mask=m) for x, m in zip(lrs, masks)]
+    srv.start(warmup=True)
+    try:
+        return [f.result(timeout=120)["pred"] for f in futs]
+    finally:
+        srv.stop()
+
+
+def _mesh_jobs(rank, world, port, weights):
+    import numpy as np
+    import torch
+
+    from localdiffusion_tpu_torch.parallel import multihost
+    from localdiffusion_tpu_torch.parallel.mesh import batch_sharding, make_mesh
+    from localdiffusion_tpu_torch.serving import InferenceServer
+
+    multihost.init_distributed(f"localhost:{port}", world, rank, device="cpu")
+    try:
+        multihost.warmup_collectives()
+        out = {}
+        for data, patch in MESHES:
+            mesh = make_mesh(data=data, patch=patch, device="cpu")
+            rows = slice(*batch_sharding(mesh).bounds(0, MESH_B))
+            res = {}
+            for chain in CHAINS:
+                pipe = mesh_pipeline(chain, weights, mesh, rows)
+                res[chain] = mesh_translate(pipe, chain)
+            pipe = mesh_pipeline("ddpm", weights, mesh)
+            if multihost.is_primary():
+                res["served"] = np.stack(mesh_serve(pipe))
+            else:
+                res["followed"] = InferenceServer(pipe, batch_size=MESH_B).follow()
+            try:
+                pipe.translate(mesh_inputs()[0][:3], noise=3)
+            except ValueError as e:
+                res["indivisible"] = str(e)
+            try:
+                InferenceServer(pipe, batch_size=3)
+            except ValueError as e:
+                res["server_indivisible"] = str(e)
+            out[f"{data}x{patch}"] = res
+        # a rank holding other weights is refused
+        gd = mesh_pipeline("ddpm", weights).gd
+        if rank == 1:
+            with torch.no_grad():
+                next(gd.model.parameters()).add_(1.0)
+        from localdiffusion_tpu_torch.pipeline import LocalDiffusionPipeline
+
+        try:
+            LocalDiffusionPipeline(mesh_config("ddpm"), gd, mesh=make_mesh(data=2, device="cpu"))
+        except ValueError as e:
+            out["weights_differ"] = str(e)
+        return out
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_mesh(rank, world, port, weights, queue):
+    """Entry point of a mesh-serving worker: (rank, results) or (rank, error
+    text) on `queue`."""
+    block_jax()
+    import torch
+
+    torch.set_num_threads(1)
+    try:
+        queue.put((rank, _mesh_jobs(rank, world, port, weights)))
     except BaseException:  # reported to the test, which fails on it
         queue.put((rank, "error: " + traceback.format_exc()))
         raise

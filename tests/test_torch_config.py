@@ -47,7 +47,7 @@ BUILDERS = {"mnist_train": "mnist_train.yaml", "mnist_8to5": "mnist_8to5.yaml",
 @pytest.mark.parametrize("name", sorted(BUILDERS))
 def test_builder_is_its_yaml(name):
     want = jcfg.Config.load_yaml(os.path.join(ROOT, "configs", BUILDERS[name]))
-    got = tcfg.config_by_name(name)
+    got = tcfg.load_config(name)
     assert got == getattr(tcfg, f"{name}_config")()
     for section in SECTIONS:
         for f in dataclasses.fields(getattr(got, section)):

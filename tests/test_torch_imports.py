@@ -18,8 +18,14 @@ and I/O layer: the patch tiling and stitch, the streaming loader through
 `device_prefetch` under `profile_trace`, the native kernels and the
 reference converter's CLI (the patch demo and `eval_patchcore_features`
 are imported by the first; their runs are held against JAX in their own
-tests).
+tests); a seventh `config.load_config` on builder names and `.json`
+dumps, and its error naming PyYAML on a `.yaml` path.  The package and
+each subpackage export the JAX subpackages' names, or name in their
+docstrings the object that does a missing name's work.
 """
+
+import importlib
+
 
 import os
 import subprocess
@@ -258,6 +264,33 @@ PARALLEL_IO = textwrap.dedent(
     """
 )
 
+CONFIGS = textwrap.dedent(
+    """
+    import os, sys, tempfile
+    for name in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "localdiffusion_tpu"):
+        sys.modules[name] = None
+    import localdiffusion_tpu_torch as pkg
+    from localdiffusion_tpu_torch import config as C
+    with tempfile.TemporaryDirectory() as d:
+        for name, build in sorted(C.CONFIGS.items()):
+            path = os.path.join(d, name + ".json")
+            build().save_json(path)
+            assert pkg.load_config(path) == C.load_config(name) == build(), name
+        with open(os.path.join(d, "c.yml"), "w") as f:
+            f.write("{}")
+        for path in ("configs/mri_synthetic_256_bf16.yaml", os.path.join(d, "c.yml")):
+            try:
+                C.load_config(path)
+            except ImportError as e:
+                print("YAML", "PyYAML" in str(e))
+        try:
+            C.flagship_config().save_yaml(os.path.join(d, "c.yaml"))
+        except ImportError as e:
+            print("YAML", "PyYAML" in str(e))
+    print("CONFIGS", len(C.CONFIGS), "yaml" in sys.modules and sys.modules["yaml"] is None)
+    """
+)
+
 # modules the port must have (a rename or a lost file shows here)
 REQUIRED = {
     "localdiffusion_tpu_torch.ops.attention",
@@ -385,3 +418,60 @@ def test_blocked_module_really_fails():
                           capture_output=True, text=True, timeout=300,
                           env={**os.environ, "PYTHONPATH": ROOT})
     assert proc.returncode != 0 and "jax" in proc.stderr.splitlines()[-1]
+
+
+def test_load_config_reads_builders_and_json_without_yaml():
+    proc = subprocess.run(
+        [sys.executable, "-c", CONFIGS], cwd=ROOT, capture_output=True, text=True,
+        timeout=300, env={**os.environ, "PYTHONPATH": ROOT},
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split("\n")[:-1] == ["YAML True"] * 3 + ["CONFIGS 12 True"]
+
+
+# the JAX subpackages' exports whose work another object of the port does,
+# each named in the port subpackage's docstring: {package: {name: the port
+# objects, as attribute paths from the subpackage}}
+EXPORT_COUNTERPARTS = {
+    "ood": {"convert_torch_state_dict": ["wide_resnet.load_torchvision_state_dict"]},
+    "models": {"encode_cond": ["UNet.encode_cond"]},
+    "parallel": {"tree_shardings": ["fsdp.shard_model", "fsdp.load_full"],
+                 "state_shardings": ["fsdp.shard_model", "fsdp.load_full"],
+                 "put_tree_sharded": ["fsdp.shard_model", "fsdp.load_full"],
+                 "tp_param_shardings": ["make_mesh"]},
+}
+
+
+def _jax_exports(package: str) -> list:
+    """The names `localdiffusion_tpu/<package>/__init__.py` imports, read
+    from its source (importing it would import JAX)."""
+    import ast
+
+    path = os.path.join(ROOT, "localdiffusion_tpu", *package.split(".")[1:], "__init__.py")
+    tree = ast.parse(open(path).read())
+    return [a.asname or a.name for node in tree.body if isinstance(node, ast.ImportFrom)
+            for a in node.names]
+
+
+def test_every_jax_export_has_a_counterpart():
+    for sub in ("", ".ood", ".models", ".ops", ".utils", ".parallel", ".data"):
+        port = importlib.import_module("localdiffusion_tpu_torch" + sub)
+        mapped = EXPORT_COUNTERPARTS.get(sub[1:], {})
+        names = _jax_exports("localdiffusion_tpu" + sub)
+        assert names, sub
+        for name in names:
+            if name in mapped:
+                assert not hasattr(port, name), (sub, name)
+                assert name in port.__doc__, (sub, name)
+                for path in mapped[name]:
+                    obj = port
+                    if not hasattr(obj, path.split(".")[0]):  # a module of the subpackage
+                        obj = importlib.import_module(f"{port.__name__}.{path.split('.')[0]}")
+                        path = ".".join(path.split(".")[1:])
+                    for part in path.split("."):
+                        obj = getattr(obj, part)
+                    assert callable(obj), (sub, name, path)
+                    assert path.split(".")[-1] in port.__doc__, (sub, name, path)
+            else:
+                assert hasattr(port, name), f"localdiffusion_tpu_torch{sub} lacks {name}"
+        assert set(mapped) <= set(names), sub

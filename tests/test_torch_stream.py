@@ -6,11 +6,14 @@ kernels (`native/`) and `utils.logging.profile_trace`.
 drop_last; a decode error raised in the consumer; an abandoned epoch stops
 the worker; the trainer's epoch step fed by it equals the one fed by
 `ArrayLoader` on the same rows in the same order; `device_prefetch` on the
-CPU; `profile_trace` writes its trace, and warns when a session that asked
-for the card's activity recorded none.  The native kernels against the JAX module's numpy route: gather +
+CPU; `profile_trace` writes its trace, lasts `MIN_SESSION_S` around the
+block with a card, and warns when a session that asked for the card's
+activity recorded none or lost a kernel it launched; a trace's launch
+gaps and lost kernels are read from its events.  The native kernels against the JAX module's numpy route: gather +
 normalize bit for bit, the degradation within its 1e-4.
 """
 
+import json
 import time
 import warnings
 
@@ -187,10 +190,11 @@ class _Kineto:
 
 class _Session:
     """A stand-in `torch.profiler.profile` whose finished session holds the
-    given device types (a CUDA session cannot run on the CPU-only build)."""
+    given device types and writes the given trace events (a CUDA session
+    cannot run on the CPU-only build)."""
 
-    def __init__(self, kinds):
-        self.kinds = kinds
+    def __init__(self, kinds, events):
+        self.kinds, self.trace = kinds, events
 
     def __call__(self, activities):
         self.activities = activities
@@ -205,23 +209,76 @@ class _Session:
 
     def export_chrome_trace(self, path):
         with open(path, "w") as f:
-            f.write('{"traceEvents": []}')
+            json.dump({"traceEvents": self.trace}, f)
 
 
-@pytest.mark.parametrize("device_events", [0, 2])
+def _launch(c):
+    return {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 10.0 * c,
+            "args": {"correlation": c}}
+
+
+def _kernel(c):
+    return {"cat": "kernel", "name": "k", "ts": 10.0 * c + 5, "args": {"correlation": c}}
+
+
+@pytest.mark.parametrize("device_events,trace,warned", [
+    (0, [], "holds none"),
+    (2, [_launch(1), _kernel(1), _launch(2), _kernel(2)], None),
+    (1, [_launch(1), _kernel(1), _launch(2)], "lost 1 of the 2 kernels launched"),
+], ids=["0", "2", "1-lost"])
 def test_profile_trace_warns_when_the_card_recorded_nothing(tmp_path, monkeypatch,
-                                                            device_events):
+                                                            device_events, trace, warned):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
-    session = _Session([DeviceType.CPU] + [DeviceType.CUDA] * device_events)
+    from localdiffusion_tpu_torch.utils import logging as L
+
+    session = _Session([DeviceType.CPU] + [DeviceType.CUDA] * device_events, trace)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(torch.profiler, "profile", session)
+    # the session lasts MIN_SESSION_S: half of it before the block, the rest
+    # after it (the host's sleep stood in for)
+    sleeps = []
+    monkeypatch.setattr(L.time, "sleep", sleeps.append)
     with warnings.catch_warnings(record=True) as record:
         warnings.simplefilter("always")
-        with profile_trace(str(tmp_path)):
-            pass
+        with profile_trace(str(tmp_path)) as prof:
+            sleeps.append("block")
+    assert sleeps[:2] == [L.MIN_SESSION_S / 2, "block"]
+    assert L.MIN_SESSION_S / 2 < sleeps[2] <= L.MIN_SESSION_S
     assert ProfilerActivity.CUDA in session.activities
-    empty = [w for w in record if "holds none" in str(w.message)]
-    assert [w.category for w in empty] == ([RuntimeWarning] if device_events == 0 else [])
+    assert (prof.lost_kernels, prof.launched_kernels) == L.lost_kernels(trace)
+    said = [str(w.message) for w in record if w.category is RuntimeWarning]
+    assert [m for m in said if "profile_trace" in m] == (
+        [] if warned is None else [m for m in said if warned in m])
+    assert warned is None or len(said) == 1
     assert (tmp_path / "trace.json").exists()
+
+
+def test_launch_gaps_read_the_device_clock_drift():
+    """A kernel's start less its runtime call's, matched by correlation id;
+    unmatched events and other categories are left out; a launch without
+    its kernel counts as lost."""
+    from localdiffusion_tpu_torch.utils.logging import launch_gaps_us, lost_kernels
+
+    events = [
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 100.0, "args": {"correlation": 7}},
+        {"cat": "kernel", "name": "k", "ts": 112.5, "args": {"correlation": 7}},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 200.0, "args": {"correlation": 8}},
+        {"cat": "kernel", "name": "k", "ts": 150.0, "args": {"correlation": 8}},
+        {"cat": "kernel", "name": "orphan", "ts": 5.0, "args": {"correlation": 9}},
+        {"cat": "gpu_memcpy", "ts": 300.0, "args": {"correlation": 7}},
+        {"cat": "cpu_op", "name": "aten::add_", "ts": 99.0, "args": {}},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernelExC", "ts": 400.0,
+         "args": {"correlation": 11}},
+        {"cat": "cuda_driver", "name": "cuLaunchKernelEx", "ts": 450.0,
+         "args": {"correlation": 13}},
+        {"cat": "kernel", "name": "gemm", "ts": 460.0, "args": {"correlation": 13}},
+        {"cat": "cuda_runtime", "name": "cudaStreamSynchronize", "ts": 500.0,
+         "args": {"correlation": 12}},
+    ]
+    assert launch_gaps_us(events) == [12.5, -50.0, 10.0]
+    assert launch_gaps_us([]) == []
+    assert lost_kernels(events) == (1, 4)
+    assert lost_kernels([]) == (0, 0)
