@@ -141,7 +141,7 @@ Phases, each printed on its own line with the elapsed seconds:
     `build_frontend`, card vs CPU; then, with every count at 0, the margin
     evaluation's entry point (`scripts.eval_margins.main`) at n=8, batch 8,
     DDPM T=250, variants plain and denoiser, on the trained denoiser: its
-    bank of 200 brains and ladder built on the card under
+    bank of 50 brains and ladder built on the card under
     `build/shipped/`, Stage A's masks, both chains; the launches checked
     against the UNet calls and tap passes; the per-variant OOD-region MSE
     and the delta printed, not judged (n=8 cannot resolve the margin).
@@ -183,11 +183,11 @@ Phases, each printed on its own line with the elapsed seconds:
     T=250, f32, and its eval chain; the training set the idx files' digit
     8), the bank CLI on `mnist_gated_config()` (the WRN50-2 at 84px over
     200 digits), `scripts.test` on `mnist_8to5`, `mnist_usegt` and
-    `mnist_gated` (its gate on that bank) at 8 t10k images each; then
+    `mnist_gated` (its gate on that bank) at 4 t10k images each; then
     `mvtec_synthetic_config()` (64px, 3 channels, f32: 32 single-pass GN
     and 3 f32 attention launches a UNet call): `scripts.train` for 4
     resident steps over the 192 training textures at batch 16,
-    `scripts.test` on 16 defective textures (img/s, launches per chain),
+    `scripts.test` on 4 defective textures (img/s, launches per chain),
     its chain against the plain versions (same noise, 1e-3) and one UNet
     call against the CPU (1e-3 abs+rel); one `scripts.test` batch of
     `mvtec_denoise_config()`; each run's launches checked against its UNet
@@ -200,7 +200,7 @@ Phases, each printed on its own line with the elapsed seconds:
     learned features, then with random ones, whose weights come out
     bit-unchanged; gradients with the kernels against the plain modules on
     both coins (same t and noise; the training phase's bf16 bars); the
-    trained model's T=250 branched chain at batch 4 (zeros for the
+    trained model's branched chain at T=50 of its weights, batch 4 (zeros for the
     estimate, as the samplers pass none) against its plain versions (the
     256px chain bars);
 22. serve (`mri256_bf16_config()`: the shipped denoiser and seg detector,
@@ -208,22 +208,22 @@ Phases, each printed on its own line with the elapsed seconds:
     --port 0` started in a new process, as a user starts it (the seconds to
     bind and of its warm-up, one request without a mask, /healthz, stopped
     by an interrupt); then, in this process, `scripts.serve.build_server`
-    (warmed up) behind loopback HTTP with every count at 0: 12 requests,
-    four at a time (a half mask, all ones, none: the seg detector decides),
-    each four one batch; every status 200, /stats, /healthz, a 3-channel
+    (warmed up) behind loopback HTTP with every count at 0: 6 requests,
+    two at a time (a half mask, all ones, none: the seg detector decides),
+    each two in one batch; every status 200, /stats, /healthz, a 3-channel
     body's 400; the launches as the chains' UNet calls; each dispatch run
     again through `pipe.translate` with its batch's noise, and each served
     pred bit for bit its row; latency median and maximum;
 23. sampler_api: `sample` on `mri256_config()` (full width, T cut to 25)
     with an all-ones mask and a half mask, bit for bit the direct sampler
     call with the same launches; `interpolate` at full width, batch 4,
-    bf16, T=250 from t = T-1, against its plain-version chain (the 256px
+    bf16, T=50 from t = T-1, against its plain-version chain (the 256px
     chain bars); `return_debug` on the trained flagship (the exported
     `results_torch/mnist_x250_best10000.npz`), its six entries card vs CPU
     with the same numpy noise (the flagship's bar);
 24. mnist_trained (entered with both TF32 flags on): the two exported MNIST
     checkpoints (`results_torch/*.npz`, size and sha256 printed), one UNet
-    call each card vs CPU (1e-4), the test CLI on 8 seeded t10k digits
+    call each card vs CPU (1e-4), the test CLI on 2 seeded t10k digits
     (idx files written under `build/mnist_trained/`, the manual mask) on
     the card and on the CPU with the same numpy noise (mean MSE within the
     flagship's bar), and an `InferenceServer` answering 8 requests from
@@ -277,7 +277,24 @@ Phases, each printed on its own line with the elapsed seconds:
     one-process server's on the same requests (a launch covers whatever rows
     it is given), the served images against one process's (rel. L2 and max
     |diff|), the masks bit for bit, each mesh's wall time;
-33. aged trace: `profile_trace` of a block of a few milliseconds in this
+33. linatt_attrib (entered with both TF32 flags on): with every count at 0,
+    `scripts.bench_linatt_attrib` as a user runs it (the JAX script's rows
+    at the 256px stage-0 shape, [8, 256, 256, 32] bf16: the shipping pair,
+    the elementwise and copy floors, each pass alone and with its
+    exponentials made linear), its launches read after; then the kv and q
+    kernels' attribution variants (every exponential a * 0.5 + 1) against
+    their plain versions (l and G per row, the q pass given W~ on its
+    well-conditioned tokens) and the copy kernel bit for bit, each timed
+    beside its plain version, its bound and (the copy) `Tensor.copy_`;
+34. tensor_parallel: two ranks on the one card (gloo) over
+    `make_mesh(model=2)`, each holding its half of the shipped 256px
+    denoiser (`shard_tensor_parallel`): one UNet call at batch 4 of
+    `mri256_bf16_config()` in bf16 and in float32 with TF32 off, and a
+    10-step branched DDIM chain in bf16, each against one process (bf16:
+    the call's rel. L2 and correlation, the chain's rel. L2 at the section-2
+    bars; float32 1e-4), each rank's launches a call against one process's,
+    and its parameter bytes against the whole;
+35. aged trace: `profile_trace` of a block of a few milliseconds in this
     process, then as old as the whole run and at least 800 s old (a run
     on a fast card waits for that age): every kernel the block launched
     must be in the trace (a bare `torch.profiler` session of the same block
@@ -386,6 +403,7 @@ from localdiffusion_tpu_torch.ood.patchcore import (
 )
 from localdiffusion_tpu_torch.ood.thresholds import manual_mask, near_threshold
 from localdiffusion_tpu_torch.ops import _build
+from localdiffusion_tpu_torch.ops import copy_probe as CP
 from localdiffusion_tpu_torch.ops import groupnorm as G
 from localdiffusion_tpu_torch.ops import linear_attention as LA
 from localdiffusion_tpu_torch.ops import resnet_block as RB
@@ -406,7 +424,7 @@ from localdiffusion_tpu_torch.utils.params_io import save_params_npz
 from localdiffusion_tpu_torch.utils.precision import full_float32
 
 KERNELS = ("groupnorm_film_silu", "groupnorm_tiled", "flash_attention", "linear_attention",
-           "resnet_block")
+           "resnet_block", "copy_probe")
 COUNTERS = {
     "groupnorm_film_silu": groupnorm_film_silu,  # the single-pass kernel
     "gn_tiled_stats": G.gn_tiled_stats,
@@ -585,7 +603,9 @@ STEM_CHAIN_REL, STEM_UNET_F32_TOL = 1e-3, 1e-3
 RESULTS = Path(__file__).resolve().parent / "results"
 SHIPPED = ("mri_synth256_ema.npz", "mri_stem256_ema.npz", "seg256_params.npz")
 SHIPPED_DIR = STAGE_A_DIR.parent / "shipped"
-MARGIN_IMAGES, MARGIN_BATCH, MARGIN_BANK = 8, 8, 200
+# the margin run's detector bank: 50 brains (200 before the attribution and
+# tensor-parallel phases came in)
+MARGIN_IMAGES, MARGIN_BATCH, MARGIN_BANK = 8, 8, 50
 # the training path (`mri256_config()`: batch 8, bf16, the 256 synthetic
 # training brains at 256px): one resident epoch (32 microbatches), one
 # streamed epoch, 4 batch steps, then `scripts.train` for 2 resident steps
@@ -3418,10 +3438,13 @@ def _train_f32() -> dict:
 DATA_DIR = STAGE_A_DIR.parent / "datasets"
 # seeded synthetic digits written as MNIST idx files, train and t10k (the
 # real files are not in the repository); the MNIST test configurations at
-# 8 images each; the MVTec-style configuration's 4 resident steps over its
-# 192 training textures at batch 16 and 16 test images
-DATA_DIGITS, DATA_MNIST_STEPS, DATA_MNIST_IMAGES, DATA_MNIST_BANK = 2048, 2, 8, 200
-DATA_MVTEC_STEPS, DATA_MVTEC_IMAGES, DATA_MVTEC_CHECK = 4, 16, 4
+# 4 images each (8 before the attribution and tensor-parallel phases came
+# in); the MVTec-style configuration's 4 resident steps over its 192
+# training textures at batch 16
+DATA_DIGITS, DATA_MNIST_STEPS, DATA_MNIST_IMAGES, DATA_MNIST_BANK = 2048, 2, 4, 200
+# mvtec_synthetic's test CLI: 4 textures (16 before the attribution and
+# tensor-parallel phases came in; 39.8 s of the run)
+DATA_MVTEC_STEPS, DATA_MVTEC_IMAGES, DATA_MVTEC_CHECK = 4, 4, 4
 IDX_UINT8 = 0x08
 
 
@@ -3652,7 +3675,9 @@ def datasets_phase() -> dict:
 # the denoiser variants: self-conditioning, learned and random Fourier features
 # ---------------------------------------------------------------------------
 
-SC_STEPS, SC_COINS = 4, (True, False, True, False)
+# the trained model's chain: T=50 of the same weights (T=250 before the
+# attribution and tensor-parallel phases came in)
+SC_STEPS, SC_COINS, SC_CHAIN_T = 4, (True, False, True, False), 50
 
 
 def _sc_trainer(cfg):
@@ -3665,7 +3690,8 @@ def self_cond_phase() -> dict:
     features (bf16, batch 8): the pre-pass's and the grad pass's launches,
     none in a backward; 4 batch steps with the coin both ways, then the
     same with random features; gradients kernels vs plain modules; one
-    T=250 branched chain of the trained model against its plain versions."""
+    branched chain of the trained model (T=50 of its weights) against its
+    plain versions."""
     t_phase = time.perf_counter()
     base = mri256_config()
     cfg = base.replace(model=dataclasses.replace(base.model, self_condition=True,
@@ -3742,7 +3768,13 @@ def self_cond_phase() -> dict:
             TRAIN_GRAD_REL, TRAIN_GRAD_COS)
     del ref
 
-    # (d) one T=250 branched chain of the trained model, zeros for x_self_cond
+    # (d) one branched chain of the trained model at T=SC_CHAIN_T (its
+    # weights in an engine of that schedule), zeros for x_self_cond
+    cfg = cfg.replace(diffusion=dataclasses.replace(cfg.diffusion, timesteps=SC_CHAIN_T,
+                                                    sampling_timesteps=None))
+    weights = gd.model.state_dict()
+    gd = build_gd(cfg, device="cuda")
+    gd.model.load_state_dict(weights)
     pipe = LocalDiffusionPipeline(cfg, gd)
     lo, hi = pipe.min_max_val
     lr4 = rng.uniform(0, hi, (MRI_BATCH, s, s, 1)).astype(np.float32)
@@ -3784,20 +3816,26 @@ SHIPPED_DENOISER = RESULTS / "mri_synth256_ema.npz"
 # denoiser and seg detector) at batch 4: per kind 4 requests (a half mask,
 # branched; all ones, plain; no mask, the seg detector decides), each kind
 # sent together after the last kind's answers, so each forms one batch
-SERVE_KINDS, SERVE_PER_KIND, SERVE_WAIT_MS = ("branched", "plain", "detector"), 4, 1000
+# requests of each kind: 2 (4 before the attribution and tensor-parallel
+# phases came in)
+SERVE_KINDS, SERVE_PER_KIND, SERVE_WAIT_MS = ("branched", "plain", "detector"), 2, 1000
 CONFIG_JSON = STAGE_A_DIR.parent / "config" / "mri256_bf16.json"
 SERVE_CLI_TIMEOUT_S = 300
 # the sampler's API: `sample` against the direct sampler calls on
 # `mri256_config()` at full width with T cut to 25 for time (its dispatch is
-# the same at any T); `interpolate` at full width, batch 4, bf16, T=250 from
+# the same at any T); `interpolate` at full width, batch 4, bf16, T=50 from
 # t = T-1, against its plain-version chain at the 256px chain bars;
 # `return_debug` on the trained flagship, card vs CPU at the flagship's bar
-SAMPLE_T, INTERP_BATCH, INTERP_LAM = 25, 4, 0.3
+# interpolate's chain: T=50 of the T=250 configuration (250 before the
+# attribution and tensor-parallel phases came in)
+SAMPLE_T, INTERP_T, INTERP_BATCH, INTERP_LAM = 25, 50, 4, 0.3
 # the exported MNIST checkpoints (tracked in git, `scripts/export_orbax_npz.py`)
 MNIST_NPZ = {"mnist_x250": ROOT / "results_torch" / "mnist_x250_best10000.npz",
              "mnist_u150": ROOT / "results_torch" / "mnist_u150_best200.npz"}
 MNIST_DIR = STAGE_A_DIR.parent / "mnist_trained"
-MNIST_TEST_IMAGES, MNIST_SERVE, MNIST_UNET_TOL = 8, 8, 1e-4
+# the test CLI's images on each checkpoint: 2 (8 before the attribution and
+# tensor-parallel phases came in; the CPU's CLIs took 34.7 s of the run)
+MNIST_TEST_IMAGES, MNIST_SERVE, MNIST_UNET_TOL = 2, 8, 1e-4
 # the aux models: the seg detector trained at 256px for 2 epochs (64 brains at
 # batch 4), the classifier for 2 epochs on the seeded t10k digits, and the
 # volume CLIs on an 8-slice seeded MetaImage volume at 256px, batch 4
@@ -4070,7 +4108,8 @@ def sampler_api_phase() -> dict:
 
     with torch.random.fork_rng(devices=[torch.device("cuda")]):
         torch.manual_seed(11)
-        gdf = build_gd(full, device="cuda")
+        gdf = build_gd(full.replace(diffusion=dataclasses.replace(
+            full.diffusion, timesteps=INTERP_T, sampling_timesteps=None)), device="cuda")
     x1 = torch.as_tensor(hr, device="cuda")
     x2 = torch.flip(x1, dims=(0,))
     before = read_counts()
@@ -4156,7 +4195,7 @@ def _cpu_test_cli(name: str, npz: Path, data: list) -> subprocess.Popen:
 
 def mnist_trained_phase() -> dict:
     """The exported MNIST checkpoints: one UNet call card vs CPU each, the
-    test CLI on 8 seeded t10k digits on the card and (in processes of their
+    test CLI on 2 seeded t10k digits on the card and (in processes of their
     own, beside it) on the CPU with the same noise, and a server answering 8
     requests from the mnist_u150 weights."""
     t_phase = time.perf_counter()
@@ -5070,6 +5109,289 @@ def mesh_serve_phase() -> dict:
     return dict(counts=counts, perf=perf, checks=checks)
 
 
+# ---------------------------------------------------------------------------
+# the linear-attention attribution (scripts.bench_linatt_attrib)
+# ---------------------------------------------------------------------------
+
+ATTRIB_DIR = STAGE_A_DIR.parent / "linatt_attrib"
+# the attribution kernels: the kv and q kernels' kLin instantiation and the
+# bare copy, with the JAX script's functions they replace
+ATTRIB_COUNTERS = {"linatt_attrib_kv": LA.kv_linear_exp, "linatt_attrib_q": LA.q_linear_exp,
+                   "copy_probe": CP.copy_tiles}
+ATTRIB_SOURCES = {
+    "linatt_attrib_kv": ("localdiffusion_tpu_torch/csrc/linear_attention.cu",
+                         "scripts/bench_linatt_attrib.py:68"),
+    "linatt_attrib_q": ("localdiffusion_tpu_torch/csrc/linear_attention.cu",
+                        "scripts/bench_linatt_attrib.py:112"),
+    "copy_probe": ("localdiffusion_tpu_torch/csrc/copy_probe.cu",
+                   "scripts/bench_linatt_attrib.py:206"),
+}
+
+
+@plain_in_float32
+def linatt_attrib_phase() -> dict:
+    """The attribution script (`scripts.bench_linatt_attrib`, the port's
+    main path of the JAX script) at its shape, [8, 256, 256, 32] bf16, with
+    every count at 0 before it and read after; then each attribution kernel
+    against its plain version on the same inputs (the script's `compare`:
+    l, the Gram and the q pass given W̃ each on its own, the copies bit for
+    bit), timed beside its plain version, its bound and, for the copy, the
+    library's `Tensor.copy_`."""
+    from localdiffusion_tpu_torch.scripts import _measure as MS
+    from localdiffusion_tpu_torch.scripts import bench_linatt_attrib as A
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    for fn in ATTRIB_COUNTERS.values():
+        fn.launches = 0
+    rec = A.main(["--out-dir", str(ATTRIB_DIR), "--no-check"])  # compared below
+    torch.cuda.synchronize()
+    counts = read_counts()
+    launches = {k: fn.launches for k, fn in ATTRIB_COUNTERS.items()}
+    perf = dict(script_s=time.perf_counter() - t_phase,
+                rows={r["name"]: r["ms"] for r in rec["rows"]}, derived=rec["derived"])
+    log(f"linatt_attrib: the script ran in {perf['script_s']:.2f}s; attribution launches "
+        f"{launches}, main-path launches {counts}; rows (device ms a call) "
+        + "; ".join(f"{n} {ms:.4f}" for n, ms in perf["rows"].items())
+        + f"; derived {json.dumps(rec['derived'])}")
+    if any(v < 1 for v in launches.values()):
+        raise RuntimeError(f"an attribution kernel never launched in the script: {launches}")
+
+    inp = A.inputs()
+    ops = A.operands(inp)
+    xr, g_in, wk, wq, nb = ops["xr"], inp["g_in"], ops["wk"], ops["wq"], ops["nb"]
+    b_out, g_out, zero = inp["b_out"], inp["g_out"], ops["zero"]
+    errs = A.compare(inp, ops)
+    got = LA.kv_linear_exp(xr, g_in, wk, nb)
+    want = LA.kv_linear_reference(xr, g_in, wk, nb)
+    g_err = (got[2] - want[2]).abs().max().item()
+    b, n, c = xr.shape
+    xb = xr.numel() * 2
+    tensor_ms = 1e3 * 4 * b * n * c * 128 / BF16_OPS_PER_S  # two [N, C] x [C, 128] products
+    fma_ms = 1e3 * 2 * b * n * 128 / FP32_OPS_PER_S  # one a*0.5 + 1 a token and column
+    floors = {
+        "linatt_attrib_kv": {"bytes": 1e3 * (xb + c * 128 * 2 + 4 * b * (2 * 128 + c * 128))
+                             / HBM_BYTES_PER_S, "tensor": tensor_ms, "fp32": fma_ms},
+        "linatt_attrib_q": {"bytes": 1e3 * (2 * xb + c * 128 * 2 + b * 128 * c * 2)
+                            / HBM_BYTES_PER_S, "tensor": tensor_ms, "fp32": fma_ms},
+        "copy_probe": {"bytes": 1e3 * 2 * xb / HBM_BYTES_PER_S},
+    }
+    out_buf = torch.empty_like(xr)
+    timing = {
+        "linatt_attrib_kv": (lambda: LA.kv_linear_exp(xr, g_in, wk, nb),
+                             lambda: LA.kv_linear_reference(xr, g_in, wk, nb), None, g_err),
+        "linatt_attrib_q": (lambda: LA.q_linear_exp(xr, g_in, wq, zero, b_out, g_out),
+                            lambda: LA.q_pass_reference(xr, g_in, wq, zero, b_out, g_out,
+                                                        exp=LA.lin_exp),
+                            None, errs["q"]["max_abs_err"]),  # its well-conditioned tokens
+        # the JAX script's middle grid, T = 2048 s2d tokens: 64 programs
+        "copy_probe": (lambda: CP.copy_tiles(xr, A.copy_tiles_of(2048, n)),
+                       lambda: xr.clone(), lambda: out_buf.copy_(xr), 0.0),
+    }
+    kernels = {}
+    for name, (fn, plain, library, err) in timing.items():
+        ms = MS.graph_ms(fn, 10, 5)
+        plain_ms = MS.eager_ms(plain, 3)
+        lib_ms = MS.graph_ms(library, 10, 5) if library is not None else None
+        fl = floors[name]
+        kernels[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=max(fl.values()),
+                             bound_by="bytes" if max(fl, key=fl.get) == "bytes" else "operations",
+                             floors=fl, max_abs_err=err, launches=launches[name])
+        log(f"linatt_attrib {name} at [8, 65536, 32] bf16: kernel {ms * 1e3:.1f} us, plain "
+            f"{plain_ms * 1e3:.1f} us (eager), library "
+            f"{'none' if lib_ms is None else f'{lib_ms * 1e3:.1f} us'}, bound "
+            f"{max(fl.values()) * 1e3:.1f} us ("
+            + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in fl.items())
+            + f"); max_abs_err {err:.4g}")
+    for t in A.JAX_TILES:
+        fn = lambda t=t: CP.copy_tiles(xr, A.copy_tiles_of(t, n))  # noqa: E731
+        kernels["copy_probe"][f"T{t}_ms"] = MS.graph_ms(fn, 10, 5)
+    log(f"linatt_attrib checks: {json.dumps(errs)}")
+    perf["phase_s"] = time.perf_counter() - t_phase
+    log(f"linatt_attrib phase: {perf['phase_s']:.1f}s")
+    return dict(counts=counts, perf=perf, checks=errs, kernels=kernels)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over the 'model' axis
+# ---------------------------------------------------------------------------
+
+TP_BATCH = 4
+TP_CHAIN_STEPS = 10
+TP_SEED = 51
+# a 'model' rank against one process: bf16 one UNet call (rel L2, corr) and
+# the chain as PERF.md section 2's bars; float32 with TF32 off 1e-4 (the
+# ranks' collectives add only float32 summation order), one call (a float32
+# rank's call takes ~1.7 s over gloo, so its chain is left out for time)
+TP_REL = {"bfloat16": dict(call=5e-2, chain=0.1), "float32": dict(call=1e-4)}
+TP_CHAIN_DTYPES = ("bfloat16",)
+TP_CORR = 0.999
+TP_MIN_SCALING = 1.8
+
+
+def _tp_config(dtype: str):
+    """`mri256_bf16_config()` as a 10-step DDIM chain in `dtype`."""
+    base = mri256_bf16_config()
+    return base.replace(
+        diffusion=dataclasses.replace(base.diffusion, sampling_timesteps=TP_CHAIN_STEPS),
+        train=dataclasses.replace(base.train, compute_dtype=dtype))
+
+
+def _tp_run(gd, cfg, chain: bool = True) -> dict:
+    """One UNet call at TP_BATCH rows (its launches counted) and, with
+    `chain`, the branched 10-step DDIM chain on tumour brains with disc
+    masks."""
+    from localdiffusion_tpu_torch.diffusion import sampler as S
+
+    s = gd.image_size
+    rng = np.random.default_rng(TP_SEED)
+    _, lr, _ = test_arrays(cfg, TP_BATCH)
+    x = torch.as_tensor(rng.standard_normal((TP_BATCH, s, s, 1)), dtype=torch.float32,
+                        device="cuda")
+    cond = torch.as_tensor(lr, device="cuda")
+    t = torch.full((TP_BATCH,), 100, device="cuda")
+    gd.apply_model(x, cond, t)  # warm
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    call = gd.apply_model(x, cond, t)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    counts = read_counts()
+    out = dict(call=call.float().cpu().numpy(), counts=counts, call_s=call_s)
+    if chain:
+        mask = torch.as_tensor(disc_masks(TP_BATCH, s), device="cuda")
+        t0 = time.perf_counter()
+        img = S.ddim_sample_branched(gd, cond, mask, cfg.sampler, min_max_val_for(cfg),
+                                     noise=TP_SEED)
+        torch.cuda.synchronize()
+        out.update(chain=img.float().cpu().numpy(), chain_s=time.perf_counter() - t0)
+    return out
+
+
+def _tp_worker(rank, world, port, q):
+    """A rank of the tensor_parallel phase: joins a gloo group on the card,
+    builds the shipped denoiser, cuts it to its 'model' shards and runs
+    `_tp_run` in bf16 and in float32; (rank, result) on `q`."""
+    import traceback
+
+    from localdiffusion_tpu_torch.parallel import multihost
+    from localdiffusion_tpu_torch.parallel.mesh import make_mesh
+    from localdiffusion_tpu_torch.parallel.tensor_parallel import shard_tensor_parallel, tp_info
+
+    try:
+        multihost.init_distributed(f"localhost:{port}", world, rank, device="cuda",
+                                   backend="gloo")
+        multihost.warmup_collectives()
+        mesh = make_mesh(model=world, device="cuda")
+        out = {"mesh": list(mesh.mesh_dim_names)}
+        for dtype in ("bfloat16", "float32"):
+            cfg = _tp_config(dtype)
+            gd = load_params(cfg, params_npz=str(SHIPPED_DENOISER), device="cuda",
+                             verbose=False)
+            shard_tensor_parallel(gd.model, mesh)
+            torch.cuda.synchronize()
+            out[dtype] = dict(_tp_run(gd, cfg, chain=dtype in TP_CHAIN_DTYPES),
+                              info=tp_info(gd.model))
+            del gd
+        q.put((rank, out))
+    except BaseException:
+        q.put((rank, "error: " + traceback.format_exc()))
+        raise
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _corr(a, b) -> float:
+    return float(np.corrcoef(np.ravel(a), np.ravel(b))[0, 1])
+
+
+def tensor_parallel_phase() -> dict:
+    """Two ranks on the one card (gloo) with `make_mesh(model=2)`, each
+    holding half of the shipped 256px denoiser (`shard_tensor_parallel`):
+    one UNet call at batch 4 of `mri256_bf16_config()` in bf16 and in
+    float32 with TF32 off, and a 10-step branched DDIM chain in bf16, each
+    held against one process; each rank launches per call what one process
+    does and holds about half the parameter bytes."""
+    import multiprocessing
+    import queue as queue_mod
+
+    t_phase = time.perf_counter()
+    perf, checks = {}, {}
+    one = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = _tp_config(dtype)
+        gd = load_params(cfg, params_npz=str(SHIPPED_DENOISER), device="cuda", verbose=False)
+        one[dtype] = _tp_run(gd, cfg, chain=dtype in TP_CHAIN_DTYPES)
+        del gd
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_tp_worker, args=(r, DIST_WORLD, port, q))
+             for r in range(DIST_WORLD)]
+    for p in procs:
+        p.start()
+    res = {}
+    try:
+        for _ in range(DIST_WORLD):
+            rank, got = q.get(timeout=DIST_TIMEOUT_S)
+            if isinstance(got, str):
+                raise RuntimeError(f"tensor_parallel rank {rank} failed:\n{got}")
+            res[rank] = got
+    except queue_mod.Empty:
+        raise RuntimeError(f"a tensor_parallel rank gave no answer in {DIST_TIMEOUT_S}s") \
+            from None
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    perf["two_ranks_s"] = time.perf_counter() - t0
+    counts = {k: 0 for k in COUNTERS}
+    for dtype in ("bfloat16", "float32"):
+        want = one[dtype]
+        bars = TP_REL[dtype]
+        for r in sorted(res):
+            got = res[r][dtype]
+            c = dict(call_rel_l2=_rel_l2(got["call"], want["call"]),
+                     call_corr=_corr(got["call"], want["call"]),
+                     memory_scaling=got["info"]["memory_scaling"],
+                     per_device_bytes=got["info"]["per_device_bytes"],
+                     global_bytes=got["info"]["global_bytes"],
+                     launches_equal=got["counts"] == want["counts"])
+            if "chain" in want:
+                c.update(chain_rel_l2=_rel_l2(got["chain"], want["chain"]),
+                         chain_corr=_corr(got["chain"], want["chain"]))
+            checks[f"{dtype}_rank{r}"] = c
+            perf[f"{dtype}_rank{r}"] = dict(call_s=got["call_s"], chain_s=got.get("chain_s"))
+            for k, v in got["counts"].items():
+                counts[k] += v
+            log(f"tensor_parallel {dtype} rank {r} of model=2 (mesh {res[r]['mesh']}): UNet "
+                f"call at batch {TP_BATCH} vs one process rel L2 {c['call_rel_l2']:.4g} "
+                f"(<= {bars['call']:g}) corr {c['call_corr']:.6f}; "
+                + (f"{TP_CHAIN_STEPS}-step branched DDIM chain rel L2 {c['chain_rel_l2']:.4g} "
+                   f"(<= {bars['chain']:g}), {got['chain_s']:.2f}s (one process "
+                   f"{want['chain_s']:.2f}s); " if "chain" in want else "")
+                + f"parameter bytes {c['per_device_bytes']} of {c['global_bytes']} "
+                f"(x{c['memory_scaling']:.4f}); launches a call {got['counts']} (one process "
+                f"{want['counts']}); call {got['call_s'] * 1e3:.1f}ms (one process "
+                f"{want['call_s'] * 1e3:.1f}ms)")
+            if (c["call_rel_l2"] > bars["call"] or c.get("chain_rel_l2", 0.0) > bars.get("chain", 1.0)
+                    or (dtype == "bfloat16" and c["call_corr"] < TP_CORR)
+                    or c["memory_scaling"] < TP_MIN_SCALING or not c["launches_equal"]):
+                raise RuntimeError(f"tensor_parallel {dtype} rank {r} disagrees: {c}")
+        perf[f"{dtype}_one_process"] = dict(call_s=want["call_s"], chain_s=want.get("chain_s"))
+    if any(counts[k] < 1 for k in COUNTERS):
+        raise RuntimeError(f"a kernel never launched in the tensor_parallel phase: {counts}")
+    perf["phase_s"] = time.perf_counter() - t_phase
+    log(f"tensor_parallel phase: {perf['phase_s']:.1f}s; launches {counts}")
+    return dict(counts=counts, perf=perf, checks=checks)
+
+
 DRIFTS = []  # (process age s, the card's clock offset s) at each reading
 # the least process age of the aged trace: a run on a fast card waits for it
 AGED_TRACE_AGE_S = 800
@@ -5195,6 +5517,9 @@ def main() -> None:
     features = features_phase()
     native_res = native_phase()
     mesh_serve = mesh_serve_phase()
+    with tf32_on_at_entry("linatt_attrib"):
+        attrib = linatt_attrib_phase()
+    tensor_par = tensor_parallel_phase()
     aged = aged_trace_phase()
 
     phases = {"flagship": flag, "256px": mri, "stage_a": stage_a, "gated": gated,
@@ -5203,7 +5528,7 @@ def main() -> None:
               "sampler_api": sampler_api, "mnist_trained": mnist, "aux": aux, "patch": patch,
               "distributed": distributed, "stream": stream, "reference_ckpt": reference,
               "features": features, "native": native_res, "mesh_serve": mesh_serve,
-              "aged_trace": aged}
+              "linatt_attrib": attrib, "tensor_parallel": tensor_par, "aged_trace": aged}
     launches = {name: {label: ph["counts"][name] for label, ph in phases.items()}
                 for name in COUNTERS}
     total = {name: sum(v.values()) for name, v in launches.items()}
@@ -5292,6 +5617,19 @@ def main() -> None:
         k.update(train_launches=launches[k["name"]]["training"], backward=BACKWARD[k["name"]])
     if any(k["launches"] < 1 or k["train_launches"] < 1 for k in kernels):
         raise RuntimeError(f"a kernel never launched on the main paths: {launches}")
+    for name, t in attrib["kernels"].items():
+        source, replaces = ATTRIB_SOURCES[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=t["launches"], max_abs_err=t["max_abs_err"], ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"],
+            per="one launch at [8, 65536, 32] bf16 (the 256px stage-0 site), launches from "
+                "scripts.bench_linatt_attrib's run; library: Tensor.copy_ for the copy, none "
+                "computes the kv or q pass",
+            floors=t["floors"], **{k: v for k, v in t.items() if k.startswith("T")}))
+    if any(t["launches"] < 1 for t in attrib["kernels"].values()):
+        raise RuntimeError(f"an attribution kernel never launched: {attrib['kernels']}")
     log("end to end: " + "; ".join(f"{label} {json.dumps(ph['perf'])}"
                                    for label, ph in phases.items())
         + "; busy share " + " ".join(f"{label} {ph['busy_share']:.4f}"
@@ -5306,7 +5644,8 @@ def main() -> None:
         + "".join(f"; {label} checks {json.dumps(phases[label]['checks'])}"
                   for label in ("serve", "sampler_api", "mnist_trained", "aux", "patch",
                                 "distributed", "stream", "reference_ckpt", "features",
-                                "native", "mesh_serve", "aged_trace")))
+                                "native", "mesh_serve", "linatt_attrib", "tensor_parallel",
+                                "aged_trace")))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -94,6 +94,16 @@
 // resets the counter, so the next launch (and a CUDA graph's replay) finds
 // it at 0.
 //
+// The attribution variant (kLin = true, `linear_attention_kv_linexp` and
+// `linear_attention_q_linexp`): every exponential, the online rescale and
+// the merge's weights included, becomes the linear map a * 0.5 + 1 of the
+// same natural-log argument a, as scripts/bench_linatt_attrib.py replaces
+// exp by v * 0.5 + 1 in its kv_kernel and q_kernel; in pass 2 a is q less
+// the token's max over its 128 columns, the JAX q_kernel's shift (the
+// softmax of the main path subtracts each head's max, which it does not
+// see).  It times each pass without its special-function work; the main
+// path's instantiation (kLin = false) is the code above.
+//
 // Launch contract: the caller passes the current stream; the kernels
 // allocate nothing (the scratch and the zeroed counters are the caller's)
 // and each function returns cudaGetLastError().  Every pointer to bf16 data
@@ -334,9 +344,27 @@ struct KvOccupancy {  // two blocks an SM where the registers allow
   static constexpr int value = C <= 64 ? 2 : 1;
 };
 
-// exp(a - b) for b >= a, a = -inf giving 0 (an empty block, or none yet)
+// exp(a - b) for b >= a, a = -inf giving 0 (an empty block, or none yet);
+// with kLin, (a - b) * 0.5 + 1
+template <bool kLin>
 __device__ __forceinline__ float weight(float a, float b) {
-  return a == -CUDART_INF_F ? 0.f : ex2((a - b) * kLog2e);
+  if (a == -CUDART_INF_F) return 0.f;
+  if constexpr (kLin) {
+    return fmaf(a - b, 0.5f, 1.f);
+  } else {
+    return ex2((a - b) * kLog2e);
+  }
+}
+
+// exp(k - m) of a k rounded to bf16, given ms = m log2 e (ms = m with
+// kLin, which gives (k - m) * 0.5 + 1); a token past n (k = -inf) gives 0
+template <bool kLin>
+__device__ __forceinline__ float exp_shifted(float k, float ms) {
+  if constexpr (kLin) {
+    return k == -CUDART_INF_F ? 0.f : fmaf(k - ms, 0.5f, 1.f);
+  } else {
+    return ex2(fmaf(k, kLog2e, -ms));
+  }
 }
 
 __device__ __forceinline__ float4 ldcg4(const float* p) {
@@ -348,7 +376,7 @@ __device__ __forceinline__ float4 ldcg4(const float* p) {
 // [B][nb][C + 2][128] float32 (m, l, G of each block); counter: [B] int,
 // zero.  Writes m, l [B][128] and gram [B][C][128] (float32), l and G
 // relative to m.
-template <int C>
+template <int C, bool kLin>
 __global__ void __cluster_dims__(kCluster, 1, 1)
     __launch_bounds__(kThreads, KvOccupancy<C>::value)
 kv_kernel(const bf16* __restrict__ x, const float* __restrict__ g_in,
@@ -464,9 +492,9 @@ kv_kernel(const bf16* __restrict__ x, const float* __restrict__ g_in,
         tmx = fmaxf(tmx, (wtid & 1) ? p.y : p.x);
       }
       const float m_new = fmaxf(m_run, tmx);  // finite: a tile holds a token
-      const float f = weight(m_run, m_new);   // 0 on the block's first tile
+      const float f = weight<kLin>(m_run, m_new);  // 0 on the block's first tile
       m_run = m_new;
-      mf[64 * wg + wtid] = make_float2(m_new * kLog2e, f);
+      mf[64 * wg + wtid] = make_float2(kLin ? m_new : m_new * kLog2e, f);
     }
     bar_sync(1 + wg, 128);
 
@@ -475,8 +503,8 @@ kv_kernel(const bf16* __restrict__ x, const float* __restrict__ g_in,
     for (int j = 0; j < 8; ++j) {
       const float4 q = *reinterpret_cast<const float4*>(mf + 64 * wg + 8 * j + 2 * t);
       const float2 k0 = unpack_bf16(kb[2 * j]), k1 = unpack_bf16(kb[2 * j + 1]);
-      const float e00 = ex2(fmaf(k0.x, kLog2e, -q.x)), e01 = ex2(fmaf(k0.y, kLog2e, -q.z));
-      const float e10 = ex2(fmaf(k1.x, kLog2e, -q.x)), e11 = ex2(fmaf(k1.y, kLog2e, -q.z));
+      const float e00 = exp_shifted<kLin>(k0.x, q.x), e01 = exp_shifted<kLin>(k0.y, q.z);
+      const float e10 = exp_shifted<kLin>(k1.x, q.x), e11 = exp_shifted<kLin>(k1.y, q.z);
       lpart[2 * j] = fmaf(lpart[2 * j], q.y, e00 + e10);
       lpart[2 * j + 1] = fmaf(lpart[2 * j + 1], q.w, e01 + e11);
       unsigned char* p = e_s + cm_offset<64>(d0, j) + 4 * t;
@@ -581,7 +609,7 @@ kv_kernel(const bf16* __restrict__ x, const float* __restrict__ g_in,
     float l = 0.f;
 #pragma unroll 8
     for (int p = 0; p < nb; ++p) {
-      const float w = weight(__ldcg(rowp + p * P + tid), m);
+      const float w = weight<kLin>(__ldcg(rowp + p * P + tid), m);
       wt[p * kHid + tid] = w;
       l = fmaf(w, __ldcg(rowp + p * P + kHid + tid), l);
     }
@@ -643,7 +671,7 @@ struct QSmem {
 
 // Pass 2.  Grid (blocks per row, B); each warpgroup takes every
 // (2 gridDim.x)-th tile of its row.  wtil: [B, 128, C] bf16.
-template <int C>
+template <int C, bool kLin>
 __global__ void __launch_bounds__(kThreads, 1)
 q_kernel(const bf16* __restrict__ x, const float* __restrict__ g_in,
          const bf16* __restrict__ wq, const bf16* __restrict__ wtil,
@@ -725,7 +753,33 @@ q_kernel(const bf16* __restrict__ x, const float* __restrict__ g_in,
     reg_fence(q);
 
     // softmax over each head's 32 columns (j = 4 hd .. 4 hd + 3; four lanes
-    // of a token hold 8 each), times the scale, as the A operand of qs W~
+    // of a token hold 8 each), times the scale, as the A operand of qs W~.
+    // The attribution variant subtracts the token's max over all 128
+    // columns, as the JAX script's q_kernel does (a softmax does not see
+    // the shift; the linear map does): each head's max taken as the main
+    // path takes it, then their max, so the variant does the main path's
+    // work but the exponentials and three maxima
+    float tok_mx[2] = {0.f, 0.f};
+    if constexpr (kLin) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float m = -CUDART_INF_F;
+#pragma unroll
+        for (int hd = 0; hd < kHid / kDh; ++hd) {
+          uint32_t w[4];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            w[jj] = pack_bf16(q[4 * (4 * hd + jj) + 2 * r], q[4 * (4 * hd + jj) + 2 * r + 1]);
+          }
+          const float2 m2 =
+              unpack_bf16(max_bf16x2(max_bf16x2(w[0], w[1]), max_bf16x2(w[2], w[3])));
+          float mx = fmaxf(m2.x, m2.y);
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          m = fmaxf(m, fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2)));
+        }
+        tok_mx[r] = m;
+      }
+    }
     uint32_t qa[kHid / 16][4];
 #pragma unroll
     for (int hd = 0; hd < kHid / kDh; ++hd) {
@@ -736,17 +790,21 @@ q_kernel(const bf16* __restrict__ x, const float* __restrict__ g_in,
         for (int jj = 0; jj < 4; ++jj) {
           w[jj] = pack_bf16(q[4 * (4 * hd + jj) + 2 * r], q[4 * (4 * hd + jj) + 2 * r + 1]);
         }
-        const float2 m2 = unpack_bf16(max_bf16x2(max_bf16x2(w[0], w[1]), max_bf16x2(w[2], w[3])));
-        float mx = fmaxf(m2.x, m2.y);
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float ml = mx * kLog2e;
+        float ml = tok_mx[r];
+        if constexpr (!kLin) {
+          const float2 m2 =
+              unpack_bf16(max_bf16x2(max_bf16x2(w[0], w[1]), max_bf16x2(w[2], w[3])));
+          float mx = fmaxf(m2.x, m2.y);
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          ml = mx * kLog2e;
+        }
         float e[8], den = 0.f;
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
           const float2 v = unpack_bf16(w[jj]);
-          e[2 * jj] = ex2(fmaf(v.x, kLog2e, -ml));
-          e[2 * jj + 1] = ex2(fmaf(v.y, kLog2e, -ml));
+          e[2 * jj] = exp_shifted<kLin>(v.x, ml);
+          e[2 * jj + 1] = exp_shifted<kLin>(v.y, ml);
           den += e[2 * jj] + e[2 * jj + 1];
         }
         den += __shfl_xor_sync(0xffffffffu, den, 1);
@@ -820,45 +878,91 @@ cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int C>
+template <int C, bool kLin>
 cudaError_t launch_kv(const void* x, const void* g_in, const void* wk, void* scratch,
                       void* counter, void* m, void* l, void* gram, int batch, int n, int nb,
                       cudaStream_t s) {
   using L = KvSmem<C>;
   static_assert(kMaxBlocks * kHid * 4 <= L::kMergeBytes, "merge weights");
-  const cudaError_t attr = allow_smem(kv_kernel<C>, L::kBytes);
+  const cudaError_t attr = allow_smem(kv_kernel<C, kLin>, L::kBytes);
   if (attr != cudaSuccess) return attr;
-  kv_kernel<C><<<dim3(nb, batch), kThreads, L::kBytes, s>>>(
+  kv_kernel<C, kLin><<<dim3(nb, batch), kThreads, L::kBytes, s>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(g_in),
       static_cast<const bf16*>(wk), static_cast<float*>(scratch), static_cast<int*>(counter),
       static_cast<float*>(m), static_cast<float*>(l), static_cast<float*>(gram), n);
   return cudaGetLastError();
 }
 
-template <int C>
+template <int C, bool kLin>
 cudaError_t launch_q(const void* x, const void* g_in, const void* wq, const void* wtil,
                      const void* b_out, const void* g_out, void* out, int batch, int n,
                      float scale, cudaStream_t s) {
   using L = QSmem<C>;
-  cudaError_t err = allow_smem(q_kernel<C>, L::kBytes);
+  cudaError_t err = allow_smem(q_kernel<C, kLin>, L::kBytes);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, q_kernel<C>, kThreads, L::kBytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, q_kernel<C, kLin>, kThreads,
+                                                      L::kBytes);
   if (err != cudaSuccess) return err;
   // as many blocks as fit on the card at once, spread over the rows (a
   // token's output does not depend on the block that computes it)
   const int ntiles = (n + kTok - 1) / kTok;
   const int slots = sms * (per_sm > 0 ? per_sm : 1);
   const int per_row = std::max(1, std::min((ntiles + 1) / 2, (slots + batch - 1) / batch));
-  q_kernel<C><<<dim3(per_row, batch), kThreads, L::kBytes, s>>>(
+  q_kernel<C, kLin><<<dim3(per_row, batch), kThreads, L::kBytes, s>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(g_in),
       static_cast<const bf16*>(wq), static_cast<const bf16*>(wtil),
       static_cast<const float*>(b_out), static_cast<const float*>(g_out),
       static_cast<bf16*>(out), n, scale);
   return cudaGetLastError();
+}
+
+template <bool kLin>
+int kv_entry(const void* x, const void* g_in, const void* wk, void* scratch, void* counter,
+             void* m, void* l, void* gram, int batch, int n, int c, int nb, void* stream) {
+  if (nb < kBlockStep || nb % kBlockStep || nb > kMaxBlocks || n < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (c) {
+    case 32:
+      err = launch_kv<32, kLin>(x, g_in, wk, scratch, counter, m, l, gram, batch, n, nb, s);
+      break;
+    case 64:
+      err = launch_kv<64, kLin>(x, g_in, wk, scratch, counter, m, l, gram, batch, n, nb, s);
+      break;
+    case 128:
+      err = launch_kv<128, kLin>(x, g_in, wk, scratch, counter, m, l, gram, batch, n, nb, s);
+      break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+template <bool kLin>
+int q_entry(const void* x, const void* g_in, const void* wq, const void* wtil,
+            const void* b_out, const void* g_out, void* out, int batch, int n, int c,
+            float scale, void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (c) {
+    case 32:
+      err = launch_q<32, kLin>(x, g_in, wq, wtil, b_out, g_out, out, batch, n, scale, s);
+      break;
+    case 64:
+      err = launch_q<64, kLin>(x, g_in, wq, wtil, b_out, g_out, out, batch, n, scale, s);
+      break;
+    case 128:
+      err = launch_q<128, kLin>(x, g_in, wq, wtil, b_out, g_out, out, batch, n, scale, s);
+      break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -871,20 +975,7 @@ cudaError_t launch_q(const void* x, const void* g_in, const void* wq, const void
 extern "C" int linear_attention_kv(const void* x, const void* g_in, const void* wk,
                                    void* scratch, void* counter, void* m, void* l, void* gram,
                                    int batch, int n, int c, int nb, void* stream) {
-  if (nb < kBlockStep || nb % kBlockStep || nb > kMaxBlocks || n < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (c) {
-    case 32: err = launch_kv<32>(x, g_in, wk, scratch, counter, m, l, gram, batch, n, nb, s); break;
-    case 64: err = launch_kv<64>(x, g_in, wk, scratch, counter, m, l, gram, batch, n, nb, s); break;
-    case 128:
-      err = launch_kv<128>(x, g_in, wk, scratch, counter, m, l, gram, batch, n, nb, s);
-      break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return kv_entry<false>(x, g_in, wk, scratch, counter, m, l, gram, batch, n, c, nb, stream);
 }
 
 // x: [batch, n, c] bf16; g_in, b_out, g_out: [c] f32; wq: [c, 128] bf16;
@@ -894,14 +985,21 @@ extern "C" int linear_attention_q(const void* x, const void* g_in, const void* w
                                   const void* wtil, const void* b_out, const void* g_out,
                                   void* out, int batch, int n, int c, float scale,
                                   void* stream) {
-  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (c) {
-    case 32: err = launch_q<32>(x, g_in, wq, wtil, b_out, g_out, out, batch, n, scale, s); break;
-    case 64: err = launch_q<64>(x, g_in, wq, wtil, b_out, g_out, out, batch, n, scale, s); break;
-    case 128: err = launch_q<128>(x, g_in, wq, wtil, b_out, g_out, out, batch, n, scale, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return q_entry<false>(x, g_in, wq, wtil, b_out, g_out, out, batch, n, c, scale, stream);
+}
+
+// The attribution variants (kLin): the same arguments and outputs, every
+// exponential replaced by a * 0.5 + 1.
+extern "C" int linear_attention_kv_linexp(const void* x, const void* g_in, const void* wk,
+                                          void* scratch, void* counter, void* m, void* l,
+                                          void* gram, int batch, int n, int c, int nb,
+                                          void* stream) {
+  return kv_entry<true>(x, g_in, wk, scratch, counter, m, l, gram, batch, n, c, nb, stream);
+}
+
+extern "C" int linear_attention_q_linexp(const void* x, const void* g_in, const void* wq,
+                                         const void* wtil, const void* b_out,
+                                         const void* g_out, void* out, int batch, int n, int c,
+                                         float scale, void* stream) {
+  return q_entry<true>(x, g_in, wq, wtil, b_out, g_out, out, batch, n, c, scale, stream);
 }

@@ -17,6 +17,11 @@ Trained, each kernel-bearing module's wrapper records its
 the plain reference) whenever autograd records the call; the casts here
 are differentiable as written, and `use_kernel = False` still takes the
 plain versions, for comparing a train step with and without the kernels.
+
+On a tensor-parallel model (`parallel.tensor_parallel`) each `Conv2d` and
+`Linear` computes from its shards (`_tp`: the sharded leaves), and the
+fused ResnetBlock gathers its leaves over 'model' for its kernels; a model
+that was never sharded takes none of these branches.
 """
 
 from __future__ import annotations
@@ -50,11 +55,18 @@ class Conv2d(nn.Conv2d):
     input, weight and bias cast to it, output of it; parameters stay
     float32."""
 
+    _tp = None  # tensor parallel: {leaf: sharded dim} (parallel.tensor_parallel)
+    _tp_full = 0
+
     def __init__(self, *args, compute_dtype=torch.float32, **kw):
         super().__init__(*args, **kw)
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
+        if self._tp and not self._tp_full:
+            from localdiffusion_tpu_torch.parallel.tensor_parallel import conv_forward
+
+            return conv_forward(self, x)
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
@@ -63,11 +75,18 @@ class Conv2d(nn.Conv2d):
 class Linear(nn.Linear):
     """`nn.Linear` computing in `compute_dtype` (flax `nn.Dense(dtype=...)`)."""
 
+    _tp = None
+    _tp_full = 0
+
     def __init__(self, *args, compute_dtype=torch.float32, **kw):
         super().__init__(*args, **kw)
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
+        if self._tp and not self._tp_full:
+            from localdiffusion_tpu_torch.parallel.tensor_parallel import linear_forward
+
+            return linear_forward(self, x)
         dt = self.compute_dtype
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
@@ -197,6 +216,8 @@ class ResnetBlock(nn.Module):
     kernels).
     """
 
+    _tensor_parallel = False
+
     def __init__(self, dim_in: int, dim_out: int, groups: int = 8,
                  time_dim: int | None = None, dtype=torch.float32):
         super().__init__()
@@ -219,6 +240,11 @@ class ResnetBlock(nn.Module):
             xh = x.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous()
             ss = None if film is None else film.float().chunk(2, dim=-1)
             fn = resnet_block_fused if self.use_kernel else resnet_block_fused_plain
+            if self._tensor_parallel:  # the kernels at full width, from gathered leaves
+                from localdiffusion_tpu_torch.parallel.tensor_parallel import full_width
+
+                with full_width(self.block1, self.block2, self.res_conv):
+                    return fn(xh, self, ss).permute(0, 3, 1, 2)
             return fn(xh, self, ss).permute(0, 3, 1, 2)
         scale_shift = None if film is None else film.chunk(2, dim=-1)
         h = self.block1(x, scale_shift)

@@ -23,6 +23,12 @@ blocks into channels before `init_conv` and unfolds the final conv's
 resolution.  The JAX UNet orders a folded pixel's channels c·f² + i·f + j
 for row offset i and column offset j, which is what `F.pixel_unshuffle`
 and `F.pixel_shuffle` do on NCHW.
+
+Inside a `utils.logging.profile_trace` session each stage module runs in a
+`record_function` scope of its JAX module path (`init_conv`, `time_mlp`,
+`down0_block1`, …, `cond_model`, `conv_fusion`, …, `final_conv`), which
+`scripts.profile_attr` groups the card's time by; outside one no scope is
+entered.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from localdiffusion_tpu_torch.models.blocks import (
     Upsample,
 )
 from localdiffusion_tpu_torch.models.cond_encoder import CondEncoder
+from localdiffusion_tpu_torch.utils.logging import stage_scope
 
 
 def _nchw(x):
@@ -116,7 +123,12 @@ class UNet(nn.Module):
                 Upsample(do, di, dtype) if j < n - 1 else conv3(do, di),
             )
         self.final_res_block = res(init_dim * 2, dim)
-        self.final_conv = nn.Conv2d(dim, cfg.resolved_out_dim * f2, 1)
+        self.final_conv = Conv2d(dim, cfg.resolved_out_dim * f2, 1, compute_dtype=torch.float32)
+
+    def _run(self, name: str, *args):
+        """Stage `name` on `args`, in its profiler scope."""
+        with stage_scope(name):
+            return getattr(self, name)(*args)
 
     def use_plain_kernels(self, plain: bool = True) -> "UNet":
         """Route every module that has a kernel (GroupNorm, full and linear
@@ -132,7 +144,7 @@ class UNet(nn.Module):
         """Condition-encoder features of an NHWC image, as NHWC in the
         compute type.  The image is constant across a sampling chain, so a
         sampler calls this once."""
-        return _nhwc(self.cond_model(_nchw(cond).to(self.dtype)))
+        return _nhwc(self._run("cond_model", _nchw(cond).to(self.dtype)))
 
     def _stem(self, x, x_self_cond=None):
         """NHWC input → init_conv output (NCHW, channels_last, compute type).
@@ -150,7 +162,7 @@ class UNet(nn.Module):
         x = _nchw(x)
         if f > 1:
             x = F.pixel_unshuffle(x, f)
-        return self.init_conv(x.contiguous(memory_format=torch.channels_last))
+        return self._run("init_conv", x.contiguous(memory_format=torch.channels_last))
 
     def down_taps(self, x, time, names):
         """The outputs of the named down-path ResnetBlocks
@@ -166,55 +178,55 @@ class UNet(nn.Module):
             raise ValueError(f"taps {sorted(wanted - valid)} are not down-path blocks "
                              f"({sorted(valid)})")
         x = self._stem(x)
-        t = self.time_mlp(time)
+        t = self._run("time_mlp", time)
         out = {}
         for i in range(n):
             for j in (1, 2):
                 name = f"down{i}_block{j}"
-                x = getattr(self, name)(x, t)
+                x = self._run(name, x, t)
                 if name in wanted:
                     out[name] = _nhwc(x)
             if len(out) == len(wanted):
                 break
-            x = getattr(self, f"down{i}_attn")(x) + x
-            x = getattr(self, f"down{i}_down")(x)
+            x = self._run(f"down{i}_attn", x) + x
+            x = self._run(f"down{i}_down", x)
         return out
 
     def forward(self, x, cond, time, cond_feat=None, x_self_cond=None):
         f = self.cfg.stem_space_to_depth
         x = self._stem(x, x_self_cond)
         r = x
-        t = self.time_mlp(time)
+        t = self._run("time_mlp", time)
 
         skips = []
         n = len(self.in_out)
         for i in range(n):
-            x = getattr(self, f"down{i}_block1")(x, t)
+            x = self._run(f"down{i}_block1", x, t)
             skips.append(x)
-            x = getattr(self, f"down{i}_block2")(x, t)
-            x = getattr(self, f"down{i}_attn")(x) + x
+            x = self._run(f"down{i}_block2", x, t)
+            x = self._run(f"down{i}_attn", x) + x
             skips.append(x)
-            x = getattr(self, f"down{i}_down")(x)
+            x = self._run(f"down{i}_down", x)
 
-        x = self.mid_block1(x, t)
-        x = self.mid_attn(x) + x
-        x = self.mid_block2(x, t)
+        x = self._run("mid_block1", x, t)
+        x = self._run("mid_attn", x) + x
+        x = self._run("mid_block2", x, t)
 
         feat = self.encode_cond(cond) if cond_feat is None else cond_feat
         x = torch.cat([x, _nchw(feat).to(self.dtype)], dim=1)
-        x = self.conv_fusion(x, t)
+        x = self._run("conv_fusion", x, t)
 
         for j in range(n):
             x = torch.cat([x, skips.pop()], dim=1)
-            x = getattr(self, f"up{j}_block1")(x, t)
+            x = self._run(f"up{j}_block1", x, t)
             x = torch.cat([x, skips.pop()], dim=1)
-            x = getattr(self, f"up{j}_block2")(x, t)
-            x = getattr(self, f"up{j}_attn")(x) + x
-            x = getattr(self, f"up{j}_up")(x)
+            x = self._run(f"up{j}_block2", x, t)
+            x = self._run(f"up{j}_attn", x) + x
+            x = self._run(f"up{j}_up", x)
 
         x = torch.cat([x, r], dim=1)
-        x = self.final_res_block(x, t)
-        out = self.final_conv(x.float())
+        x = self._run("final_res_block", x, t)
+        out = self._run("final_conv", x.float())
         if f > 1:
             out = F.pixel_shuffle(out, f)
         return _nhwc(out)

@@ -18,6 +18,15 @@ kernels are `csrc/linear_attention.cu` (see the source for the design):
   * `linear_attention_q` — pass 2: RMSNorm → q projection → per-head
     softmax → ·W̃ + b → RMSNorm out.
 
+The attribution variants (`scripts.bench_linatt_attrib`, the port of
+`scripts/bench_linatt_attrib.py`'s `kv_kernel` and `q_kernel` with
+`use_exp=False`) are the same two kernels with every exponential, the
+rescales and the merge's weights included, replaced by a·0.5 + 1 of the
+same argument: `kv_linear_exp` and `q_linear_exp`, with the plain versions
+`kv_linear_reference` (the kernel's tile-by-tile online recurrence: with
+a linear map the result depends on the tiling) and `q_pass_reference(...,
+exp=lin_exp)`.
+
 `linear_attention` chains them for a CUDA tensor inside the JAX package's
 gate (`supports`: 4 heads of 32, C ∈ {32, 64, 128}, bf16, h·w ≥ 4096) and
 raises outside it; a CPU tensor gets the plain version,
@@ -77,14 +86,26 @@ def blocks_per_row(n: int) -> int:
     return 32 if n >= 32768 else 16
 
 
-def block_ranges(n: int, nb: int) -> list:
+def block_ranges(n: int, nb: int, tile: int = TILE) -> list:
     """The token range [start, end) of each of a row's `nb` kv blocks: the
-    row's ceil(n / 64) tiles split as evenly as whole tiles allow (block p
+    row's ceil(n / tile) tiles split as evenly as whole tiles allow (block p
     takes tiles p·T // nb up to (p + 1)·T // nb), the last tile cut at n.
     A block may be empty when the row has fewer tiles than blocks."""
-    tiles = -(-n // TILE)
-    return [(min(n, TILE * (p * tiles // nb)), min(n, TILE * ((p + 1) * tiles // nb)))
+    tiles = -(-n // tile)
+    return [(min(n, tile * (p * tiles // nb)), min(n, tile * ((p + 1) * tiles // nb)))
             for p in range(nb)]
+
+
+def lin_exp(a):
+    """The attribution variant's exponential: a·0.5 + 1, and 0 at a = −inf
+    (an empty block, or no max yet), where exp gives 0."""
+    return torch.where(torch.isneginf(a), torch.zeros_like(a), a * 0.5 + 1.0)
+
+
+def _lin_weight(a, b):
+    """lin_exp(a − b), and 0 wherever a = −inf (the kernel's `weight`):
+    a token past n or a block without a max yet, whatever b is."""
+    return torch.where(torch.isneginf(a), torch.zeros_like(a), (a - b) * 0.5 + 1.0)
 
 
 def _rms(x, g, dtype):
@@ -146,14 +167,15 @@ def kv_partials_reference(x, g_in, wk, nb):
     return m, l, gram
 
 
-def merge_kv(m, l, gram):
+def merge_kv(m, l, gram, exp=torch.exp):
     """The blocks' partials of a row as one, by the log-sum-exp rule: each
-    block's l and G rescaled by exp(m_block − m_row) and summed.  Returns
+    block's l and G rescaled by exp(m_block − m_row) and summed (`exp`:
+    the attribution variant passes `lin_exp`).  Returns
     m, l [B, 128] and G [B, C, 128].  The sums run in float64, so the
     float32 result does not depend on the rows beside it (PyTorch may reduce
     in another order for another batch)."""
     mrow = m.amax(dim=1)
-    w = torch.exp(m - mrow[:, None])  # [B, nb, 128]
+    w = exp(m - mrow[:, None])  # [B, nb, 128]
     return (mrow, (l * w).sum(dim=1, dtype=torch.float64).float(),
             (gram * w[:, :, None, :]).sum(dim=1, dtype=torch.float64).float())
 
@@ -163,6 +185,47 @@ def kv_reference(x, g_in, wk, nb):
     x [B, N, C] bf16, wk [C, 128] bf16 → m, l [B, 128], G [B, C, 128]
     float32, l and G relative to m."""
     return merge_kv(*kv_partials_reference(x, g_in, wk, nb))
+
+
+def kv_linear_reference(x, g_in, wk, nb, tile=TILE):
+    """Plain pass 1 of the attribution variant (`kv_linear_exp`): every
+    exponential a·0.5 + 1 (`lin_exp`).  A linear map does not compose as
+    exp does (lin(a − b)·lin(b − c) ≠ lin(a − c)), so the result depends on
+    where the running max is rescaled: this runs the kernel's recurrence,
+    each of the `nb` blocks of `block_ranges(n, nb, tile)` walking its tiles
+    of `tile` tokens in order (the max over the tile, the rescale
+    lin(m_old − m_new) of l and G, then the tile's lin(k − m_new)), and
+    merges the blocks' partials with `merge_kv(..., exp=lin_exp)`.  The
+    JAX script's single pass over tiles of T tokens is nb = 1, tile = T.
+    x [B, N, C] bf16, wk [C, 128] bf16 → m, l [B, 128], G [B, C, 128]
+    float32.  The blocks step together, one tile each per step (a block
+    past its last tile holds still)."""
+    b, n, c = x.shape
+    xn = _rms(x, g_in, torch.bfloat16).float()
+    k = (xn @ wk.float()).to(torch.bfloat16).float()
+    ranges = block_ranges(n, nb, tile)
+    steps = max(-(-(e - s) // tile) for s, e in ranges)
+    dev = x.device
+    m = torch.full((b, nb, HIDDEN), -math.inf, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, nb, HIDDEN), dtype=torch.float32, device=dev)
+    gram = torch.zeros((b, nb, c, HIDDEN), dtype=torch.float32, device=dev)
+    # token index of (block, step, position), n (a padding token: k = −inf,
+    # xn = 0) where the block has none
+    pos = torch.arange(tile, device=dev)
+    k = torch.cat([k, k.new_full((b, 1, HIDDEN), -math.inf)], 1)
+    xn = torch.cat([xn, xn.new_zeros((b, 1, c))], 1)
+    for i in range(steps):
+        idx = torch.stack([torch.where(s + i * tile + pos < e, s + i * tile + pos, n)
+                           for s, e in ranges])  # [nb, tile]
+        kt, xt = k[:, idx], xn[:, idx]  # [B, nb, T, 128], [B, nb, T, C]
+        m_new = torch.maximum(m, kt.amax(dim=2))
+        f = _lin_weight(m, m_new)
+        et = _lin_weight(kt, m_new[:, :, None])
+        l = l * f + et.sum(dim=2)
+        gram = gram * f[:, :, None] + torch.einsum(
+            "bptc,bptd->bpcd", xt, et.to(torch.bfloat16).float())
+        m = m_new
+    return merge_kv(m, l, gram, exp=lin_exp)
 
 
 def _check_rows(x, name="x"):
@@ -216,12 +279,9 @@ def _row_counters(device, b):
         return cnt
 
 
-def linear_attention_kv(x, g_in, wk, nb):
-    """Pass 1 (the kv kernel).  x: [B, N, C] bf16 contiguous; g_in: [C]
-    float32; wk: [C, 128] bf16; nb: blocks per row, a multiple of 8 up to
-    64 (`blocks_per_row(N)`).  Returns m, l [B, 128] and G [B, C, 128]
-    float32, l and G relative to m.  A CUDA tensor runs the kernel; a CPU
-    tensor runs the plain version, `kv_reference`."""
+def _kv(counted, symbol, plain, x, g_in, wk, nb):
+    """Pass 1 through the C function `symbol` (counted on `counted`), or
+    `plain` on a CPU tensor."""
     _check_rows(x)
     b, n, c = x.shape
     _check_param("g_in", g_in, (c,), torch.float32, x.device)
@@ -231,14 +291,14 @@ def linear_attention_kv(x, g_in, wk, nb):
     if not x.is_cuda:
         if x.device.type != "cpu":
             raise ValueError(f"no kernel for device {x.device}")
-        return kv_reference(x, g_in, wk, nb)
-    refuse_graph("linear_attention_kv", x, g_in, wk)
+        return plain(x, g_in, wk, nb)
+    refuse_graph(symbol, x, g_in, wk)
     _check_aligned(x=x, wk=wk)
     m = torch.empty((b, HIDDEN), dtype=torch.float32, device=x.device)
     l = torch.empty_like(m)
     gram = torch.empty((b, c, HIDDEN), dtype=torch.float32, device=x.device)
     scratch = torch.empty((b, nb, c + 2, HIDDEN), dtype=torch.float32, device=x.device)
-    fn = _lib().linear_attention_kv
+    fn = getattr(_lib(), symbol)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
     fn.restype = ci
@@ -249,12 +309,32 @@ def linear_attention_kv(x, g_in, wk, nb):
                  counter.data_ptr(), m.data_ptr(), l.data_ptr(), gram.data_ptr(), b, n, c,
                  nb, stream)
     if err != 0:
-        raise RuntimeError(f"linear_attention_kv launch failed: CUDA error {err}")
-    _build.count_launch(linear_attention_kv)
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
+    _build.count_launch(counted)
     return m, l, gram
 
 
+def linear_attention_kv(x, g_in, wk, nb):
+    """Pass 1 (the kv kernel).  x: [B, N, C] bf16 contiguous; g_in: [C]
+    float32; wk: [C, 128] bf16; nb: blocks per row, a multiple of 8 up to
+    64 (`blocks_per_row(N)`).  Returns m, l [B, 128] and G [B, C, 128]
+    float32, l and G relative to m.  A CUDA tensor runs the kernel; a CPU
+    tensor runs the plain version, `kv_reference`."""
+    return _kv(linear_attention_kv, "linear_attention_kv", kv_reference, x, g_in, wk, nb)
+
+
 linear_attention_kv.launches = 0
+
+
+def kv_linear_exp(x, g_in, wk, nb):
+    """Pass 1 of the attribution variant: `linear_attention_kv` with every
+    exponential a·0.5 + 1 (the kernel's `kLin` instantiation); the plain
+    version on a CPU tensor is `kv_linear_reference`."""
+    return _kv(kv_linear_exp, "linear_attention_kv_linexp", kv_linear_reference,
+               x, g_in, wk, nb)
+
+
+kv_linear_exp.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -287,24 +367,30 @@ def _scale(dim_head):
     return float(torch.tensor(dim_head**-0.5, dtype=torch.bfloat16))
 
 
-def q_pass_reference(x, g_in, wq, wtil, b_out, g_out, dim_head=DIM_HEAD):
+def q_pass_reference(x, g_in, wq, wtil, b_out, g_out, dim_head=DIM_HEAD, exp=None):
     """Plain pass 2: x [B, N, C] bf16, wq [C, 128] bf16, wtil [B, 128, C]
-    bf16 → out [B, N, C] bf16 (without the residual)."""
+    bf16 → out [B, N, C] bf16 (without the residual).  `exp=lin_exp` is the
+    attribution variant's softmax, lin(q − m) / Σ_head lin(q − m) with m
+    the token's max over its 128 columns (the JAX script's q_kernel: a
+    softmax does not see the shift, the linear map does)."""
     b, n, c = x.shape
     xn = _rms(x, g_in, torch.bfloat16).float()
     q = (xn @ wq.float()).to(torch.bfloat16).float()
     q = q.reshape(b, n, -1, dim_head)
-    qs = torch.softmax(q, dim=-1).to(torch.bfloat16).float() * _scale(dim_head)
+    if exp is None:
+        p = torch.softmax(q, dim=-1)
+    else:
+        e = exp(q - q.amax(dim=(-2, -1), keepdim=True))
+        p = e / e.sum(dim=-1, keepdim=True)
+    qs = p.to(torch.bfloat16).float() * _scale(dim_head)
     qs = qs.to(torch.bfloat16).float().reshape(b, n, -1)
     out = torch.einsum("bnd,bdc->bnc", qs, wtil.float()) + b_out.float()
     return _rms(out.to(torch.bfloat16), g_out, torch.bfloat16)
 
 
-def linear_attention_q(x, g_in, wq, wtil, b_out, g_out):
-    """Pass 2 (the q kernel).  x: [B, N, C] bf16 contiguous; g_in, b_out,
-    g_out: [C] float32; wq: [C, 128] bf16; wtil: [B, 128, C] bf16.  Returns
-    [B, N, C] bf16.  A CUDA tensor runs the kernel; a CPU tensor runs the
-    plain version."""
+def _q(counted, symbol, plain, x, g_in, wq, wtil, b_out, g_out):
+    """Pass 2 through the C function `symbol` (counted on `counted`), or
+    `plain` on a CPU tensor."""
     _check_rows(x)
     b, n, c = x.shape
     for name, t in (("g_in", g_in), ("b_out", b_out), ("g_out", g_out)):
@@ -314,11 +400,11 @@ def linear_attention_q(x, g_in, wq, wtil, b_out, g_out):
     if not x.is_cuda:
         if x.device.type != "cpu":
             raise ValueError(f"no kernel for device {x.device}")
-        return q_pass_reference(x, g_in, wq, wtil, b_out, g_out)
-    refuse_graph("linear_attention_q", x, g_in, wq, wtil, b_out, g_out)
+        return plain(x, g_in, wq, wtil, b_out, g_out)
+    refuse_graph(symbol, x, g_in, wq, wtil, b_out, g_out)
     _check_aligned(x=x, wq=wq, wtil=wtil)
     out = torch.empty_like(x)
-    fn = _lib().linear_attention_q
+    fn = getattr(_lib(), symbol)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float, vp]
     fn.restype = ci
@@ -328,12 +414,45 @@ def linear_attention_q(x, g_in, wq, wtil, b_out, g_out):
                  b_out.data_ptr(), g_out.data_ptr(), out.data_ptr(), b, n, c,
                  _scale(DIM_HEAD), stream)
     if err != 0:
-        raise RuntimeError(f"linear_attention_q launch failed: CUDA error {err}")
-    _build.count_launch(linear_attention_q)
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
+    _build.count_launch(counted)
     return out
 
 
+def q_linear_conditioning(x, g_in, wq, dim_head=DIM_HEAD):
+    """Per token [B, N], the attribution variant's worst head of
+    Σ|lin(q − m)| / |Σ lin(q − m)|: how much the head's normalisation
+    amplifies a change of one term (1 where every term is positive; large
+    where lin(q − m) = (q − m)·0.5 + 1 goes negative and the sum cancels)."""
+    b, n, _ = x.shape
+    xn = _rms(x, g_in, torch.bfloat16).float()
+    q = (xn @ wq.float()).to(torch.bfloat16).float().reshape(b, n, -1, dim_head)
+    e = lin_exp(q - q.amax(dim=(-2, -1), keepdim=True))
+    return (e.abs().sum(dim=-1) / e.sum(dim=-1).abs()).amax(dim=-1)
+
+
+def linear_attention_q(x, g_in, wq, wtil, b_out, g_out):
+    """Pass 2 (the q kernel).  x: [B, N, C] bf16 contiguous; g_in, b_out,
+    g_out: [C] float32; wq: [C, 128] bf16; wtil: [B, 128, C] bf16.  Returns
+    [B, N, C] bf16.  A CUDA tensor runs the kernel; a CPU tensor runs the
+    plain version."""
+    return _q(linear_attention_q, "linear_attention_q", q_pass_reference,
+              x, g_in, wq, wtil, b_out, g_out)
+
+
 linear_attention_q.launches = 0
+
+
+def q_linear_exp(x, g_in, wq, wtil, b_out, g_out):
+    """Pass 2 of the attribution variant: `linear_attention_q` with the
+    softmax's exponentials a·0.5 + 1 (the kernel's `kLin` instantiation);
+    the plain version on a CPU tensor is `q_pass_reference(...,
+    exp=lin_exp)`."""
+    plain = lambda *a: q_pass_reference(*a, exp=lin_exp)
+    return _q(q_linear_exp, "linear_attention_q_linexp", plain, x, g_in, wq, wtil, b_out, g_out)
+
+
+q_linear_exp.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The parallel layer on `torch.distributed` (port of
-`localdiffusion_tpu/parallel`): the ('data', 'patch') mesh and the row
-selections a rank keeps, the multi-process runtime, FSDP of the training
-state, and patch-parallel sampling.  A pipeline and a server over a mesh
+`localdiffusion_tpu/parallel`): the ('data', 'patch'[, 'model']) mesh and
+the row selections a rank keeps, the multi-process runtime, FSDP of the
+training state, tensor parallelism over 'model', and patch-parallel
+sampling.  A pipeline and a server over a mesh
 are `LocalDiffusionPipeline(mesh=...)` and `InferenceServer`.
 
 The exports of `localdiffusion_tpu/parallel/__init__.py` but these, whose
@@ -10,9 +11,9 @@ work another object does here:
     for every leaf of a tree, and the tree put on it): FSDP2 shards a
     module's parameters itself, so `fsdp.shard_model(model, mesh)` does
     their work, and `fsdp.load_full(model, tensors)` puts full tensors onto
-    the shards;
-  * `tp_param_shardings`: the tensor-parallel 'model' axis is not ported
-    (`make_mesh(model>1)` raises).
+    the shards (and for the 'model' axis,
+    `tensor_parallel.shard_tensor_parallel(model, mesh)` cuts a model to
+    its `tp_param_shardings`).
 """
 
 from localdiffusion_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -36,6 +37,12 @@ from localdiffusion_tpu_torch.parallel.multihost import (  # noqa: F401
     put_tree,
     sync,
     warmup_collectives,
+)
+from localdiffusion_tpu_torch.parallel.tensor_parallel import (  # noqa: F401
+    shard_tensor_parallel,
+    tp_info,
+    tp_param_shardings,
+    unshard_tensor_parallel,
 )
 from localdiffusion_tpu_torch.parallel.patch import (  # noqa: F401
     PatchGrid,

@@ -13,8 +13,9 @@ way).
 The shard layout differs: FSDP2 shards dimension 0 of every parameter
 (`torch.chunk`, padded), where the JAX rule (`spec_for_shape`, kept here
 for `shard_info`'s report) takes the last divisible dimension.  The tests
-compare numbers, not layouts.  The tensor-parallel shardings
-(`tp_param_shardings`) are not ported.
+compare numbers, not layouts.  The tensor-parallel shardings over the
+'model' axis, `tp_param_shardings`, apply the JAX rule itself and live
+with their sharded compute in `parallel.tensor_parallel`.
 """
 
 from __future__ import annotations

@@ -5,7 +5,9 @@ Port of `localdiffusion_tpu/parallel/mesh.py` over
 
   data  - batch data parallelism; with `Trainer(fsdp=True)` the training
           state is also sharded over it (`parallel.fsdp`);
-  patch - the patch axis of patch-parallel sampling (`parallel.patch`).
+  patch - the patch axis of patch-parallel sampling (`parallel.patch`);
+  model - tensor parallelism: the parameters stay sharded while the network
+          computes (`parallel.tensor_parallel`); only present when model > 1.
 
 A JAX sharding places each shard of a global array on its device; here
 every rank holds the global array and keeps its share, so a sharding is a
@@ -14,7 +16,6 @@ coordinate picks the contiguous share (`multihost.row_range`), and a
 sharded result is gathered back where a step needs it whole
 (`multihost.all_gather_rows`).  `BranchSplit` is the counterpart of the
 JAX samplers' `branch_sharding`: the flat [2B] branch pair over 'patch'.
-The tensor-parallel `model` axis is not ported.
 """
 
 from __future__ import annotations
@@ -29,27 +30,32 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from localdiffusion_tpu_torch.parallel.multihost import all_gather_rows, row_range, sum_over
 
 AXES = ("data", "patch")
+MODEL_AXES = ("data", "patch", "model")
 
 
 def make_mesh(data: int = -1, patch: int = 1, model: int = 1, device="cuda") -> DeviceMesh:
     """A ('data', 'patch') mesh over the ranks of the process group, one
-    device a rank (data = -1: every rank not on the patch axis).  In a
-    single process without a group it first joins a group of one rank
-    (gloo over an in-memory store), so a one-device mesh works as in JAX."""
-    if model != 1:
-        raise NotImplementedError(
-            "the tensor-parallel 'model' axis is not ported (ROADMAP.md, queue 1: the "
-            "tensor-parallel model axis, fsdp.py:117 and make_mesh(model>1))")
+    device a rank (data = -1: every rank not on the patch and model axes);
+    with model > 1 a ('data', 'patch', 'model') mesh, as the JAX package's
+    (the model axis innermost: the ranks of a 'model' group are
+    consecutive).  In a single process without a group it first joins a
+    group of one rank (gloo over an in-memory store), so a one-device mesh
+    works as in JAX."""
+    if model < 1:
+        raise ValueError(f"model={model} must be at least 1")
     if not dist.is_initialized():
         dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
     n = dist.get_world_size()
     if data == -1:
-        if n % patch:
-            raise ValueError(f"{n} ranks are not divisible by patch={patch}")
-        data = n // patch
-    if data * patch != n:
-        raise ValueError(f"mesh data={data} x patch={patch} != {n} ranks")
-    return init_device_mesh(torch.device(device).type, (data, patch), mesh_dim_names=AXES)
+        if n % (patch * model):
+            raise ValueError(f"{n} ranks are not divisible by patch*model={patch * model}")
+        data = n // (patch * model)
+    if data * patch * model != n:
+        raise ValueError(f"mesh data={data} x patch={patch} x model={model} != {n} ranks")
+    kind = torch.device(device).type
+    if model == 1:
+        return init_device_mesh(kind, (data, patch), mesh_dim_names=AXES)
+    return init_device_mesh(kind, (data, patch, model), mesh_dim_names=MODEL_AXES)
 
 
 @dataclass(frozen=True)

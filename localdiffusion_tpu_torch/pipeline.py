@@ -14,7 +14,9 @@ steps are gated; DDIM has no gate, as in the reference.
 With `mesh=` (`parallel.mesh.make_mesh`, one process a rank, every rank
 calling `translate` with the same arguments) the pipeline is the JAX one
 over its ('data', 'patch') mesh: every rank holds the same weights
-(checked once by digest), runs its 'data' rows of the batch with noise
+(checked once by digest; on a mesh with a 'model' axis too, where the JAX
+pipeline replicates its params, so a tensor-parallel denoiser is gathered
+whole), runs its 'data' rows of the batch with noise
 drawn for the whole batch and cut to its rows, and steps its 'patch' share
 of the branch pair (`parallel.mesh.BranchSplit`); Stage A runs on the
 first rank and its mask is broadcast, and the rows are gathered, so every
@@ -78,6 +80,15 @@ class LocalDiffusionPipeline:
         self.classifier_gate = classifier_gate
         self.mesh = mesh
         if mesh is not None:
+            if "model" in (mesh.mesh_dim_names or ()):
+                # the JAX pipeline puts its params replicated on a model mesh
+                # (pipeline.py:48-54): a tensor-parallel denoiser is gathered
+                # whole, and the 'model' ranks compute the same rows
+                from localdiffusion_tpu_torch.parallel.tensor_parallel import (
+                    unshard_tensor_parallel,
+                )
+
+                unshard_tensor_parallel(gd.model)
             H.check_replicated(gd.model.state_dict().values(), "denoiser weights")
             self.branch_split = BranchSplit(mesh)
 

@@ -5,6 +5,11 @@ Copies of `CsvLogger` and `Timer` of `localdiffusion_tpu/utils/logging.py`,
 and its `profile_trace` on `torch.profiler`.  The timer takes a `sync`
 callable where the JAX one blocks on arrays: pass `torch.cuda.synchronize`
 to time work on the card to its end.
+
+While a `profile_trace` session records, `profiling()` is true, and the
+UNet marks each stage with a `torch.profiler.record_function` scope of its
+JAX module path (`stage_scope`), which `scripts.profile_attr` reads back;
+outside a session the scopes are not entered and cost nothing.
 """
 
 from __future__ import annotations
@@ -115,6 +120,22 @@ def lost_kernels(events) -> Tuple[int, int]:
 # s); a forced CUPTI flush, padding one side only, or a warm-up phase did
 # not help.  The loss was all or nothing, not at a window's edges.
 MIN_SESSION_S = 8.0
+_SESSIONS = [0]  # profile_trace sessions recording now
+
+
+def profiling() -> bool:
+    """Whether a `profile_trace` session is recording."""
+    return _SESSIONS[0] > 0
+
+
+def stage_scope(name: str):
+    """A `record_function` scope named `name` while `profile_trace`
+    records, else a context that does nothing."""
+    if not _SESSIONS[0]:
+        return contextlib.nullcontext()
+    import torch
+
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager
@@ -150,7 +171,11 @@ def profile_trace(log_dir: str, enabled: bool = True):
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         time.sleep(length / 2)
-        yield prof
+        _SESSIONS[0] += 1
+        try:
+            yield prof
+        finally:
+            _SESSIONS[0] -= 1
         if cuda:
             torch.cuda.synchronize()
             time.sleep(max(0.0, length - (time.perf_counter() - t0)))

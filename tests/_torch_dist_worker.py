@@ -1,5 +1,6 @@
-"""Worker processes of `test_torch_distributed.py` and
-`test_torch_mesh_serving.py` (no tests of its own).
+"""Worker processes of `test_torch_distributed.py`,
+`test_torch_mesh_serving.py` and `test_torch_tensor_parallel.py` (no tests
+of its own).
 
 Each worker blocks JAX, flax, optax, Orbax and the JAX package before it
 imports anything (an entry of None in sys.modules makes an import fail),
@@ -375,6 +376,83 @@ def run_mesh(rank, world, port, weights, queue):
     torch.set_num_threads(1)
     try:
         queue.put((rank, _mesh_jobs(rank, world, port, weights)))
+    except BaseException:  # reported to the test, which fails on it
+        queue.put((rank, "error: " + traceback.format_exc()))
+        raise
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism (test_torch_tensor_parallel.py): one spawn serves the file
+# ---------------------------------------------------------------------------
+
+TP_S = 8  # tests/test_fsdp.py's config: 8px, dim 8, mults 1/2, pred_x0, T=10
+
+
+def tp_config():
+    """`tests/test_fsdp.py::_gd`'s configuration in the port's types."""
+    from localdiffusion_tpu_torch import config as tcfg
+
+    return (tcfg.ModelConfig(dim=8, dim_mults=(1, 2), full_attn=(False, True), channels=1),
+            tcfg.DiffusionConfig(image_size=TP_S, timesteps=10, objective="pred_x0"))
+
+
+def tp_inputs():
+    """tests/test_fsdp.py::test_tp_forward_parity's x, cond and t."""
+    import numpy as np
+
+    x = np.random.default_rng(1).uniform(-1, 1, (4, TP_S, TP_S, 1)).astype(np.float32)
+    cond = np.random.default_rng(2).uniform(0, 2, (4, TP_S, TP_S, 1)).astype(np.float32)
+    return x, cond, np.zeros((4,), np.int64)
+
+
+def _tp_jobs(rank, world, port, weights, pipe_weights):
+    import numpy as np
+    import torch
+
+    from localdiffusion_tpu_torch.diffusion.gaussian import GaussianDiffusion
+    from localdiffusion_tpu_torch.parallel import multihost
+    from localdiffusion_tpu_torch.parallel.mesh import make_mesh
+    from localdiffusion_tpu_torch.parallel.tensor_parallel import (
+        shard_tensor_parallel,
+        tp_info,
+        tp_param_shardings,
+    )
+    from localdiffusion_tpu_torch.pipeline import LocalDiffusionPipeline
+
+    multihost.init_distributed(f"localhost:{port}", world, rank, device="cpu")
+    try:
+        mesh = make_mesh(model=world, device="cpu")
+        out = dict(mesh=list(mesh.mesh_dim_names), shape=list(mesh.mesh.shape))
+        mcfg, dcfg = tp_config()
+        gd = GaussianDiffusion(mcfg, dcfg, device="cpu")
+        gd.model.load_state_dict(torch.load(weights, weights_only=True))
+        out["specs"] = {k: (tuple(v.spec), v.dim)
+                        for k, v in tp_param_shardings(gd.model, mesh).items()}
+        shard_tensor_parallel(gd.model, mesh)
+        out["local"] = {k: v.detach().numpy().copy() for k, v in gd.model.state_dict().items()}
+        out["info"] = tp_info(gd.model)
+        x, cond, t = (torch.as_tensor(a) for a in tp_inputs())
+        out["apply"] = gd.apply_model(x, cond, t).numpy()
+        # a pipeline on the model mesh replicates the denoiser it is given
+        pipe = mesh_pipeline("ddim", pipe_weights)
+        shard_tensor_parallel(pipe.gd.model, mesh)
+        pipe = LocalDiffusionPipeline(pipe.config, pipe.gd, mesh=mesh)
+        out["replicated"] = tp_info(pipe.gd.model)["memory_scaling"]
+        out["translate"] = mesh_translate(pipe, "ddim")
+        return out
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_tp(rank, world, port, weights, pipe_weights, queue):
+    """Entry point of a tensor-parallel worker: (rank, results) or (rank,
+    error text) on `queue`."""
+    block_jax()
+    import torch
+
+    torch.set_num_threads(1)
+    try:
+        queue.put((rank, _tp_jobs(rank, world, port, weights, pipe_weights)))
     except BaseException:  # reported to the test, which fails on it
         queue.put((rank, "error: " + traceback.format_exc()))
         raise

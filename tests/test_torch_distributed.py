@@ -61,7 +61,7 @@ def test_row_ranges_cover_the_batch():
 
 def test_single_process_mesh_and_helpers():
     """One process: a (1, 1) mesh, every selection the whole array, the
-    helpers no-ops; the tensor-parallel axis refused."""
+    helpers no-ops; a tensor-parallel axis wider than the ranks refused."""
     mesh = M.make_mesh(device="cpu")
     assert mesh.mesh_dim_names == ("data", "patch") and mesh.size() == 1
     x = np.arange(24).reshape(2, 3, 4)
@@ -73,7 +73,7 @@ def test_single_process_mesh_and_helpers():
     H.warmup_collectives()
     H.init_distributed(None, 1, 0)  # a no-op
     assert H.rank_device("cpu") == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match=r"not divisible by patch\*model=2"):
         M.make_mesh(model=2, device="cpu")
     info = F.shard_info([torch.zeros(4, 3)])
     assert info == {"global_bytes": 48, "per_device_bytes": 48, "memory_scaling": 1.0}

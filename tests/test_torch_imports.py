@@ -437,8 +437,7 @@ EXPORT_COUNTERPARTS = {
     "models": {"encode_cond": ["UNet.encode_cond"]},
     "parallel": {"tree_shardings": ["fsdp.shard_model", "fsdp.load_full"],
                  "state_shardings": ["fsdp.shard_model", "fsdp.load_full"],
-                 "put_tree_sharded": ["fsdp.shard_model", "fsdp.load_full"],
-                 "tp_param_shardings": ["make_mesh"]},
+                 "put_tree_sharded": ["fsdp.shard_model", "fsdp.load_full"]},
 }
 
 

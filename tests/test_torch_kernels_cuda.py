@@ -5,7 +5,9 @@ s2d-stem and 256px chains' large blocks), full attention (on strided,
 contiguous and unaligned inputs, ragged token counts), the two
 linear-attention passes (the kv kernel's launch plans and its in-kernel
 merge, the q kernel's persistent grid, repeated and graph-replayed
-launches) and the fused ResnetBlock's conv3x3_stats (each of
+launches; their attribution variants with every exponential a·0.5 + 1
+and the bare copy kernel of the attribution script) and the fused
+ResnetBlock's conv3x3_stats (each of
 its shared-memory plans, persistent grids with more and fewer tiles than
 blocks) and epilogue at the 256px chain's shapes (its persistent grids,
 ragged last items), the single-pass GroupNorm's cluster plans (every
@@ -41,6 +43,7 @@ from localdiffusion_tpu_torch.diffusion import sampler as TS
 from localdiffusion_tpu_torch.diffusion.gaussian import build_gd
 from localdiffusion_tpu_torch.factory import load_params
 from localdiffusion_tpu_torch.models.blocks import ResnetBlock
+from localdiffusion_tpu_torch.ops import copy_probe as CP
 from localdiffusion_tpu_torch.ops import groupnorm as G
 from localdiffusion_tpu_torch.ops import linear_attention as LA
 from localdiffusion_tpu_torch.ops import resnet_block as RB
@@ -49,6 +52,7 @@ from localdiffusion_tpu_torch.ood.bank import classifier_calibration_pairs
 from localdiffusion_tpu_torch.ood.classifier import ClassifierPatchCore
 from localdiffusion_tpu_torch.ood.features import DenoiserFeatureSource
 from localdiffusion_tpu_torch.ood.patchcore import PatchCore
+from localdiffusion_tpu_torch.scripts import bench_linatt_attrib
 from localdiffusion_tpu_torch.ops.groupnorm import (
     groupnorm_film_silu,
     groupnorm_film_silu_reference,
@@ -279,6 +283,63 @@ def test_linear_attention_kernels_match_plain_versions(cuda_device, shape):
     torch.testing.assert_close(full.float(), ref.float(), atol=0.04, rtol=0.05)
     corr = torch.corrcoef(torch.stack([full.float().ravel(), ref.float().ravel()]))[0, 1]
     assert corr > 0.999
+
+
+# the attribution variants (kLin) at the kv plans below and the attribution
+# script's shape: l and G relative L2 over a row (a max one bf16 step apart
+# moves every later a * 0.5 + 1 of its column), q given W~ at the q pass's
+# bar on its well-conditioned tokens (the script's `q_agreement`)
+LIN_KV_TOL = dict(m=2**-7, l=2e-2, g=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,nb", [(2, 256, 32, 16), (1, 5472, 32, 16), (2, 4096, 128, 64),
+                                      (8, 65536, 32, 32)])
+def test_linear_exp_variants_match_plain_versions(cuda_device, b, n, c, nb):
+    """`kv_linear_exp` against `kv_linear_reference` (the kernel's tile
+    recurrence, the merge with a * 0.5 + 1 weights) row by row, and
+    `q_linear_exp` against `q_pass_reference(exp=lin_exp)` given the same
+    W~, each counted once a launch; the main path's kernels unmoved."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n + c + 7)
+    x = (torch.randn(b, n, c, generator=gen, device=cuda_device) * 1.5).to(torch.bfloat16)
+    g_in = torch.randn(c, generator=gen, device=cuda_device)
+    w_qkv = torch.randn(c, 3 * LA.HIDDEN, generator=gen, device=cuda_device) * 0.1
+    w_out = torch.randn(LA.HIDDEN, c, generator=gen, device=cuda_device) * 0.1
+    b_out = torch.randn(c, generator=gen, device=cuda_device)
+    g_out = torch.randn(c, generator=gen, device=cuda_device)
+    wq, wk, wv = LA.split_qkv(w_qkv)
+    before = (LA.kv_linear_exp.launches, LA.q_linear_exp.launches,
+              LA.linear_attention_kv.launches)
+    got = LA.kv_linear_exp(x, g_in, wk, nb)
+    err = _kv_errors(got, LA.kv_linear_reference(x, g_in, wk, nb))
+    assert all(err[k] <= tol for k, tol in LIN_KV_TOL.items()), err
+    wtil = LA.fold(got[1], got[2], wv, w_out)
+    q = LA.q_linear_exp(x, g_in, wq, wtil, b_out, g_out)
+    want = LA.q_pass_reference(x, g_in, wq, wtil, b_out, g_out, exp=LA.lin_exp)
+    agree = bench_linatt_attrib.q_agreement(q, want, LA.q_linear_conditioning(x, g_in, wq))
+    assert agree["ok"], agree
+    assert (LA.kv_linear_exp.launches, LA.q_linear_exp.launches,
+            LA.linear_attention_kv.launches) == (before[0] + 1, before[1] + 1, before[2])
+    # the exponential instantiation still gives the main path's answer
+    err = _kv_errors(LA.linear_attention_kv(x, g_in, wk, nb), LA.kv_reference(x, g_in, wk, nb))
+    assert _kv_ok(err), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,tile", [(8, 65536, 32, 8192), (8, 65536, 32, 65536),
+                                        (8, 65536, 32, 1024), (2, 1000, 32, 40), (1, 64, 8, 2)])
+def test_copy_probe_copies_bit_for_bit(cuda_device, b, n, c, tile):
+    """The copy kernel at the attribution script's three grids (64, 8 and
+    512 programs) and at small tiles equals its plain version, x.clone(),
+    bit for bit; one count a launch."""
+    x = torch.randn(b, n, c, device=cuda_device).to(torch.bfloat16)
+    before = CP.copy_tiles.launches
+    out = CP.copy_tiles(x, tile)
+    torch.cuda.synchronize()
+    assert torch.equal(out, x.clone()) and out.data_ptr() != x.data_ptr()
+    assert CP.copy_tiles.launches == before + 1
+    with pytest.raises(ValueError):
+        CP.copy_tiles(x, 3 if n % 3 else 7)
 
 
 # the kv kernel's launch plans, (B, N, C, nb): blocks without tokens and
