@@ -302,6 +302,22 @@ Phases, each printed on its own line with the elapsed seconds:
     host clock (`utils.logging.read_device_clock`) is read after the 256px,
     training and mesh_serve phases and printed with the process's age.
 
+Stage B runs compiled on every main path (`translate` on the card without
+a mesh captures each sampler's step bodies as CUDA graphs at the first
+chain of a key and replays them; a body's first step runs eagerly and is
+the warm-up, so a chain launches and counts what the eager one does;
+PatchCore's score without a clock is one graph a key).  Each profiled
+chain runs once unprofiled first, so the profile reads replays.  Five
+configurations hold their compiled chain against its eager twin
+(`translate` with `pipe.compiles` cleared, the same noise and mask) in
+their phases: the flagship (phase 4), the 256px chain (8; its T=50 cut
+also profiled eagerly), the stem's plain DDIM-50 (15), the seg DDIM-50
+chain (13a) and the gated 256px chain (12c): outputs bit for bit, launches
+equal, the walls, peak memory (allocated and reserved, the graphs' pool
+counted in the latter) and each program's graphs, nodes, capture and
+instantiation seconds; the compiled phase, before the aged trace, requires
+all five and prints them together.
+
 The serve phase's in-process server reads its configuration from a `.json`
 dump of `mri256_bf16_config()` (`Config.save_json`, `config.load_config`),
 and its every dispatch again through a pipeline built from the builder
@@ -1058,6 +1074,65 @@ def _check_images(name, pred, shape, lo, hi):
         raise RuntimeError(f"{name}: values outside [{lo}, {hi}]")
 
 
+class _Tally:
+    """A count of passes that `_build.count_launch` adds to, as it adds to
+    a kernel wrapper's launches: a pass made while a graph captures is
+    recorded with the capture's launches and counted at each replay."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+UNET_PASSES = {"calls": _Tally(), "rows": _Tally(), "taps": _Tally()}
+
+
+def tally_unet_passes() -> None:
+    """For the rest of the run, every UNet call (and its rows, one count a
+    row) and every tap pass (`UNet.down_taps`, PatchCore's denoiser
+    features) adds to `UNET_PASSES` where it runs, through
+    `_build.count_launch`: a replayed graph runs no Python, and counts the
+    passes its capture made as it counts the capture's launches."""
+    forward, down_taps = UNet.forward, UNet.down_taps
+
+    @functools.wraps(forward)
+    def counted_forward(self, x, *args, **kwargs):
+        _build.count_launch(UNET_PASSES["calls"])
+        for _ in range(x.shape[0]):
+            _build.count_launch(UNET_PASSES["rows"])
+        return forward(self, x, *args, **kwargs)
+
+    @functools.wraps(down_taps)
+    def counted_taps(self, *args, **kwargs):
+        _build.count_launch(UNET_PASSES["taps"])
+        return down_taps(self, *args, **kwargs)
+
+    UNet.forward, UNet.down_taps = counted_forward, counted_taps
+
+
+@contextlib.contextmanager
+def counted_passes():
+    """The UNet calls, rows and tap passes made inside the block
+    (`tally_unet_passes`), as {'calls', 'rows', 'taps'}, filled when the
+    block ends."""
+    before = {k: t.launches for k, t in UNET_PASSES.items()}
+    seen = {}
+    try:
+        yield seen
+    finally:
+        seen.update({k: t.launches - before[k] for k, t in UNET_PASSES.items()})
+
+
+@contextlib.contextmanager
+def eager_chains(pipe):
+    """`pipe.translate` runs the eager samplers inside the block: the
+    compiled chain's twin."""
+    compiles, pipe.compiles = pipe.compiles, False
+    try:
+        yield
+    finally:
+        pipe.compiles = compiles
+
+
 def check_counts(got: dict, per_call: dict, calls: int, what: str) -> None:
     """Every kernel's launches in `got` equal its launches per UNet call
     (`per_call`, 0 where absent) times `calls`."""
@@ -1072,37 +1147,35 @@ def run_main_path(pipe, lr, hr, chains, per_call, serve_batch, label):
     `chains` (mask, whether it must take the branched chain), then three
     served requests (uniform mask: plain; the last chain's mask of row 1;
     of row 2 or, for the manual detector, none).  Checks every kernel's
-    launches per UNet call in each chain and while serving; the UNet rows
-    of each chain (a branched call counts its two halves) are counted by a
-    hook for model-steps/s."""
+    launches per UNet call in each chain and while serving; the UNet calls
+    and rows of each chain (a branched call counts its two halves) are
+    counted where they run (`counted_passes`), for model-steps/s."""
     gd = pipe.gd
     calls = gd.diff_cfg.resolved_sampling_timesteps  # UNet calls per chain (DDPM or DDIM)
     lo, hi = pipe.min_max_val
     b = lr.shape[0]
-    rows = [0]
-    hook = gd.model.register_forward_pre_hook(
-        lambda _m, args: rows.__setitem__(0, rows[0] + args[0].shape[0]))
     results, perf = [], {}
     reset_counts()
-    try:
-        for mask, want_branched in chains:
-            before, rows[0] = read_counts(), 0
+    for mask, want_branched in chains:
+        before = read_counts()
+        with counted_passes() as seen:
             res = pipe.translate(lr, hr=hr, noise=1, mask=mask)
-            got = {k: v - before[k] for k, v in read_counts().items()}
-            dt = float(res["time"])
-            kind = "branched" if want_branched else "plain"
-            log(f"{label} {kind} chain: {dt * 1e3:.1f}ms for {b} images -> {b / dt:.3f} img/s, "
-                f"{rows[0] / dt:.1f} model-steps/s ({rows[0]} UNet rows in {calls} calls); "
-                f"mse {float(res['mse']):.4f} ssim {float(res['ssim']):.4f} "
-                f"psnr {float(res['psnr']):.2f}; launches {got}")
-            if bool(res["branched"]) != want_branched:
-                raise RuntimeError(f"{label}: the {kind} chain took the wrong sampler")
-            check_counts(got, per_call, calls, f"{label} {kind} chain")
-            _check_images(f"{label} {kind} chain", res["pred"], lr.shape, lo, hi)
-            results.append(res)
-            perf[kind] = dict(chain_s=dt, img_per_s=b / dt, model_steps_per_s=rows[0] / dt)
-    finally:
-        hook.remove()
+        rows = seen["rows"]
+        got = {k: v - before[k] for k, v in read_counts().items()}
+        dt = float(res["time"])
+        kind = "branched" if want_branched else "plain"
+        log(f"{label} {kind} chain: {dt * 1e3:.1f}ms for {b} images -> {b / dt:.3f} img/s, "
+            f"{rows / dt:.1f} model-steps/s ({rows} UNet rows in {seen['calls']} calls); "
+            f"mse {float(res['mse']):.4f} ssim {float(res['ssim']):.4f} "
+            f"psnr {float(res['psnr']):.2f}; launches {got}")
+        if bool(res["branched"]) != want_branched:
+            raise RuntimeError(f"{label}: the {kind} chain took the wrong sampler")
+        if seen["calls"] != calls:
+            raise RuntimeError(f"{label} {kind} chain: {seen['calls']} UNet calls, not {calls}")
+        check_counts(got, per_call, calls, f"{label} {kind} chain")
+        _check_images(f"{label} {kind} chain", res["pred"], lr.shape, lo, hi)
+        results.append(res)
+        perf[kind] = dict(chain_s=dt, img_per_s=b / dt, model_steps_per_s=rows / dt)
     chain_counts = read_counts()
 
     s_ = gd.image_size
@@ -1138,27 +1211,98 @@ def run_main_path(pipe, lr, hr, chains, per_call, serve_batch, label):
     return results, counts, perf
 
 
-def profile_chain(pipe, lr, mask, label, top=12) -> dict:
+def profile_chain(pipe, lr, mask, label, top=12, eager=False) -> dict:
     """Where one branched chain's time goes on the card (torch.profiler,
     the card's activity only: the host's op events add nothing to the
     kernels' sums and took ~2 minutes of host time to summarise for the
     256px chain's 245,000 kernels; the sums agree within 0.01%, NVIDIA H100
-    80GB HBM3, 700 W)."""
+    80GB HBM3, 700 W).  The chain is the compiled one, its programs
+    captured by an unprofiled chain first, or with `eager` the eager
+    twin."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        res = pipe.translate(lr, noise=1, mask=mask)
+    with eager_chains(pipe) if eager else contextlib.nullcontext():
+        pipe.translate(lr, noise=1, mask=mask)  # captures, unprofiled
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            res = pipe.translate(lr, noise=1, mask=mask)
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
     wall_us = float(res["time"]) * 1e6
-    log(f"{label} profile: chain {wall_us / 1e3:.1f}ms wall (profiled), card busy "
+    log(f"{label} profile ({'eager' if eager else 'compiled'}): chain {wall_us / 1e3:.1f}ms "
+        f"wall (profiled), card busy "
         f"{busy_us / 1e3:.1f}ms = {100 * busy_us / wall_us:.1f}%, idle "
         f"{100 - 100 * busy_us / wall_us:.1f}%, {sum(e.count for e in kernels)} kernels")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
         log(f"  {e.self_device_time_total / 1e3:8.2f}ms {e.count:7d}x  {e.key[:110]}")
     return dict(busy_share=busy_us / wall_us, busy_ms=busy_us / 1e3)
+
+
+COMPILED = {}  # configuration → its compiled chain against the eager twin
+COMPILED_LABELS = ("flagship", "256px", "stem", "seg", "gated")
+
+
+def _program_summary(pipe) -> dict:
+    """Each of the pipeline's programs ('name@batch'): graphs, nodes by
+    step body, capture and instantiation seconds, replays."""
+    out = pipe.programs.summary()
+    return {f"{k[0]}@{k[1]}" + ("/plain" if not all(k[-1]) else ""): v
+            for k, v in out["programs"].items()}
+
+
+def compiled_twin(label, pipe, lr, hr, mask, want) -> dict:
+    """A configuration's compiled chain against its eager twin: `translate`
+    once more through the captured programs (every step a replay) and once
+    with the eager samplers (`eager_chains`), with the same noise (seed 1)
+    and mask.  The outputs
+    (and a gated chain's fusion_time) equal each other's and `want`'s (the
+    main path's chain, which captured) bit for bit, and the launches are
+    the same; prints the walls, each chain's peak memory (allocated and
+    reserved, which holds the graphs' pool, after `empty_cache`) and each
+    program's graphs, nodes, capture and instantiation seconds."""
+    runs = {}
+    for kind, eager in (("compiled", False), ("eager", True)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = read_counts()
+        with eager_chains(pipe) if eager else contextlib.nullcontext():
+            res = pipe.translate(lr, hr=hr, noise=1, mask=mask)
+        torch.cuda.synchronize()
+        runs[kind] = dict(res=res, launches={k: v - before[k] for k, v in read_counts().items()},
+                          base_bytes=base, peak_allocated=torch.cuda.max_memory_allocated(),
+                          peak_reserved=torch.cuda.max_memory_reserved())
+    c, e = runs["compiled"]["res"], runs["eager"]["res"]
+    keys = ["pred"] + (["fusion_time"] if "fusion_time" in want else [])
+    bit_equal = all(np.array_equal(r[k], e[k]) for r in (c, want) for k in keys)
+    launches_equal = runs["compiled"]["launches"] == runs["eager"]["launches"]
+    programs = _program_summary(pipe)
+    rec = dict(compiled_s=float(c["time"]), eager_s=float(e["time"]),
+               first_chain_s=float(want["time"]), bit_equal=bit_equal,
+               launches_equal=launches_equal, launches=runs["compiled"]["launches"],
+               max_abs_diff=float(np.abs(c["pred"] - e["pred"]).max()),
+               memory={k: {m: runs[k][m] for m in ("base_bytes", "peak_allocated",
+                                                  "peak_reserved")} for k in runs},
+               programs=programs)
+    gib = 2.0**30
+    log(f"compiled {label}: chain {rec['compiled_s'] * 1e3:.1f}ms compiled (replays; the main "
+        f"path's {rec['first_chain_s'] * 1e3:.1f}ms) vs {rec['eager_s'] * 1e3:.1f}ms eager "
+        f"(x{rec['eager_s'] / rec['compiled_s']:.2f}); bit for bit {bit_equal} (max |diff| "
+        f"{rec['max_abs_diff']:.3g}), launches equal {launches_equal}; peak memory allocated/"
+        f"reserved compiled {runs['compiled']['peak_allocated'] / gib:.3f}/"
+        f"{runs['compiled']['peak_reserved'] / gib:.3f} GiB, eager "
+        f"{runs['eager']['peak_allocated'] / gib:.3f}/{runs['eager']['peak_reserved'] / gib:.3f} "
+        f"GiB (base {runs['eager']['base_bytes'] / gib:.3f}); programs "
+        + "; ".join(f"{k}: {v['graphs']} graphs, nodes {v['nodes']}, capture "
+                    f"{v['capture_s']:.3f}s, instantiate {v['instantiate_s']:.3f}s, "
+                    f"{v['replays']} replays" for k, v in programs.items()))
+    if not (bit_equal and launches_equal):
+        raise RuntimeError(f"{label}: the compiled chain differs from the eager one: {rec}")
+    COMPILED[label] = rec
+    return rec
 
 
 def top_kernels(fn, label, top=8) -> dict:
@@ -1206,6 +1350,7 @@ def flagship() -> dict:
     torch.cuda.synchronize()
     (res,), counts, perf = run_main_path(pipe, lr, hr, [(mask, True)], FLAGSHIP_PER_CALL,
                                          SERVE_BATCH, "flagship")
+    compiled_twin("flagship", pipe, lr, hr, mask, res)
 
     gd.model.use_plain_kernels(True)
     try:
@@ -1775,8 +1920,11 @@ def mri256() -> dict:
     lr = rng.uniform(0, hi, (MRI_BATCH, s, s, 1)).astype(np.float32)
     hr = rng.uniform(0, hi, (MRI_BATCH, s, s, 1)).astype(np.float32)
     mask = disc_masks(MRI_BATCH, s)
+    pipe.translate(lr, hr=hr, noise=1, mask=mask)  # captures (not counted)
+    torch.cuda.synchronize()
     (res,), counts, perf = run_main_path(pipe, lr, hr, [(mask, True)], MRI_PER_CALL,
                                          MRI_SERVE_BATCH, "256px")
+    compiled_twin("256px", pipe, lr, hr, mask, res)
 
     gd.model.use_plain_kernels(True)
     try:
@@ -1830,10 +1978,15 @@ def mri256() -> dict:
                                                     sampling_timesteps=None))
     gd_cut = build_gd(cut, device="cuda")
     gd_cut.model.load_state_dict(gd.model.state_dict())
-    prof = profile_chain(LocalDiffusionPipeline(cut, gd_cut), lr, mask,
-                         f"256px (T={MRI_PROFILE_STEPS} of the T={gd.num_timesteps} chain's weights)",
-                         top=16)
-    del gd_cut
+    pipe_cut = LocalDiffusionPipeline(cut, gd_cut)
+    label = f"256px (T={MRI_PROFILE_STEPS} of the T={gd.num_timesteps} chain's weights)"
+    prof = profile_chain(pipe_cut, lr, mask, label, top=16)
+    prof_eager = profile_chain(pipe_cut, lr, mask, label, top=4, eager=True)
+    COMPILED["256px"].update(busy_share=prof["busy_share"], busy_ms=prof["busy_ms"],
+                             eager_busy_share=prof_eager["busy_share"],
+                             eager_busy_ms=prof_eager["busy_ms"],
+                             profiled_steps=MRI_PROFILE_STEPS)
+    del gd_cut, pipe_cut
     prof["busy_ms"] *= gd.num_timesteps / MRI_PROFILE_STEPS
     log(f"256px chain device time: {prof['busy_ms']:.1f}ms of kernels for the "
         f"T={gd.num_timesteps} chain (T={MRI_PROFILE_STEPS} profiled, x"
@@ -1858,10 +2011,13 @@ class CountedFrontend:
         return getattr(self.inner, name)
 
     def detect(self, lr):
-        torch.cuda.synchronize()
+        # waits for this thread's stream, not the whole device: the server's
+        # sampling thread may be capturing a graph, which a device-wide wait
+        # breaks
+        torch.cuda.current_stream().synchronize()
         before, t0 = read_counts(), time.perf_counter()
         out = self.inner.detect(lr)
-        torch.cuda.synchronize()
+        torch.cuda.current_stream().synchronize()
         self.seconds.append(time.perf_counter() - t0)
         for k, v in read_counts().items():
             self.launches[k] = self.launches.get(k, 0) + v - before[k]
@@ -2314,6 +2470,7 @@ def gated256(gd, bank_path) -> dict:
     _check_launches({k: counts[k] - chain_counts[k] for k in COUNTERS},
                     expected_gated(calls, served_steps, 1), "gated serving")
     log(f"gated main path: launches {counts}")
+    compiled_twin("gated", pipe, lr, hr, res["mask"], res)
 
     # (d) forced thresholds at T = 50: always accept, always reject
     cut = cfg.replace(diffusion=dataclasses.replace(cfg.diffusion, timesteps=GATED_FORCED_T))
@@ -2620,6 +2777,7 @@ def _seg_wrn256() -> dict:
     res, _, sb = _counted_translate("seg", pipe, counted, lr, hr, calls)
     for k in COUNTERS:
         counts[k] += sb[k]
+    compiled_twin("seg", pipe, lr, hr, res["mask"], res)
     perf["seg_chain_s"], perf["seg_detect_ms"] = float(res["time"]), counted.seconds[-1] * 1e3
     gd.model.use_plain_kernels(True)
     try:
@@ -2837,6 +2995,7 @@ def stem256() -> dict:
     # branched chain with the disc masks
     (res_p, res_b), counts, perf = run_main_path(
         pipe, lr, hr, [(None, False), (mask, True)], STEM_PER_CALL, STEM_SERVE_BATCH, "stem")
+    compiled_twin("stem", pipe, lr, hr, None, res_p)
 
     gd.model.use_plain_kernels(True)
     try:
@@ -2961,7 +3120,7 @@ def shipped256() -> dict:
     entry point (`scripts.eval_margins.main`) on the trained 256px denoiser:
     the detector's bank and ladder built on the card, Stage A's masks, the
     plain and branched DDPM chains; each kernel's launches checked against
-    the UNet calls and tap passes counted by hooks."""
+    the UNet calls and tap passes (`counted_passes`)."""
     t_phase = time.perf_counter()
     paths = {name: RESULTS / name for name in SHIPPED}
     for name, path in paths.items():
@@ -2979,33 +3138,18 @@ def shipped256() -> dict:
         "seg256": _seg_card_vs_cpu(paths["seg256_params.npz"]),
     }
 
-    calls, taps = [0], [0]
-    down_taps = UNet.down_taps
-
-    def counted_taps(self, *args, **kwargs):
-        taps[0] += 1
-        return down_taps(self, *args, **kwargs)
-
-    def count_call(module, _args):
-        if isinstance(module, UNet):
-            calls[0] += 1
-
     SHIPPED_DIR.mkdir(parents=True, exist_ok=True)
     argv = ["--config", "mri256", "--params-npz", str(paths["mri_synth256_ema.npz"]),
             "--images", str(MARGIN_IMAGES), "--batch", str(MARGIN_BATCH), "--samplers", "ddpm",
             "--variants", "plain,denoiser", "--bank-images", str(MARGIN_BANK),
             "--work-dir", str(SHIPPED_DIR), "--out", str(SHIPPED_DIR / "margins.json")]
-    hook = torch.nn.modules.module.register_module_forward_pre_hook(count_call)
-    UNet.down_taps = counted_taps
     reset_counts()
     t0 = time.perf_counter()
-    try:
+    with counted_passes() as seen:
         res = eval_margins.main(argv)
-    finally:
-        UNet.down_taps = down_taps
-        hook.remove()
     margin_s = time.perf_counter() - t0
     counts = read_counts()
+    calls, taps = [seen["calls"]], [seen["taps"]]
     want = {k: MRI_PER_CALL.get(k, 0) * calls[0] + STAGE_A_PER_DETECT.get(k, 0) * taps[0]
             for k in COUNTERS}
     if counts != want or calls[0] != 2 * mri256_config().diffusion.timesteps:
@@ -5476,6 +5620,36 @@ def aged_trace_phase() -> dict:
                 checks=checks)
 
 
+def compiled_phase() -> dict:
+    """Stage B as compiled programs: each configuration's compiled chain
+    (`translate` on the card replays the step bodies' CUDA graphs) was
+    held against its eager twin in its phase (`compiled_twin`): the
+    flagship (f32, branched DDPM T=50, batch 64), the 256px chain (bf16,
+    branched T=250, batch 4; its T=50 cut profiled compiled and eager),
+    the stem (f32, plain DDIM-50), the seg configuration (bf16, branched
+    DDIM-50) and the gated 256px chain.  Here every one must be there,
+    bit for bit; their walls, busy shares, capture seconds, graphs, nodes
+    and peak memory are printed together."""
+    missing = [k for k in COMPILED_LABELS if k not in COMPILED]
+    if missing:
+        raise RuntimeError(f"compiled: no compiled check of {missing}")
+    for label in COMPILED_LABELS:
+        r = COMPILED[label]
+        progs = r["programs"]
+        log(f"compiled summary {label}: compiled {r['compiled_s'] * 1e3:.1f}ms, eager "
+            f"{r['eager_s'] * 1e3:.1f}ms, x{r['eager_s'] / r['compiled_s']:.3f}; "
+            + (f"busy share compiled {r['busy_share']:.4f}, eager {r['eager_busy_share']:.4f} "
+               f"(T={r['profiled_steps']} profiled); " if "busy_share" in r else "")
+            + f"{sum(v['graphs'] for v in progs.values())} graphs in {len(progs)} programs, "
+            f"capture {sum(v['capture_s'] for v in progs.values()):.3f}s, instantiate "
+            f"{sum(v['instantiate_s'] for v in progs.values()):.3f}s; peak reserved compiled "
+            f"{r['memory']['compiled']['peak_reserved'] / 2**30:.3f} GiB, eager "
+            f"{r['memory']['eager']['peak_reserved'] / 2**30:.3f} GiB")
+    return dict(counts={k: 0 for k in COUNTERS}, perf=COMPILED,
+                checks={k: dict(bit_equal=v["bit_equal"], launches_equal=v["launches_equal"])
+                        for k, v in COMPILED.items()})
+
+
 def _row(t: dict, warm: bool = False) -> dict:
     """A GN part's numbers under the kernels line's keys (and the replayed
     time of a tiled pass, `warm_ms`)."""
@@ -5485,6 +5659,7 @@ def _row(t: dict, warm: bool = False) -> dict:
 
 
 def main() -> None:
+    tally_unet_passes()
     phase_device()
     phase_build()
     with tf32_on_at_entry("flagship"):
@@ -5520,6 +5695,7 @@ def main() -> None:
     with tf32_on_at_entry("linatt_attrib"):
         attrib = linatt_attrib_phase()
     tensor_par = tensor_parallel_phase()
+    compiled = compiled_phase()
     aged = aged_trace_phase()
 
     phases = {"flagship": flag, "256px": mri, "stage_a": stage_a, "gated": gated,
@@ -5528,7 +5704,8 @@ def main() -> None:
               "sampler_api": sampler_api, "mnist_trained": mnist, "aux": aux, "patch": patch,
               "distributed": distributed, "stream": stream, "reference_ckpt": reference,
               "features": features, "native": native_res, "mesh_serve": mesh_serve,
-              "linatt_attrib": attrib, "tensor_parallel": tensor_par, "aged_trace": aged}
+              "linatt_attrib": attrib, "tensor_parallel": tensor_par, "compiled": compiled,
+              "aged_trace": aged}
     launches = {name: {label: ph["counts"][name] for label, ph in phases.items()}
                 for name in COUNTERS}
     total = {name: sum(v.values()) for name, v in launches.items()}
@@ -5645,7 +5822,7 @@ def main() -> None:
                   for label in ("serve", "sampler_api", "mnist_trained", "aux", "patch",
                                 "distributed", "stream", "reference_ckpt", "features",
                                 "native", "mesh_serve", "linatt_attrib", "tensor_parallel",
-                                "aged_trace")))
+                                "compiled", "aged_trace")))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

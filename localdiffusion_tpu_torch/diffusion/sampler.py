@@ -1,8 +1,9 @@
 """Local-diffusion DDPM and DDIM sampling.  Port of
 `localdiffusion_tpu/diffusion/sampler.py`.
 
-The JAX package runs each phase as a `lax.scan`; here each phase is a
-Python loop over the timesteps with static shapes:
+The JAX package runs each phase as a `lax.scan` over a traced timestep; here
+each phase is a Python loop over the timesteps with static shapes, whose
+every step is a step body handed to a step runner (`steps`):
 
   phase A (branched): t ∈ [T-1 .. s+1] — the OOD and IND branches advance
           together as ONE flat [2B] UNet batch (OOD half first), with the
@@ -13,10 +14,23 @@ Python loop over the timesteps with static shapes:
           a classifier: a rejected sample redoes the step from the saved
           masked branch pair (the retry), until it is accepted.
 
+A step body is a function of one dict of tensors: the chain's (the
+condition features, the masks, the DDIM coefficient table; given once a
+chain to `steps.begin`), the step's (the state 'x' and the noise 'n') and
+'t', a 0-dim int64 tensor on the device that holds the step's timestep.  A
+body reads the timestep only through 't' and reads nothing on the host, so
+the same body runs eagerly (`EagerSteps`, the default) and as a CUDA graph
+captured once and replayed step by step (`diffusion.compiled.GraphSteps`,
+which `pipeline.translate` uses on the card: the counterpart of the scan
+body traced once).  The decisions between steps (the phase boundaries, the
+gate's latch) stay on the host.
+
 DDIM (`ddim_sample_plain`, `ddim_sample_branched`) walks the strided time
 grid of `ddim_times` in (t, t_next) pairs, with the same [2B] branch pair;
 the branched chain fuses at the first pair with t <= times[-s-2].  It has
-no gate, as in the reference.
+no gate, as in the reference.  Its coefficients (√ᾱ_next, c, σ) come from a
+table computed once a chain, indexed on the device by t; the terminal pair
+(t_next < 0), which returns x_start, is a body of its own.
 
 The condition features are encoded once per chain.  `sample` is the
 top-level dispatch between these samplers, and `interpolate` the latent
@@ -26,8 +40,11 @@ Noise comes from a noise source: a callable `noise(shape) -> Tensor`, called
 once for the initial image and once per step, in chain order (so T + 1
 draws per DDPM chain, for the plain and the branched sampler alike, gated
 or not, and S + 1 per DDIM chain of S pairs, η = 0 included: the JAX
-samplers draw then too).  By default it draws from a `torch.Generator` on
-the device (`GeneratorNoise`); `ArrayNoise` hands out given arrays instead,
+samplers draw then too; a branched DDIM chain whose fusion pair is the
+terminal one draws S).  The draw is taken on the host side of a step and
+handed to its body, never inside a body, so a replayed chain draws what the
+eager one draws.  By default it draws from a `torch.Generator` on the
+device (`GeneratorNoise`); `ArrayNoise` hands out given arrays instead,
 which is how a test replays the JAX package's key stream.
 
 The gate's retries draw from a second source, `retry_noise`, once at each
@@ -47,7 +64,8 @@ samplers take a `branch_split` (`parallel.mesh.BranchSplit`, the JAX
 samplers' `branch_sharding`): the rank steps its share of the flat [2B]
 pair over 'patch', and the pair is gathered where the chain needs both
 halves, at the fusion and at each gated retry.  The fused chain after it
-runs replicated over 'patch'.
+runs replicated over 'patch'.  Such a chain runs eagerly: its gathers are
+collectives between ranks, which a graph cannot hold.
 """
 
 from __future__ import annotations
@@ -170,15 +188,38 @@ def _maybe_unnorm(gd, x):
     return dm.unnormalize_to_zero_to_one(x)
 
 
-def _step_noise(noise, shape, t: int):
-    """The step's noise, zeroed at t == 0 (the draw is still taken, so the
-    stream stays in step with the chain)."""
-    n = noise(shape)
-    return n if t > 0 else torch.zeros_like(n)
+def _step_noise(n, t):
+    """The step's noise n, zeroed where the device timestep t is 0 (the
+    draw is still taken, so the stream stays in step with the chain)."""
+    return torch.where(t > 0, n, torch.zeros_like(n))
 
 
 def _tb(t: int, n: int, device):
     return torch.full((n,), t, dtype=torch.long, device=device)
+
+
+class EagerSteps:
+    """The step runner of an eager chain: `steps(name, body, t, **step)`
+    writes t into the device timestep and calls the body at once on the
+    chain's tensors (`begin`), the step's and 't'.  `name` is the body's
+    program name, which `diffusion.compiled.GraphSteps` captures it under."""
+
+    compiled = False
+
+    def __init__(self, device):
+        self.t = torch.zeros((), dtype=torch.long, device=device)
+        self.chain = {}
+
+    def begin(self, **tensors) -> None:
+        self.chain = tensors
+
+    def __call__(self, name: str, body, t: int, **step):
+        self.t.fill_(int(t))
+        return body({**self.chain, **step, "t": self.t})
+
+
+def _as_steps(steps, device):
+    return EagerSteps(device) if steps is None else steps
 
 
 class _Pair:
@@ -206,44 +247,80 @@ class _Pair:
         return flag if self.split is None else self.split.any(flag)
 
 
-def _branch_starts(gd, scfg: SamplerConfig, m, cond_out, feat_pair, lo: float, hi: float,
-                   pair: _Pair):
-    """(x2, tb2[, force_mask_x]) → the branches' x_start from one UNet call
-    on `pair`'s rows of the flat [2B] pair (OOD half first), the mask_x
-    policy on the OOD half (with mask_x set, or forced as the gate's retry
-    forces it), clipped to [lo, hi]."""
+def _branch_chain(gd, scfg: SamplerConfig, cond, mask, pair: _Pair) -> dict:
+    """The chain tensors of a branched chain: the binary mask 'm', the
+    features of the whole condition ('feat_full') and of the partitioned
+    pair on `pair`'s rows ('feat_pair'), and the mask_x policy's operands
+    on those rows (OOD half first)."""
+    m = binarize_mask(mask)
+    cond_out, cond_in = partition_cond(cond, m, scfg.cond_in_floor)
     b, device = m.shape[0], m.device
-    out_half = pair.part(torch.cat([torch.ones(b, 1, 1, 1, dtype=torch.bool, device=device),
-                                    torch.zeros(b, 1, 1, 1, dtype=torch.bool, device=device)]))
-    feat_pair = pair.part(feat_pair)
+    chain = dict(m=m, feat_full=gd.encode_cond(cond),
+                 feat_pair=pair.part(torch.cat([gd.encode_cond(cond_out),
+                                                gd.encode_cond(cond_in)])))
     if scfg.mask_x_policy == "cond":
-        mask_x_repl2 = pair.part(torch.cat([cond_out, torch.zeros_like(cond_out)]))
+        chain["out_half"] = pair.part(torch.cat([
+            torch.ones(b, 1, 1, 1, dtype=torch.bool, device=device),
+            torch.zeros(b, 1, 1, 1, dtype=torch.bool, device=device)]))
+        chain["mask_x_repl2"] = pair.part(torch.cat([cond_out, torch.zeros_like(cond_out)]))
     else:
-        mask_x_mult2 = pair.part(torch.cat([m, torch.ones_like(m)]))
-        mask_x_zero2 = pair.part(torch.cat([m == 0.0, torch.zeros_like(m, dtype=torch.bool)]))
+        chain["mask_x_mult2"] = pair.part(torch.cat([m, torch.ones_like(m)]))
+        chain["mask_x_zero2"] = pair.part(torch.cat([m == 0.0,
+                                                     torch.zeros_like(m, dtype=torch.bool)]))
+    return chain
 
-    def starts(x2, tb2, force_mask_x=False):
-        out2 = gd.apply_model(x2, None, tb2, cond_feat=feat_pair)
+
+def _branch_starts(gd, scfg: SamplerConfig, lo: float, hi: float):
+    """(s, x2, tb2[, force_mask_x]) → the branches' x_start from one UNet
+    call on (this rank's rows of) the flat [2B] pair x2, the mask_x policy
+    on the OOD half (with mask_x set, or forced as the gate's retry forces
+    it), clipped to [lo, hi]; s holds the `_branch_chain` tensors."""
+
+    def starts(s, x2, tb2, force_mask_x=False):
+        out2 = gd.apply_model(x2, None, tb2, cond_feat=s["feat_pair"])
         xs2 = dm.model_output_to_x_start(gd.schedule, out2, x2, tb2)
         if scfg.mask_x or force_mask_x:
             if scfg.mask_x_policy == "cond":
-                xs2 = torch.where(out_half, mask_x_repl2, xs2)
+                xs2 = torch.where(s["out_half"], s["mask_x_repl2"], xs2)
             else:
-                xs2 = torch.where(mask_x_zero2, torch.full_like(xs2, lo), xs2 * mask_x_mult2)
+                xs2 = torch.where(s["mask_x_zero2"], torch.full_like(xs2, lo),
+                                  xs2 * s["mask_x_mult2"])
         return xs2.clamp(lo, hi)
 
     return starts
 
 
+def _ddpm_update(gd, x_start, x, t, n):
+    """x_{t-1} from the clipped x_start: the posterior mean plus its
+    standard deviation times the noise (zeroed at t == 0)."""
+    mean, _, logvar = dm.q_posterior(gd.schedule, x_start, x, t.expand(x.shape[0]))
+    return mean + torch.exp(0.5 * logvar) * _step_noise(n, t)
+
+
+def _ddpm_plain_body(gd, feat: str, lo: float, hi: float):
+    """The plain DDPM step on s['x'] with the features s[feat]: (image,
+    its clipped x_start)."""
+
+    def body(s):
+        x, t = s["x"], s["t"]
+        tb = t.expand(x.shape[0])
+        out = gd.apply_model(x, None, tb, cond_feat=s[feat])
+        x_start = dm.model_output_to_x_start(gd.schedule, out, x, tb).clamp(lo, hi)
+        return _ddpm_update(gd, x_start, x, t, s["n"]), x_start
+
+    return body
+
+
 @torch.no_grad()
 def ddpm_sample_plain(gd, cond, min_max_val: Tuple[float, float], noise=None,
                       gt=None, use_gt_timestep: Optional[int] = None,
-                      return_all: bool = False):
-    """Plain (non-branched) ancestral DDPM chain.  cond: [B, H, W, C]."""
-    sched = gd.schedule
+                      return_all: bool = False, steps=None):
+    """Plain (non-branched) ancestral DDPM chain.  cond: [B, H, W, C].
+    `steps`: the step runner (see the module docstring; eager by default)."""
     lo, hi = min_max_val
     device = cond.device
     noise = as_noise(noise, device)
+    steps = _as_steps(steps, device)
     b = cond.shape[0]
     shape = (b, gd.image_size, gd.image_size, gd.model_cfg.channels)
 
@@ -251,16 +328,13 @@ def ddpm_sample_plain(gd, cond, min_max_val: Tuple[float, float], noise=None,
     t_start = gd.num_timesteps
     if gt is not None and use_gt_timestep is not None:
         t_start = int(use_gt_timestep)
-        img = dm.q_sample(sched, gt, _tb(t_start, b, device), img)
+        img = dm.q_sample(gd.schedule, gt, _tb(t_start, b, device), img)
 
-    cond_feat = gd.encode_cond(cond)
+    steps.begin(feat=gd.encode_cond(cond))
+    step = _ddpm_plain_body(gd, "feat", lo, hi)
     frames = [img]
     for t in range(t_start - 1, -1, -1):
-        tb = _tb(t, b, device)
-        out = gd.apply_model(img, None, tb, cond_feat=cond_feat)
-        x_start = dm.model_output_to_x_start(sched, out, img, tb).clamp(lo, hi)
-        mean, _, logvar = dm.q_posterior(sched, x_start, img, tb)
-        img = mean + torch.exp(0.5 * logvar) * _step_noise(noise, shape, t)
+        img, _ = steps("plain", step, t, x=img, n=noise(shape))
         if return_all:
             frames.append(img)
     if return_all:
@@ -273,7 +347,7 @@ def ddpm_sample_branched(gd, cond, mask, scfg: SamplerConfig,
                          min_max_val: Tuple[float, float], noise=None, gt=None,
                          classifier_fn=None, return_all: bool = False,
                          return_fusion_time: bool = False, retry_noise=None, clock=None,
-                         return_debug: bool = False, branch_split=None):
+                         return_debug: bool = False, branch_split=None, steps=None):
     """Branched local-diffusion DDPM with fusion at `start_timestep`.
 
     cond: [B, H, W, C]; mask: [B, H, W, 1].  Returns the final image
@@ -304,48 +378,49 @@ def ddpm_sample_branched(gd, cond, mask, scfg: SamplerConfig,
     ('gate') and retry with the selection ('retry').  `branch_split` (see
     the module docstring) steps this rank's share of the pair, gathers it
     at the fusion and at each retry, and reads the latch over every rank.
+    `steps`: the step runner (see the module docstring; eager by default):
+    the [2B] phase-A step ('branched'), the fusion step ('fuse'; a retry
+    under mask_x forced is 'retry', the same step when mask_x is set) and
+    the phase-B step ('plain').  `return_debug` needs the eager runner.
     """
     scfg = reconcile(scfg)
-    sched = gd.schedule
     lo, hi = min_max_val
     device = cond.device
     noise_arg, noise = noise, as_noise(noise, device)
+    steps = _as_steps(steps, device)
+    if return_debug and steps.compiled:
+        raise ValueError("return_debug dumps the fusion step's intermediates: use the eager runner")
     b = cond.shape[0]
     shape = (b, gd.image_size, gd.image_size, gd.model_cfg.channels)
 
-    m = binarize_mask(mask)
-    cond_out, cond_in = partition_cond(cond, m, scfg.cond_in_floor)
-
-    # condition features: once per chain, not once per step
-    feat_pair = torch.cat([gd.encode_cond(cond_out), gd.encode_cond(cond_in)])
-    feat_full = gd.encode_cond(cond)
+    # both branches as ONE flat [2B] batch: OOD half first, then IND (this
+    # rank's rows of it under a branch split); the condition features
+    # once per chain, not once per step
+    pair = _Pair(b, branch_split)
+    steps.begin(**_branch_chain(gd, scfg, cond, mask, pair))
+    starts = _branch_starts(gd, scfg, lo, hi)
 
     img0 = noise(shape)
     t_top = gd.num_timesteps
     if scfg.use_gt and gt is not None:
         t_top = int(scfg.use_gt_timestep)
-        img0 = dm.q_sample(sched, gt, _tb(t_top, b, device), img0)
-
-    # both branches as ONE flat [2B] batch: OOD half first, then IND (this
-    # rank's rows of it under a branch split)
-    pair = _Pair(b, branch_split)
+        img0 = dm.q_sample(gd.schedule, gt, _tb(t_top, b, device), img0)
     x2 = pair.part(torch.cat([img0, img0]))
-    branch_starts2 = _branch_starts(gd, scfg, m, cond_out, feat_pair, lo, hi, pair)
 
-    def branched_step(x2, t):
-        tb2 = _tb(t, pair.rows, device)
-        xs2 = branch_starts2(x2, tb2)
-        mean2, _, logvar2 = dm.q_posterior(sched, xs2, x2, tb2)
-        n = _step_noise(noise, shape, t)  # shared across the branches
-        return mean2 + torch.exp(0.5 * logvar2) * pair.part(torch.cat([n, n]))
+    def branched_step(s):
+        x2, t = s["x"], s["t"]
+        xs2 = starts(s, x2, t.expand(pair.rows))
+        n = s["n"]  # shared across the branches
+        return _ddpm_update(gd, xs2, x2, t, pair.part(torch.cat([n, n])))
 
     debug = {}
 
-    def fuse_step(x2, t, source, force_mask_x=False, capture_debug=False):
-        """The fused step at t from (this rank's rows of) the branch pair:
+    def fuse_step(s, force_mask_x=False, capture_debug=False):
+        """The fused step from (this rank's rows of) the branch pair:
         (image, the whole masked pair).  A retry passes the saved masked
         pair with mask_x forced."""
-        xs2, x2 = pair.gather(branch_starts2(x2, _tb(t, pair.rows, device), force_mask_x), x2)
+        m, t = s["m"], s["t"]
+        xs2, x2 = pair.gather(starts(s, s["x"], t.expand(pair.rows), force_mask_x), s["x"])
         xs_out, xs_in = xs2[:b], xs2[b:]
         x_start = (xs_in * (1.0 - m) + xs_out).clamp(lo, hi)  # xs_out is mask_x-masked
         x_out, x_in = x2[:b] * m, x2[b:] * (1.0 - m)
@@ -353,18 +428,15 @@ def ddpm_sample_branched(gd, cond, mask, scfg: SamplerConfig,
         if capture_debug:
             debug.update(pred_out=xs_out, pred_in=xs_in, pred_concat=x_start,
                          x_out=x_out, x_in=x_in)
-        tb = _tb(t, b, device)
-        mean, _, logvar = dm.q_posterior(sched, x_start, x, tb)
-        img = mean + torch.exp(0.5 * logvar) * _step_noise(source, shape, t)
-        return img, torch.cat([x_out, x_in])
+        return _ddpm_update(gd, x_start, x, t, s["n"]), torch.cat([x_out, x_in])
 
-    def plain_step(x, t):
-        """The fused chain's plain step: (image, its clipped x_start)."""
-        tb = _tb(t, b, device)
-        out = gd.apply_model(x, None, tb, cond_feat=feat_full)
-        x_start = dm.model_output_to_x_start(sched, out, x, tb).clamp(lo, hi)
-        mean, _, logvar = dm.q_posterior(sched, x_start, x, tb)
-        return mean + torch.exp(0.5 * logvar) * _step_noise(noise, shape, t), x_start
+    def fusion_step(s):
+        return fuse_step(s, capture_debug=return_debug)
+
+    def retry_step(s):
+        return fuse_step(s, force_mask_x=True)
+
+    plain_step = _ddpm_plain_body(gd, "feat_full", lo, hi)
 
     frames = [torch.stack([img0, img0])]
 
@@ -392,19 +464,19 @@ def ddpm_sample_branched(gd, cond, mask, scfg: SamplerConfig,
     s = int(scfg.start_timestep)
     if not scfg.start_intermediate:
         for t in range(t_top - 1, -1, -1):
-            x2 = branched_step(x2, t)
+            x2 = steps("branched", branched_step, t, x=x2, n=noise(shape))
             record_pair(x2)
         x2 = pair.gather(x2)[0]
         return finish(x2.reshape(2, b, *x2.shape[1:]), fused=False)
 
     # ---- phase A: branched steps t ∈ [T-1 .. s+1] ----
     for t in range(t_top - 1, s, -1):
-        x2 = branched_step(x2, t)
+        x2 = steps("branched", branched_step, t, x=x2, n=noise(shape))
         record_pair(x2)
 
     # ---- fusion at t = s ----
     t_fuse = min(s, t_top - 1)
-    img, x_branchout2 = fuse_step(x2, t_fuse, noise, capture_debug=return_debug)
+    img, x_branchout2 = steps("fuse", fusion_step, t_fuse, x=x2, n=noise(shape))
     record_fused(img)
     if clock is not None:
         clock.mark("chain")
@@ -416,8 +488,9 @@ def ddpm_sample_branched(gd, cond, mask, scfg: SamplerConfig,
         rejects = torch.zeros(b, dtype=torch.int32, device=device)
         budget = int(scfg.max_classifier_retries)
         retry = retry_source(noise_arg, retry_noise, device)
+        retry_name = "fuse" if scfg.mask_x else "retry"  # mask_x set: forcing it changes nothing
     for t in range(t_fuse - 1, -1, -1):
-        img_plain, xs_plain = plain_step(img, t)
+        img_plain, xs_plain = steps("plain", plain_step, t, x=img, n=noise(shape))
         if clock is not None:
             clock.mark("plain")
         if not gating:
@@ -431,7 +504,8 @@ def ddpm_sample_branched(gd, cond, mask, scfg: SamplerConfig,
             accept_now = accept_now | (rejects >= budget)
         if clock is not None:
             clock.mark("gate")
-        img_retry, _ = fuse_step(pair.part(x_branchout2), t, retry, force_mask_x=True)
+        img_retry, _ = steps(retry_name, retry_step, t, x=pair.part(x_branchout2),
+                             n=retry(shape))
         use_plain = accepted | accept_now
         img = torch.where(use_plain[:, None, None, None], img_plain, img_retry)
         accept_t = torch.where(accepted | ~accept_now, accept_t, torch.full_like(accept_t, t))
@@ -456,14 +530,34 @@ def ddim_times(total_timesteps: int, sampling_timesteps: int) -> np.ndarray:
     return np.asarray(list(reversed(times.astype(int).tolist())))
 
 
-def _ddim_coeffs(sched, t: int, t_next: int, eta: float):
-    """(sqrt(alpha_next), c, sigma) of the DDIM update from t to t_next, as
+def _ddim_coeffs(sched, t, t_next, eta: float):
+    """(sqrt(alpha_next), c, sigma) of the DDIM updates from t to t_next
+    (int64 tensors of one shape; alpha_next = 1 where t_next < 0), as
     float32 tensors computed from the schedule's float32 alphas."""
     alpha = sched.alphas_cumprod[t]
-    alpha_next = sched.alphas_cumprod[t_next] if t_next >= 0 else torch.ones_like(alpha)
+    alpha_next = torch.where(t_next >= 0, sched.alphas_cumprod[t_next.clamp(min=0)],
+                             torch.ones_like(alpha))
     sigma = eta * torch.sqrt((1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha))
     c = torch.sqrt((1.0 - alpha_next - sigma**2).clamp(min=0.0))
     return torch.sqrt(alpha_next), c, sigma
+
+
+def _ddim_table(gd, pairs, eta: float) -> torch.Tensor:
+    """[T, 3] float32 on the device: row t holds (sqrt(alpha_next), c,
+    sigma) of the pair (t, t_next) of `pairs` (each t once on the strided
+    grid; the other rows are 0), so a step body reads its coefficients by
+    the device timestep."""
+    dev = gd.schedule.alphas_cumprod.device
+    t = torch.tensor([p[0] for p in pairs], dtype=torch.long, device=dev)
+    t_next = torch.tensor([p[1] for p in pairs], dtype=torch.long, device=dev)
+    table = torch.zeros((gd.num_timesteps, 3), dtype=torch.float32, device=dev)
+    table[t] = torch.stack(_ddim_coeffs(gd.schedule, t, t_next, eta), -1)
+    return table
+
+
+def _coeffs_at(s):
+    """The step's (sqrt(alpha_next), c, sigma), each 0-dim, from the table."""
+    return s["coef"].index_select(0, s["t"].reshape(1))[0].unbind()
 
 
 def _ddim_pairs(gd):
@@ -471,34 +565,57 @@ def _ddim_pairs(gd):
     return times, [(int(a), int(b)) for a, b in zip(times[:-1], times[1:])]
 
 
-def _ddim_step(gd, img, t: int, t_next: int, cond_feat, min_max_val, eta: float, n):
-    """One plain DDIM update with noise n: x_start clipped, pred_noise
-    rederived from it; the terminal pair (t_next < 0) returns x_start."""
-    pred = gd.model_predictions(img, _tb(t, img.shape[0], img.device), cond_feat,
-                                min_max_val, clip_x_start=True, rederive_pred_noise=True)
+def _ddim_bodies(gd, feat: str, min_max_val):
+    """The plain DDIM pair on s['x'] with the features s[feat] and noise
+    s['n'] (x_start clipped, pred_noise rederived from it), and the
+    terminal pair (t_next < 0), which returns x_start."""
+
+    def preds(s):
+        x = s["x"]
+        return gd.model_predictions(x, s["t"].expand(x.shape[0]), s[feat], min_max_val,
+                                    clip_x_start=True, rederive_pred_noise=True)
+
+    def step(s):
+        pred = preds(s)
+        sa, c, sigma = _coeffs_at(s)
+        return pred.pred_x_start * sa + c * pred.pred_noise + sigma * s["n"]
+
+    def terminal(s):
+        return preds(s).pred_x_start
+
+    return step, terminal
+
+
+def _ddim_step(steps, bodies, img, t: int, t_next: int, n):
+    """One plain DDIM pair through the runner: the terminal body when
+    t_next < 0, which takes no noise."""
+    step, terminal = bodies
     if t_next < 0:
-        return pred.pred_x_start
-    sa, c, sigma = _ddim_coeffs(gd.schedule, t, t_next, eta)
-    return pred.pred_x_start * sa + c * pred.pred_noise + sigma * n
+        return steps("plain_terminal", terminal, t, x=img)
+    return steps("plain", step, t, x=img, n=n)
 
 
 @torch.no_grad()
 def ddim_sample_plain(gd, cond, min_max_val: Tuple[float, float], noise=None,
-                      return_all: bool = False):
+                      return_all: bool = False, steps=None):
     """Plain DDIM over the strided pairs (η = `ddim_sampling_eta`, 0 by
     default): x_start clipped, pred_noise rederived from it; the final pair
-    (t_next < 0) returns x_start.  cond: [B, H, W, C]."""
+    (t_next < 0) returns x_start.  cond: [B, H, W, C].  `steps`: the step
+    runner (see the module docstring; eager by default): the pair
+    ('plain') and the terminal pair ('plain_terminal')."""
     noise = as_noise(noise, cond.device)
+    steps = _as_steps(steps, cond.device)
     eta = float(gd.diff_cfg.ddim_sampling_eta)
     shape = (cond.shape[0], gd.image_size, gd.image_size, gd.model_cfg.channels)
     _, pairs = _ddim_pairs(gd)
 
     img = noise(shape)
-    cond_feat = gd.encode_cond(cond)
+    steps.begin(feat=gd.encode_cond(cond), coef=_ddim_table(gd, pairs, eta))
+    bodies = _ddim_bodies(gd, "feat", min_max_val)
     frames = [img]
     for t, t_next in pairs:
         # noise drawn at every pair, as the JAX chain draws it
-        img = _ddim_step(gd, img, t, t_next, cond_feat, min_max_val, eta, noise(shape))
+        img = _ddim_step(steps, bodies, img, t, t_next, noise(shape))
         if return_all:
             frames.append(img)
     if return_all:
@@ -509,7 +626,7 @@ def ddim_sample_plain(gd, cond, min_max_val: Tuple[float, float], noise=None,
 @torch.no_grad()
 def ddim_sample_branched(gd, cond, mask, scfg: SamplerConfig,
                          min_max_val: Tuple[float, float], noise=None,
-                         return_all: bool = False, branch_split=None):
+                         return_all: bool = False, branch_split=None, steps=None):
     """Branched DDIM with mid-chain fusion.
 
     The OOD and IND branches step as one [2B] batch (OOD half first, the
@@ -528,13 +645,18 @@ def ddim_sample_branched(gd, cond, mask, scfg: SamplerConfig,
     duplicated on the pair axis after fusion.  There is no classifier gate
     here, as in the reference: a configuration with `sampler.classifier`
     runs ungated.  `branch_split` (see the module docstring) steps this
-    rank's share of the pair and gathers it at the fusion pair.
+    rank's share of the pair and gathers it at the fusion pair.  `steps`:
+    the step runner (see the module docstring; eager by default): the
+    branched pair ('branched') and its terminal ('branched_terminal'), the
+    fusion pair ('fuse'), the plain pair ('plain') and its terminal
+    ('plain_terminal').
     """
     scfg = reconcile(scfg)
     sched = gd.schedule
     lo, hi = min_max_val
     device = cond.device
     noise = as_noise(noise, device)
+    steps = _as_steps(steps, device)
     eta = float(gd.diff_cfg.ddim_sampling_eta)
     b = cond.shape[0]
     shape = (b, gd.image_size, gd.image_size, gd.model_cfg.channels)
@@ -542,22 +664,39 @@ def ddim_sample_branched(gd, cond, mask, scfg: SamplerConfig,
     fuse_time = int(times[-scfg.start_timestep - 2])
     fuse_idx = next((i for i, (t, _) in enumerate(pairs) if t <= fuse_time), None)
 
-    m = binarize_mask(mask)
-    cond_out, cond_in = partition_cond(cond, m, scfg.cond_in_floor)
-    feat_pair = torch.cat([gd.encode_cond(cond_out), gd.encode_cond(cond_in)])
-    feat_full = gd.encode_cond(cond)
+    pair = _Pair(b, branch_split)
+    steps.begin(coef=_ddim_table(gd, pairs, eta), **_branch_chain(gd, scfg, cond, mask, pair))
+    starts = _branch_starts(gd, scfg, lo, hi)
 
     img0 = noise(shape)
-    pair = _Pair(b, branch_split)
     x2 = pair.part(torch.cat([img0, img0]))
-    starts2 = _branch_starts(gd, scfg, m, cond_out, feat_pair, lo, hi, pair)
 
-    def branch_preds2(x2, tb2):
+    def branch_preds2(s):
         """Both branches' clipped x_start and the pred_noise rederived from
         it."""
-        xs2 = starts2(x2, tb2)
+        x2 = s["x"]
+        tb2 = s["t"].expand(pair.rows)
+        xs2 = starts(s, x2, tb2)
         return xs2, dm.predict_noise_from_start(sched, x2, tb2, xs2)
 
+    def branched_pair(s):
+        xs2, pn2 = branch_preds2(s)
+        sa, c, sigma = _coeffs_at(s)
+        n = s["n"]  # shared across the branches
+        return xs2 * sa + c * pn2 + sigma * pair.part(torch.cat([n, n]))
+
+    def branched_terminal(s):
+        return branch_preds2(s)[0]
+
+    def fuse_pair(s):
+        m = s["m"]
+        xs2, pn2 = pair.gather(*branch_preds2(s))
+        x_start = fuse_noisy_states(xs2[:b], xs2[b:], m, scfg.fusion_route).clamp(lo, hi)
+        pred_noise = fuse_noisy_states(pn2[:b] * m, pn2[b:] * (1.0 - m), m, scfg.fusion_route)
+        sa, c, sigma = _coeffs_at(s)
+        return x_start * sa + c * pred_noise + sigma * s["n"]
+
+    plain = _ddim_bodies(gd, "feat_full", min_max_val)
     frames = [torch.stack([img0, img0])]
 
     def as_pair(x2):
@@ -569,10 +708,11 @@ def ddim_sample_branched(gd, cond, mask, scfg: SamplerConfig,
         return _maybe_unnorm(gd, result)
 
     def branched_step(x2, t, t_next):
-        xs2, pn2 = branch_preds2(x2, _tb(t, pair.rows, device))
-        sa, c, sigma = _ddim_coeffs(sched, t, t_next, eta)
-        n = noise(shape)  # shared across the branches
-        x2 = xs2 if t_next < 0 else xs2 * sa + c * pn2 + sigma * pair.part(torch.cat([n, n]))
+        n = noise(shape)  # drawn at the terminal pair too
+        if t_next < 0:
+            x2 = steps("branched_terminal", branched_terminal, t, x=x2)
+        else:
+            x2 = steps("branched", branched_pair, t, x=x2, n=n)
         if return_all:
             frames.append(as_pair(pair.gather(x2)[0]))
         return x2
@@ -587,21 +727,18 @@ def ddim_sample_branched(gd, cond, mask, scfg: SamplerConfig,
 
     # ---- fusion pair: the whole pair gathered ----
     t, t_next = pairs[fuse_idx]
-    xs2, pn2 = pair.gather(*branch_preds2(x2, _tb(t, pair.rows, device)))
     if t_next < 0:
+        xs2 = pair.gather(steps("branched_terminal", branched_terminal, t, x=x2))[0]
         if return_all:
             frames.append(as_pair(xs2))
         return finish(as_pair(xs2))
-    x_start = fuse_noisy_states(xs2[:b], xs2[b:], m, scfg.fusion_route).clamp(lo, hi)
-    pred_noise = fuse_noisy_states(pn2[:b] * m, pn2[b:] * (1.0 - m), m, scfg.fusion_route)
-    sa, c, sigma = _ddim_coeffs(sched, t, t_next, eta)
-    img = x_start * sa + c * pred_noise + sigma * noise(shape)
+    img = steps("fuse", fuse_pair, t, x=x2, n=noise(shape))
     if return_all:
         frames.append(torch.stack([img, img]))
 
     # ---- plain DDIM on the fused chain ----
     for t, t_next in pairs[fuse_idx + 1:]:
-        img = _ddim_step(gd, img, t, t_next, feat_full, min_max_val, eta, noise(shape))
+        img = _ddim_step(steps, plain, img, t, t_next, noise(shape))
         if return_all:
             frames.append(torch.stack([img, img]))
     return finish(img)
@@ -637,7 +774,8 @@ def interpolate(gd, x1, x2, cond, min_max_val: Tuple[float, float], t: Optional[
         out = gd.apply_model(img, None, tb, cond_feat=cond_feat)
         x_start = dm.model_output_to_x_start(sched, out, img, tb).clamp(lo, hi)
         mean, _, logvar = dm.q_posterior(sched, x_start, img, tb)
-        img = mean + torch.exp(0.5 * logvar) * _step_noise(noise, tuple(img.shape), tt)
+        n = noise(tuple(img.shape))
+        img = mean + torch.exp(0.5 * logvar) * (n if tt > 0 else torch.zeros_like(n))
     return img
 
 

@@ -15,12 +15,23 @@ anomaly maps.  Port of `localdiffusion_tpu/ood/patchcore.py`.
 The distance product runs in full float32, as the CPU computes it, whatever
 the process's TF32 flag: the search turns cuBLAS's TF32 off for itself
 (`utils.precision.full_float32`).
+
+On the card, a score without a `StageClock` (the classifier gate's, and
+Stage A's detect unless it times its stages) is a compiled program, the
+counterpart of the JAX package's jit-compiled `_score_jit`: the feature
+pass, the nearest-neighbour search, the image score and the score map
+captured as one CUDA graph per key (the input's shape, the TF32 flags and
+the source's kernel routes) and replayed (`diffusion.compiled`), the bank
+read in place: assigning a new `memory_bank` drops every program, and the
+source's weights are fingerprinted before each call, as a pipeline's are.  Under a clock the
+score runs eagerly, so the stages can be marked between its launches.
 """
 
 from __future__ import annotations
 
 import math
 import time
+import weakref
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -186,6 +197,19 @@ def subsample_embedding(embedding: torch.Tensor, sampling_ratio: float,
 # model wrapper
 # ---------------------------------------------------------------------------
 
+def _source_module(source):
+    """The module whose weights a feature source reads (the denoiser's
+    UNet, the WRN50-2, the SegUNet), or None."""
+    gd = getattr(source, "gd", None)
+    if gd is not None:
+        return gd.model
+    for attr in ("backbone", "model"):
+        m = getattr(source, attr, None)
+        if isinstance(m, torch.nn.Module):
+            return m
+    return None
+
+
 class StageClock:
     """Times the stages of one Stage A call: `mark(name)` ends the stage
     begun at the previous mark.  On a CUDA device the marks are CUDA events
@@ -238,11 +262,23 @@ class PatchCore:
         self.layers = tuple(source.layers)
         self.input_size = (cfg.input_size, cfg.input_size)
         self.num_neighbors = cfg.num_neighbors
+        self._programs = None
         self.memory_bank = None
         if memory_bank is not None:
             self.memory_bank = torch.as_tensor(np.array(memory_bank, np.float32),
                                                device=self.device)
         self.last_build_s: Dict[str, float] = {}
+
+    @property
+    def memory_bank(self) -> Optional[torch.Tensor]:
+        return self._memory_bank
+
+    @memory_bank.setter
+    def memory_bank(self, bank: Optional[torch.Tensor]) -> None:
+        """A new bank drops the compiled programs, whose graphs read the
+        old one in place."""
+        self._memory_bank = bank
+        self._programs = None
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -284,10 +320,32 @@ class PatchCore:
         return self.memory_bank.cpu().numpy()
 
     def _score(self, x, clock: Optional[StageClock]) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(patch scores [B, h, w, 1], image scores [B]) on the device."""
+        """(patch scores [B, h, w, 1], image scores [B]) on the device: the
+        compiled program on the card without a clock (see the module
+        docstring), else eagerly."""
         if self.memory_bank is None:
             raise ValueError("load or build a memory bank first")
-        emb_map = self.embed_map(self._input(x))
+        x = self._input(x)
+        module = _source_module(self.source)
+        if clock is None and self.device.type == "cuda" and module is not None:
+            return self._score_compiled(x, module)
+        return self._score_eager(x, clock)
+
+    def _score_compiled(self, x, module) -> Tuple[torch.Tensor, torch.Tensor]:
+        from localdiffusion_tpu_torch.diffusion.compiled import Programs, kernel_routes
+
+        if self._programs is None:
+            self._programs = Programs(module, self.device)
+        key = ("score", tuple(x.shape), torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+               kernel_routes(module))
+        this = weakref.ref(self)  # a program keeping its PatchCore alive would keep its graphs
+        with self._programs.lock:
+            program = self._programs.get(key)
+            program.begin()
+            return program("score", lambda s: this()._score_eager(s["x"], None), 0, x=x)
+
+    def _score_eager(self, x, clock: Optional[StageClock]) -> Tuple[torch.Tensor, torch.Tensor]:
+        emb_map = self.embed_map(x)
         if clock is not None:
             clock.mark("features")
         b, h, w, c = emb_map.shape

@@ -8,10 +8,17 @@ every local header it includes (`#include "…"`, followed through headers)
 and of the flags, so an edit to any of them rebuilds it at its next first
 use and an unchanged one is not rebuilt.  A failed build raises with
 nvcc's stderr.
+
+A wrapper counts a launch where it launches its kernel (`count_launch`).
+While a CUDA graph captures on a thread (`recording_launches`), the
+launches it captures there are recorded instead, and the graph's owner adds
+them to the counts at each replay (`add_launches`): a captured launch is
+counted where the card runs it, once a replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -34,15 +41,40 @@ _LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 _loaded: dict = {}
 _lock = threading.Lock()
 _count_lock = threading.Lock()
+_recording = threading.local()
 
 
 def count_launch(fn) -> None:
-    """Add one to `fn.launches`, a kernel wrapper's launch count.  Under a
-    lock: the serving threads (Stage A of one batch, Stage B of another)
-    launch kernels at once, and `+=` on an attribute is a read and a write
-    that another thread may come between."""
+    """Add one to `fn.launches`, a kernel wrapper's launch count, or, while
+    this thread captures a graph, to the capture's record.  Under a lock:
+    the serving threads (Stage A of one batch, Stage B of another) launch
+    kernels at once, and `+=` on an attribute is a read and a write that
+    another thread may come between."""
+    rec = getattr(_recording, "counts", None)
+    if rec is not None:
+        rec[fn] = rec.get(fn, 0) + 1
+        return
     with _count_lock:
         fn.launches += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """The launches this thread's wrappers make inside the block, as
+    {wrapper: count}, recorded and not counted (a graph's capture)."""
+    prev = getattr(_recording, "counts", None)
+    _recording.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _recording.counts = prev
+
+
+def add_launches(counts: dict) -> None:
+    """Count the recorded launches of `recording_launches` (a replay)."""
+    with _count_lock:
+        for fn, n in counts.items():
+            fn.launches += n
 
 
 def _nvcc() -> str:

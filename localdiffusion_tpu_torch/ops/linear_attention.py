@@ -262,6 +262,7 @@ def _lib():
 
 
 _counters: dict = {}
+_retired: list = []
 _counters_lock = threading.Lock()
 
 
@@ -269,11 +270,16 @@ def _row_counters(device, b):
     """The kv kernel's per-row counters on `device`, at least `b` of them:
     zero when made, and every launch leaves them at zero, so one buffer
     serves every launch on the device's stream (and a CUDA graph's replay).
-    Under a lock: the serving threads may both look for the buffer, and one
-    may grow it, at once."""
+    A larger batch grows it into a new buffer; the old one is kept alive
+    (`_retired`) for the life of the process, since a captured graph
+    launches on the buffer it captured and a freed one would be reused with
+    other contents.  Under a lock: the serving threads may both look for
+    the buffer, and one may grow it, at once."""
     with _counters_lock:
         cnt = _counters.get(device)
         if cnt is None or cnt.numel() < b:
+            if cnt is not None:
+                _retired.append(cnt)
             cnt = torch.zeros(max(b, 64), dtype=torch.int32, device=device)
             _counters[device] = cnt
         return cnt

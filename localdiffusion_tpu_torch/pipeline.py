@@ -11,6 +11,20 @@ timesteps`).  With `sampler.classifier` and a classifier gate
 (`factory.build_classifier_gate`), the branched DDPM chain's post-fusion
 steps are gated; DDIM has no gate, as in the reference.
 
+On a CUDA device without a mesh, `translate` runs Stage B as compiled
+programs, as the JAX pipeline runs its jit-compiled samplers
+(`_compile_plain`, `_compile_branched`; `diffusion.compiled`): each
+sampler's step bodies are captured as CUDA graphs at the first chain of a
+key (program, batch, image size, channels, compute dtype, both TF32 flags,
+gated or not, `use_gt`, the sampler settings and the kernel routes) and
+replayed at every step after; the weights' fingerprint is checked before
+each chain, and a moved parameter drops every program.  The output is the
+eager chain's, bit for bit.  A capture or replay failure raises: nothing
+carries on eagerly in its place.  On the CPU, which has no CUDA graphs,
+and over a mesh, whose gathers are collectives between ranks, `translate`
+runs the eager samplers, as `diffusion.sampler.sample` and the sampler
+functions themselves always do.
+
 With `mesh=` (`parallel.mesh.make_mesh`, one process a rank, every rank
 calling `translate` with the same arguments) the pipeline is the JAX one
 over its ('data', 'patch') mesh: every rank holds the same weights
@@ -33,6 +47,7 @@ import torch
 
 from localdiffusion_tpu_torch.config import Config, min_max_val_for
 from localdiffusion_tpu_torch.diffusion import sampler as S
+from localdiffusion_tpu_torch.diffusion.compiled import GraphSteps, Programs, kernel_routes
 from localdiffusion_tpu_torch.diffusion.gaussian import GaussianDiffusion
 from localdiffusion_tpu_torch.ood.frontend import OODFrontend
 from localdiffusion_tpu_torch.ood.patchcore import StageClock
@@ -91,6 +106,29 @@ class LocalDiffusionPipeline:
                 unshard_tensor_parallel(gd.model)
             H.check_replicated(gd.model.state_dict().values(), "denoiser weights")
             self.branch_split = BranchSplit(mesh)
+        self.programs = Programs(gd.model, self.device)
+        # whether `translate` runs the compiled programs: on a CUDA device
+        # without a mesh (cleared, it runs the eager samplers there too)
+        self.compiles = self.device.type == "cuda" and mesh is None
+
+    def _key(self, program: str, b: int, **flags) -> tuple:
+        gd = self.gd
+        return (program, b, gd.image_size, gd.model_cfg.channels, gd.dtype,
+                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+                tuple(sorted(flags.items())), self.config.sampler, self.min_max_val,
+                kernel_routes(gd.model))
+
+    def _compile_plain(self, b: int) -> GraphSteps:
+        """The compiled plain chain at batch b (DDPM or DDIM as the engine
+        samples)."""
+        program = "ddim_plain" if self.gd.is_ddim_sampling else "ddpm_plain"
+        return self.programs.get(self._key(program, b))
+
+    def _compile_branched(self, b: int, gated: bool, use_gt: bool) -> GraphSteps:
+        """The compiled branched chain at batch b, gated or not, from the
+        ground truth or not."""
+        program = "ddim_branched" if self.gd.is_ddim_sampling else "ddpm_branched"
+        return self.programs.get(self._key(program, b, gated=gated, use_gt=use_gt))
 
     def detect(self, lr: np.ndarray):
         """Stage A for a batch [B, H, W, C]: (mask_pred, binary_mask,
@@ -158,34 +196,43 @@ class LocalDiffusionPipeline:
         lr_t = torch.as_tensor(lr[rows], device=dev)
         gt = torch.as_tensor(np.asarray(hr, np.float32)[rows], device=dev) if use_gt else None
 
+        steps = None
+        if self.compiles:
+            steps = (self._compile_branched(n, gated, use_gt) if branch
+                     else self._compile_plain(n))
+        # Stage B's clock, between waits for this thread's stream (not the
+        # whole device: the server's other thread may be capturing a graph)
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            torch.cuda.current_stream(dev).synchronize()
         t0 = time.perf_counter()
         mask_t = torch.as_tensor(mask[rows], device=dev)
         fusion_time = None
-        if self.gd.is_ddim_sampling:
-            if branch:
-                out = S.ddim_sample_branched(self.gd, lr_t, mask_t, scfg, self.min_max_val,
-                                             noise=noise, branch_split=split)
+        with self.programs.lock:
+            if self.gd.is_ddim_sampling:
+                if branch:
+                    out = S.ddim_sample_branched(self.gd, lr_t, mask_t, scfg, self.min_max_val,
+                                                 noise=noise, branch_split=split, steps=steps)
+                else:
+                    out = S.ddim_sample_plain(self.gd, lr_t, self.min_max_val, noise=noise,
+                                              steps=steps)
+            elif branch:
+                gate = self.classifier_gate if gated else None
+                out = S.ddpm_sample_branched(self.gd, lr_t, mask_t, scfg, self.min_max_val,
+                                             noise=noise, gt=gt, classifier_fn=gate,
+                                             return_fusion_time=gated,
+                                             retry_noise=retry_noise, clock=clock,
+                                             branch_split=split, steps=steps)
+                if gated:
+                    out, fusion_time = out
             else:
-                out = S.ddim_sample_plain(self.gd, lr_t, self.min_max_val, noise=noise)
-        elif branch:
-            gate = self.classifier_gate if gated else None
-            out = S.ddpm_sample_branched(self.gd, lr_t, mask_t, scfg, self.min_max_val,
-                                         noise=noise, gt=gt, classifier_fn=gate,
-                                         return_fusion_time=gated,
-                                         retry_noise=retry_noise, clock=clock,
-                                         branch_split=split)
-            if gated:
-                out, fusion_time = out
-        else:
-            out = S.ddpm_sample_plain(self.gd, lr_t, self.min_max_val, noise=noise)
+                out = S.ddpm_sample_plain(self.gd, lr_t, self.min_max_val, noise=noise,
+                                          steps=steps)
         if self.mesh is not None:
             out = self._gather_rows(out, n)
             if fusion_time is not None:
                 fusion_time = self._gather_rows(fusion_time, n)
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            torch.cuda.current_stream(dev).synchronize()
         dt = time.perf_counter() - t0
 
         result: Dict[str, np.ndarray] = {

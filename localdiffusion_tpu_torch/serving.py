@@ -108,7 +108,16 @@ class InferenceServer:
     def start(self, warmup: bool = False):
         """Start the batching worker.  `warmup` first runs each chain the
         server dispatches once (`_warmup`), so the first request does not
-        pay the first launch of each kernel and cuDNN's first calls."""
+        pay the first launch of each kernel and cuDNN's first calls.  On a
+        pipeline that compiles (`pipeline.translate` on the card without a
+        mesh) that run captures every program the server dispatches before
+        the worker threads start, and the first request replays; without
+        it the first dispatch of each program captures on the sampling
+        thread while Stage A may run on the other (the capture is
+        thread-local, and the port waits on streams there, never on the
+        whole device, which a capture forbids; both threads' kernels,
+        warm-up steps and replays alike, run on the default stream, in the
+        order they were launched)."""
         if warmup:
             self._warmup()
         self._stop.clear()
@@ -179,7 +188,9 @@ class InferenceServer:
     def _warmup(self):
         """One `translate` of zeros at the static batch shape with a uniform
         mask (the plain chain) and, with `sampler.branch_out`, one with half
-        the columns at 0.5 (the branched chain), both with batch 0's noise.
+        the columns at 0.5 (the branched chain, gated where the pipeline
+        gates: the gate runs at its first post-fusion step, so the plain
+        and retry steps are captured too), both with batch 0's noise.
         It leaves the batch index and the stats as they were, so the first
         real batch gets the same noise with or without it."""
         b, s = self.batch_size, self.pipe.gd.image_size

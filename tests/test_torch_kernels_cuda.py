@@ -1332,3 +1332,209 @@ def test_self_conditioned_bf16_unet_kernels_match_plain_versions(cuda_device):
     loss.backward()
     assert [k.launches for k in COUNTED] == mid
     assert float(gd.model.time_mlp.pos_emb.weights.grad.abs().max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# Stage B as compiled programs (diffusion.compiled): captured chains
+# ---------------------------------------------------------------------------
+
+def _chain_inputs(cfg, b, device):
+    lr = torch.as_tensor(_flair(cfg, b, 7, tumor=True)[1], device=device)
+    mask = torch.zeros(b, 64, 64, 1, device=device)
+    mask[:, 16:40, 12:36] = 1.0
+    return lr, mask
+
+
+def _counts():
+    fns = (G.groupnorm_film_silu, G.gn_tiled_stats, G.gn_tiled_apply, flash_attention,
+           LA.linear_attention_kv, LA.linear_attention_q, RB.conv3x3_stats, RB.epilogue)
+    return {fn.__name__: fn.launches for fn in fns}
+
+
+@pytest.mark.cuda
+def test_compiled_chains_equal_the_eager_chains(cuda_device):
+    """bf16 with the kernels at 64px, T=8: the branched DDPM chain (fused
+    at 5) and a DDIM-4 chain, plain and branched (fused at the pair (3,
+    1)), through `GraphSteps` (two chains: the first captures, the second
+    replays every step) equal the eager chains bit for bit and launch what
+    they launch."""
+    from localdiffusion_tpu_torch.diffusion.compiled import GraphSteps
+
+    cfg, _, gd = _gated64("bfloat16", cuda_device)
+    lr, mask = _chain_inputs(cfg, 2, cuda_device)
+    mmv = min_max_val_for(cfg)
+    scfg = dataclasses.replace(cfg.sampler, classifier=False)
+    ddim = build_gd(cfg.replace(diffusion=dataclasses.replace(cfg.diffusion,
+                                                              sampling_timesteps=4)),
+                    device=cuda_device)
+    ddim.model.load_state_dict(gd.model.state_dict())
+    ddim_scfg = dataclasses.replace(scfg, start_timestep=1)  # times [7, 5, 3, 1, -1]
+    runs = {
+        "ddpm_branched": lambda st: TS.ddpm_sample_branched(gd, lr, mask, scfg, mmv, noise=3,
+                                                            steps=st),
+        "ddim_plain": lambda st: TS.ddim_sample_plain(ddim, lr, mmv, noise=3, steps=st),
+        "ddim_branched": lambda st: TS.ddim_sample_branched(ddim, lr, mask, ddim_scfg, mmv,
+                                                            noise=3, steps=st),
+    }
+    for name, run in runs.items():
+        before = _counts()
+        want = run(None)
+        torch.cuda.synchronize()
+        eager = {k: v - before[k] for k, v in _counts().items()}
+        program = GraphSteps(cuda_device)
+        for _ in range(2):
+            before = _counts()
+            got = run(program)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), name
+            assert {k: v - before[k] for k, v in _counts().items()} == eager, name
+        assert program.summary()["graphs"] >= 2 and program.replays > 0
+
+
+@pytest.mark.cuda
+def test_a_replay_after_a_larger_eager_batch_is_unchanged(cuda_device):
+    """A chain captured at batch 4, an eager UNet call at batch 128 (which
+    grows the kv kernel's row counters past the captured buffer), then the
+    chain replayed: still the eager chain, bit for bit."""
+    from localdiffusion_tpu_torch.diffusion.compiled import GraphSteps
+
+    cfg, _, gd = _gated64("bfloat16", cuda_device)
+    lr, mask = _chain_inputs(cfg, 4, cuda_device)
+    mmv = min_max_val_for(cfg)
+    scfg = dataclasses.replace(cfg.sampler, classifier=False)
+    run = lambda st: TS.ddpm_sample_branched(gd, lr, mask, scfg, mmv, noise=5, steps=st)
+    want = run(None)
+    program = GraphSteps(cuda_device)
+    assert torch.equal(run(program), want)
+    dev = lr.device  # the counters are kept by the tensors' device, cuda:0
+    captured = LA._row_counters(dev, 1)
+    x = torch.randn(128, 64, 64, 1, device=dev)
+    t = torch.full((128,), 3, device=dev)
+    gd.apply_model(x, lr[:1].expand(128, -1, -1, -1).contiguous(), t)
+    assert LA._row_counters(dev, 1).numel() >= 128 > captured.numel()
+    assert torch.equal(run(program), want)
+    torch.cuda.synchronize()
+    assert not captured.any() and not LA._row_counters(dev, 1).any()
+
+
+@pytest.mark.cuda
+def test_a_rebound_parameter_forces_a_recapture(cuda_device):
+    """`translate` on the card replays its programs; a rebound parameter
+    moves the weights' fingerprint, the next chain captures anew, and its
+    output is the eager chain's under the new weights."""
+    from localdiffusion_tpu_torch.pipeline import LocalDiffusionPipeline
+
+    cfg, _, gd = _gated64("bfloat16", cuda_device)
+    pipe = LocalDiffusionPipeline(cfg, gd)
+    assert pipe.compiles
+    lr, mask = _chain_inputs(cfg, 2, cuda_device)
+    lr_np, mask_np = lr.cpu().numpy(), mask.cpu().numpy()
+    mmv = min_max_val_for(cfg)
+    eager = lambda: TS.ddpm_sample_branched(gd, lr, mask, cfg.sampler, mmv, noise=4)
+    first = pipe.translate(lr_np, noise=4, mask=mask_np)["pred"]
+    np.testing.assert_array_equal(first, eager().cpu().numpy())
+    again = pipe.translate(lr_np, noise=4, mask=mask_np)["pred"]
+    np.testing.assert_array_equal(again, first)
+    (program,) = pipe.programs.summary()["programs"].values()
+    assert program["replays"] > 0 and pipe.programs.recaptures == 0
+    w = gd.model.init_conv.weight
+    gd.model.init_conv.weight = torch.nn.Parameter(w.detach() * 1.5)
+    moved = pipe.translate(lr_np, noise=4, mask=mask_np)["pred"]
+    assert pipe.programs.recaptures == 1
+    np.testing.assert_array_equal(moved, eager().cpu().numpy())
+    assert not np.array_equal(moved, first)
+
+
+@pytest.mark.cuda
+def test_compiled_patchcore_score_equals_the_eager_one(cuda_device):
+    """PatchCore's score on the card without a clock is a compiled program
+    (one graph per input shape and bank): equal to the eager score bit for
+    bit and launching what it launches; under a `StageClock` it runs
+    eagerly and marks its stages."""
+    from localdiffusion_tpu_torch.ood.patchcore import StageClock
+
+    cfg, _, gd = _gated64("bfloat16", cuda_device)
+    pc = PatchCore(cfg.ood, source=DenoiserFeatureSource(gd, t=cfg.ood.feature_t))
+    pc.build_memory_bank([_flair(cfg, 4, 11)[0]], sampling_ratio=0.05)
+    x = torch.as_tensor(_flair(cfg, 3, 5, tumor=True)[1], device=cuda_device)
+    before = _counts()
+    want = pc._score_eager(x, None)
+    torch.cuda.synchronize()
+    eager = {k: v - before[k] for k, v in _counts().items()}
+    for _ in range(3):
+        before = _counts()
+        got = pc._score(x, None)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert {k: v - before[k] for k, v in _counts().items()} == eager
+    (program,) = pc._programs.summary()["programs"].values()
+    assert program["graphs"] == 1 and program["replays"] == 2
+    clock = StageClock("cuda")
+    out = pc(x, clock=clock)
+    torch.cuda.synchronize()
+    assert set(clock.split()) == {"features", "nn", "map"}
+    assert torch.equal(out["pred_score"], want[1])
+
+
+@pytest.mark.cuda
+def test_a_server_without_warmup_serves_the_eager_chains(cuda_device):
+    """`InferenceServer` without warm-up, `overlap_detect` on, over a
+    compiled pipeline whose Stage A is PatchCore on the denoiser's taps:
+    each program's first dispatch warms up and captures on the sampling
+    thread while Stage A detects on the other, and both launch the kv
+    kernel, whose counter buffer every launch on the device shares.  Each
+    served image is its batch's eager chain's, bit for bit, and the
+    counters end at zero."""
+    from localdiffusion_tpu_torch.ood.frontend import OODFrontend
+    from localdiffusion_tpu_torch.pipeline import LocalDiffusionPipeline, batch_seed
+    from localdiffusion_tpu_torch.serving import InferenceServer
+
+    cfg, _, gd = _gated64("bfloat16", cuda_device)
+    cfg = cfg.replace(sampler=dataclasses.replace(cfg.sampler, classifier=False))
+    pc = PatchCore(cfg.ood, source=DenoiserFeatureSource(gd, t=cfg.ood.feature_t))
+    pc.build_memory_bank([_flair(cfg, 4, 11)[0]], sampling_ratio=0.05)
+    pipe = LocalDiffusionPipeline(cfg, gd, frontend=OODFrontend(cfg, patchcore=pc))
+    assert pipe.compiles
+    lr = _flair(cfg, 8, 13, tumor=True)[1]
+    half = np.ones((64, 64, 1), np.float32)
+    half[:, :32] = 0.5
+    # two requests a batch: the first detected, the second bringing a
+    # mask, so every batch runs Stage A and the branched chain
+    srv = InferenceServer(pipe, batch_size=2, max_wait_ms=50, overlap_detect=True)
+    futs = [srv.submit(lr[i], None if i % 2 == 0 else half) for i in range(8)]
+    with srv:
+        served = [f.result(timeout=600)["pred"] for f in futs]
+    stats = srv.snapshot_stats()
+    assert stats["branched_dispatches"] + stats["merged_dispatches"] == 4
+    pipe.compiles = False
+    for i in range(4):
+        rows = lr[2 * i:2 * i + 2]
+        detected = pipe.detect(np.stack([rows[0], rows[0]]))[0][0]
+        want = pipe.translate(rows, noise=batch_seed(0, i), mask=np.stack([detected, half]))
+        for j in range(2):
+            np.testing.assert_array_equal(served[2 * i + j], want["pred"][j])
+    torch.cuda.synchronize()
+    assert not LA._row_counters(torch.zeros(1, device=cuda_device).device, 1).any()
+
+
+@pytest.mark.cuda
+def test_a_warmup_step_runs_on_the_callers_stream(cuda_device):
+    """A body's first step (its warm-up) runs on the caller's current
+    stream, where the other serving thread's kernels run too, and only its
+    capture on the program's side stream: the kv kernel's counters, one
+    buffer a device, must never see two launches at once."""
+    from localdiffusion_tpu_torch.diffusion.compiled import GraphSteps
+
+    streams = []
+
+    def body(s):
+        streams.append(torch.cuda.current_stream())
+        return s["x"] * 2
+
+    program = GraphSteps(cuda_device)
+    x = torch.arange(4.0, device=cuda_device)
+    program.begin()
+    first = program("double", body, 0, x=x)
+    again = program("double", body, 1, x=x + 1)
+    assert streams == [torch.cuda.current_stream(), program.stream]
+    assert torch.equal(first, x * 2) and torch.equal(again, (x + 1) * 2)
